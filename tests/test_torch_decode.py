@@ -1,0 +1,137 @@
+"""Port decode (turbo_whisper_workspace_tpu_torch/decode) against the JAX
+package: token rules, greedy decode at T=0 and language detection on the
+same weights and cross-KV; sampled decode (T>0) for grammar validity
+only, since torch's generator cannot reproduce JAX's rbg draws."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from turbo_whisper_workspace_tpu.decode import greedy as jgreedy
+from turbo_whisper_workspace_tpu.decode import rules as jrules
+from turbo_whisper_workspace_tpu.decode import tokenizer as jtok
+from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu_torch.decode import greedy as tgreedy
+from turbo_whisper_workspace_tpu_torch.decode import rules as trules
+from turbo_whisper_workspace_tpu_torch.decode import tokenizer as ttok
+from turbo_whisper_workspace_tpu_torch.models import convert
+from turbo_whisper_workspace_tpu_torch.models import whisper as twm
+
+DIMS = jwm.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
+SP_J = jtok.special_tokens_for_vocab(DIMS.n_vocab)
+SP_T = ttok.special_tokens_for_vocab(DIMS.n_vocab)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = jwm.init_params(DIMS, jax.random.PRNGKey(0))
+    model = convert.from_jax_params(jax.tree.map(np.asarray, params),
+                                    twm.WhisperDims(**DIMS.__dict__))
+    feats = (np.random.default_rng(1).standard_normal(
+        (3, DIMS.n_audio_ctx, DIMS.n_audio_state)) * 0.3).astype(np.float32)
+    ckv_j = jwm.precompute_cross_kv(params, DIMS, feats, quantize=True)
+    ckv_t = model.decoder.precompute_cross_kv(torch.from_numpy(feats), quantize=True)
+    return params, model, ckv_j, ckv_t
+
+
+@pytest.mark.parametrize("timestamps", [True, False])
+def test_rules_apply_matches_jax(timestamps):
+    rng = np.random.default_rng(0)
+    jr = jrules.DecodeRules(specials=SP_J, timestamps=timestamps)
+    tr = trules.DecodeRules(specials=SP_T, timestamps=timestamps)
+    np.testing.assert_array_equal(tr.static_mask().numpy(), np.asarray(jr.static_mask()))
+    np.testing.assert_array_equal(tr.begin_mask().numpy(), np.asarray(jr.begin_mask()))
+    tsb = SP_J.timestamp_begin
+    # rows: text/text, ts/text, ts/ts, text/ts, and a raised floor
+    last = np.array([100, tsb + 5, tsb + 7, 300, tsb + 9], np.int64)
+    penult = np.array([200, 150, tsb + 3, tsb + 2, 17], np.int64)
+    floor = np.array([tsb, tsb + 5, tsb + 8, tsb + 3, tsb + 40], np.int64)
+    logits = rng.standard_normal((5, DIMS.n_vocab)).astype(np.float32) * 3
+    logits[1, tsb:] += 4.0                      # timestamp mass wins on row 1
+    for is_begin in (True, False):
+        ref = np.asarray(jr.apply(
+            jnp.asarray(logits), jnp.asarray(is_begin), jnp.asarray(last),
+            jnp.asarray(penult), jnp.asarray(floor), jr.static_mask(), jr.begin_mask()))
+        got = tr.apply(torch.from_numpy(logits), is_begin, torch.from_numpy(last),
+                       torch.from_numpy(penult), torch.from_numpy(floor),
+                       tr.static_mask(), tr.begin_mask()).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_update_ts_floor_matches_jax():
+    tsb = SP_J.timestamp_begin
+    nxt = np.array([tsb + 4, tsb + 4, 300, 300, tsb + 1], np.int64)
+    prev = np.array([200, tsb + 2, tsb + 6, 100, tsb + 9], np.int64)
+    floor = np.full(5, tsb + 3, np.int64)
+    ref = np.asarray(jrules.update_ts_floor(jnp.asarray(floor), jnp.asarray(nxt),
+                                            jnp.asarray(prev), SP_J))
+    got = trules.update_ts_floor(torch.from_numpy(floor), torch.from_numpy(nxt),
+                                 torch.from_numpy(prev), SP_T).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_greedy_t0_matches_jax(setup):
+    params, model, ckv_j, ckv_t = setup
+    prompt = np.array([SP_J.sot_sequence("en")] * 3, np.int32)
+    kw = dict(max_len=20)
+    ref = jgreedy.greedy_decode_features(
+        params, DIMS, ckv_j, jnp.asarray(prompt),
+        rules=jrules.DecodeRules(specials=SP_J), **kw)
+    got = tgreedy.greedy_decode_features(
+        model, ckv_t, torch.from_numpy(prompt).long(),
+        rules=trules.DecodeRules(specials=SP_T), **kw)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(ref.lengths))
+    for field in ("avg_logprobs", "sum_logprobs", "no_speech_probs"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(ref, field)), atol=1e-3)
+
+
+def test_detect_language_matches_jax(setup):
+    params, model, ckv_j, ckv_t = setup
+    args = (SP_J.sot, SP_J.sot + 1, SP_J.n_languages)
+    ref = np.asarray(jgreedy.detect_language_features(params, DIMS, ckv_j, *args))
+    got = tgreedy.detect_language_features(model, ckv_t, *args).numpy()
+    assert got.shape == (3, SP_J.n_languages)
+    np.testing.assert_allclose(got, ref, atol=1e-3)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def _check_grammar(sampled, sp, suppressed):
+    """One row of sampled tokens obeys the timestamp grammar."""
+    eot_at = np.flatnonzero(sampled == sp.eot)
+    body = sampled[: eot_at[0]] if eot_at.size else sampled
+    assert (sampled[body.size:] == sp.eot).all()
+    if body.size == 0:
+        return
+    assert sp.timestamp_begin <= body[0] <= sp.timestamp_begin + 50
+    assert not np.isin(body, suppressed).any()
+    is_ts = body >= sp.timestamp_begin
+    ts = body[is_ts]
+    assert (np.diff(ts) >= 0).all()
+    for i in range(1, body.size):
+        penult_ts = is_ts[i - 2] if i >= 2 else True
+        if is_ts[i - 1] and penult_ts:
+            assert not is_ts[i], body
+        elif is_ts[i - 1]:
+            assert is_ts[i] or body[i] >= sp.eot, body
+
+
+def test_greedy_sampled_obeys_grammar(setup):
+    _, model, _, ckv_t = setup
+    prompt = torch.tensor([SP_T.sot_sequence("en")] * 3)
+    rules = trules.DecodeRules(specials=SP_T)
+    res = tgreedy.greedy_decode_features(
+        model, ckv_t, prompt, rules=rules, max_len=24, temperature=1.0,
+        generator=torch.Generator().manual_seed(7))
+    suppressed = rules._static_suppress_ids()
+    toks = res.tokens.numpy()[:, prompt.shape[1]:]
+    for row in toks:
+        _check_grammar(row, SP_T, suppressed)
+    again = tgreedy.greedy_decode_features(
+        model, ckv_t, prompt, rules=rules, max_len=24, temperature=1.0,
+        generator=torch.Generator().manual_seed(7))
+    assert torch.equal(res.tokens, again.tokens)

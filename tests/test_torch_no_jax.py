@@ -1,0 +1,56 @@
+"""The port imports neither `jax` nor the JAX package.
+
+The pytest process itself has jax loaded (tests/conftest.py), so the
+import check runs in a fresh isolated interpreter; the source check
+walks every module of the port, and chip_smoke.py, for import
+statements."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "turbo_whisper_workspace_tpu_torch"
+FORBIDDEN = ("jax", "turbo_whisper_workspace_tpu")
+
+
+def _is_forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules() -> list[str]:
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_load_no_jax():
+    code = (
+        "import sys; sys.path.insert(0, '.')\n"
+        + "".join(f"import {m}\n" for m in _port_modules())
+        + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'turbo_whisper_workspace_tpu'"
+        " or m.startswith('turbo_whisper_workspace_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-I", "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _is_forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"

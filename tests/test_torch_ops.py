@@ -1,0 +1,178 @@
+"""Port ops (turbo_whisper_workspace_tpu_torch/ops) against the JAX package.
+
+The mel frontend, the attention kernels' plain versions and the int8
+cross-KV quantizer run on the CPU here, on the same numpy inputs as
+their JAX counterparts (Pallas in interpret mode, or the XLA twin).
+The CUDA kernels themselves need a card: the `cuda`-marked test holds
+them to the plain versions there.
+"""
+
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from turbo_whisper_workspace_tpu.ops import attention as jatt
+from turbo_whisper_workspace_tpu.ops import mel as jmel
+from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
+from turbo_whisper_workspace_tpu_torch.ops import build
+from turbo_whisper_workspace_tpu_torch.ops import mel as tmel
+
+
+@pytest.mark.parametrize("kind", ["float32", "int16"])
+def test_log_mel_matches_jax(kind):
+    rng = np.random.default_rng(0)
+    if kind == "int16":
+        audio = (rng.standard_normal((2, 32000)) * 3000).astype(np.int16)
+        num_mels = 128
+    else:
+        audio = (rng.standard_normal((2, 32000)) * 0.1).astype(np.float32)
+        num_mels = 80
+    ref = np.asarray(jmel.log_mel_spectrogram(audio, num_mels=num_mels))
+    got = tmel.log_mel_spectrogram(torch.from_numpy(audio), num_mels).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=2e-4)  # as test_mel.py:41
+
+
+def test_pad_or_trim_matches_jax():
+    x = np.arange(10, dtype=np.float32)
+    for n in (4, 10, 16):
+        np.testing.assert_array_equal(tmel.pad_or_trim(x, n), jmel.pad_or_trim(x, n))
+
+
+@pytest.mark.parametrize("t", [256, 1500])
+def test_flash_reference_matches_jax(t):
+    rng = np.random.default_rng(t)
+    b, h, d = 1, 2, 64
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
+    got = tatt.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
+    pallas = np.asarray(jatt.flash_attention(q, k, v, interpret=True))
+    plain = np.asarray(jatt.attention_reference(q, k, v))
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, plain, atol=2e-5, rtol=1e-5)
+
+
+def test_flash_reference_bf16_matches_jax():
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((1, 2, 256, 64)).astype(np.float32)
+    qj = jnp.asarray(q, jnp.bfloat16)
+    ref = np.asarray(jatt.attention_reference(qj, qj, qj), np.float32)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    got = tatt.flash_attention_reference(qt, qt, qt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_quantize_cross_kv_bit_equal_to_jax():
+    rng = np.random.default_rng(2)
+    k = rng.standard_normal((2, 2, 3, 300, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 3, 300, 64)).astype(np.float32)
+    ref = jatt.quantize_cross_kv_int8(jnp.asarray(k), jnp.asarray(v))
+    got = tatt.quantize_cross_kv_int8(torch.from_numpy(k), torch.from_numpy(v))
+    assert got["k_q"].shape == (2, 2, 3, 64, 384)
+    assert got["v_q"].shape == (2, 2, 384, 3 * 64)
+    for key in ("k_q", "v_q"):
+        assert got[key].dtype == torch.int8
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]))
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), rtol=1e-6)
+
+
+def _cross_inputs(tq, seed=3):
+    rng = np.random.default_rng(seed)
+    b, h, t, dh = 2, 4, 300, 64
+    k = rng.standard_normal((1, b, h, t, dh)).astype(np.float32)
+    v = rng.standard_normal((1, b, h, t, dh)).astype(np.float32)
+    q = rng.standard_normal((b, h, tq, dh)).astype(np.float32)
+    qkv = jatt.quantize_cross_kv_int8(jnp.asarray(k), jnp.asarray(v))
+    return q, {key: np.array(val[0]) for key, val in qkv.items()}, t
+
+
+@pytest.mark.parametrize("tq", [1, 5])
+def test_cross_reference_matches_jax(tq):
+    q, kv, t = _cross_inputs(tq)
+    args = (kv["k_q"], kv["v_q"], kv["k_scale"], kv["v_scale"])
+    got = tatt.cross_attention_int8_reference(
+        torch.from_numpy(q), *map(torch.from_numpy, args), seq_len=t).numpy()
+    pallas = np.asarray(jatt.cross_attention_int8(
+        jnp.asarray(q), *map(jnp.asarray, args), seq_len=t, interpret=True))
+    xla = np.asarray(jatt.cross_attention_int8_xla(
+        jnp.asarray(q), *map(jnp.asarray, args), seq_len=t))
+    assert got.shape == (2, 4, tq, 64)
+    # both sides round q and the weights to bf16
+    np.testing.assert_allclose(got, pallas, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got, xla, atol=2e-2, rtol=2e-2)
+
+
+def test_wrappers_run_plain_versions_on_cpu():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 300, 64)).astype(np.float32))
+               for _ in range(3))
+    tatt.reset_launch_counts()
+    torch.testing.assert_close(tatt.flash_attention(q, k, v),
+                               tatt.flash_attention_reference(q, k, v), rtol=0, atol=0)
+    qc, kv, t = _cross_inputs(2)
+    args = [torch.from_numpy(x) for x in
+            (qc, kv["k_q"], kv["v_q"], kv["k_scale"], kv["v_scale"])]
+    torch.testing.assert_close(tatt.cross_attention_int8(*args, seq_len=t),
+                               tatt.cross_attention_int8_reference(*args, seq_len=t),
+                               rtol=0, atol=0)
+    # the counts record kernel launches only
+    assert tatt.launch_counts == {"flash_attention": 0, "cross_attention_int8": 0}
+
+
+def test_kernel_sources_export_their_entry_points():
+    """Every kernel the wrappers launch has a source with its C entry
+    point and error string, and opens with the note naming the TPU
+    kernel it replaces."""
+    for name in build.SIGNATURES:
+        src = pathlib.Path(build.source_path(name)).read_text()
+        assert f'extern "C" int tww_{name}(' in src
+        assert f'extern "C" const char* tww_{name}_error(int code)' in src
+        head = src.split("#include")[0]
+        assert f"turbo_whisper_workspace_tpu/ops/attention.py" in head
+        assert "bound" in head and "Design" in head
+    # the wrappers pass as many arguments as the C signatures declare
+    tree = ast.parse(pathlib.Path(tatt.__file__).read_text())
+    calls = {c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
+             if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"}
+    assert calls == {n: len(s) for n, s in build.SIGNATURES.items()}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 4])
+def test_cuda_kernels_match_plain_versions(cuda_device, tq):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    q, k, v = (randn(2, 3, 300, 64).to(torch.bfloat16) for _ in range(3))
+    out = tatt.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(), tatt.flash_attention_reference(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    # the encoder's layout: (B, H, T, 64) views of (B, T, H·64) projections
+    q, k, v = (randn(2, 300, 3 * 64).to(torch.bfloat16).view(2, 300, 3, 64).transpose(1, 2)
+               for _ in range(3))
+    out = tatt.flash_attention(q, k, v)
+    assert out.stride() == q.stride()
+    torch.testing.assert_close(out.float(), tatt.flash_attention_reference(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    kv = tatt.quantize_cross_kv_int8(randn(1, 2, 4, 1500, 64), randn(1, 2, 4, 1500, 64))
+    args = (randn(2, 4, tq, 64).to(torch.bfloat16), kv["k_q"][0], kv["v_q"][0],
+            kv["k_scale"][0], kv["v_scale"][0])
+    torch.testing.assert_close(
+        tatt.cross_attention_int8(*args, seq_len=1500).float(),
+        tatt.cross_attention_int8_reference(*args, seq_len=1500).float(),
+        atol=2e-2, rtol=2e-2)

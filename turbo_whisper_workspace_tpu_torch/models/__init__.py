@@ -1,0 +1,2 @@
+"""Whisper as torch nn.Modules, and weight conversion from the JAX tree
+(counterpart: turbo_whisper_workspace_tpu/models/__init__.py)."""

@@ -1,0 +1,367 @@
+"""Whisper encoder-decoder as torch nn.Modules.
+
+Port of turbo_whisper_workspace_tpu/models/whisper.py: the greedy path
+(bf16 self-KV cache, int8 or dense cross-KV). Blocks are one module per
+layer instead of the JAX package's layer-stacked leaves under
+`lax.scan`; models/convert.py maps one layout onto the other. The
+decoder takes and returns the JAX package's cache and cross-KV dicts
+with their (L, B, ...) layouts, so the transcriber's row gather and the
+parity tests see the same arrays.
+
+Kernel routing has no switch: the encoder's long self-attention calls
+`ops.attention.flash_attention` and int8 cross-attention calls
+`ops.attention.cross_attention_int8`, which launch their CUDA kernels
+for CUDA tensors and run their plain versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import attention as att
+
+
+@dataclass(frozen=True)
+class WhisperDims:
+    n_mels: int
+    n_audio_ctx: int
+    n_audio_state: int
+    n_audio_head: int
+    n_audio_layer: int
+    n_vocab: int
+    n_text_ctx: int
+    n_text_state: int
+    n_text_head: int
+    n_text_layer: int
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_audio_state // self.n_audio_head
+
+
+def _dims(mels, astate, ahead, alayer, vocab, tstate, thead, tlayer):
+    return WhisperDims(
+        n_mels=mels,
+        n_audio_ctx=1500,
+        n_audio_state=astate,
+        n_audio_head=ahead,
+        n_audio_layer=alayer,
+        n_vocab=vocab,
+        n_text_ctx=448,
+        n_text_state=tstate,
+        n_text_head=thead,
+        n_text_layer=tlayer,
+    )
+
+
+# openai/whisper ModelDimensions per checkpoint family.
+WHISPER_CONFIGS: dict[str, WhisperDims] = {
+    "tiny.en": _dims(80, 384, 6, 4, 51864, 384, 6, 4),
+    "tiny": _dims(80, 384, 6, 4, 51865, 384, 6, 4),
+    "base.en": _dims(80, 512, 8, 6, 51864, 512, 8, 6),
+    "base": _dims(80, 512, 8, 6, 51865, 512, 8, 6),
+    "small.en": _dims(80, 768, 12, 12, 51864, 768, 12, 12),
+    "small": _dims(80, 768, 12, 12, 51865, 768, 12, 12),
+    "medium.en": _dims(80, 1024, 16, 24, 51864, 1024, 16, 24),
+    "medium": _dims(80, 1024, 16, 24, 51865, 1024, 16, 24),
+    "large-v2": _dims(80, 1280, 20, 32, 51865, 1280, 20, 32),
+    "large-v3": _dims(128, 1280, 20, 32, 51866, 1280, 20, 32),
+    "large-v3-turbo": _dims(128, 1280, 20, 32, 51866, 1280, 20, 4),
+}
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """Fixed sinusoidal positions for the audio encoder."""
+    assert channels % 2 == 0
+    log_inc = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_inc * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 statistics whatever the activation dtype."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def _plain_attention(q, k, v, n_head: int, mask=None) -> torch.Tensor:
+    """(B, Tq, D) x (B, Tk, D) → (B, Tq, D): f32 logits and softmax,
+    weights in the activation dtype, as the JAX `mha` einsum path."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    dh = d // n_head
+    qh = q.reshape(b, tq, n_head, dh)
+    kh = k.reshape(b, tk, n_head, dh)
+    vh = v.reshape(b, tk, n_head, dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * dh ** -0.5
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(b, tq, d)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head attention, (B, Tq, D) x (B, Tk, D) → (B, Tq, D).
+
+    Unmasked self-attention over ≥ 256 positions (the encoder's 1500
+    frames) goes to the flash_attention kernel, as in the JAX `mha`."""
+    b, tq, d = q.shape
+    if mask is None and tq == k.shape[1] and tq >= 256:
+        # (B, H, T, Dh) views of the (B, T, D) projections, no copies: the
+        # kernel reads a head as a column slice of each row, and writes
+        # the output in the same layout
+        def heads(x):
+            return x.reshape(b, tq, n_head, d // n_head).transpose(1, 2)
+
+        out = att.flash_attention(heads(q), heads(k), heads(v))
+        return out.transpose(1, 2).reshape(b, tq, d)
+    return _plain_attention(q, k, v, n_head, mask)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.q = nn.Linear(d, d)
+        self.k = nn.Linear(d, d, bias=False)
+        self.v = nn.Linear(d, d)
+        self.out = nn.Linear(d, d)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d, 4 * d)
+        self.fc2 = nn.Linear(4 * d, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block: self-attention [+ cross-attention] + MLP. Parameter
+    names follow the JAX block tree (attn_ln, attn, cross_ln, cross,
+    mlp_ln, mlp)."""
+
+    def __init__(self, d: int, n_head: int, cross: bool):
+        super().__init__()
+        self.n_head = n_head
+        self.attn_ln = LayerNorm(d)
+        self.attn = MultiHeadAttention(d)
+        if cross:
+            self.cross_ln = LayerNorm(d)
+            self.cross = MultiHeadAttention(d)
+        self.mlp_ln = LayerNorm(d)
+        self.mlp = MLP(d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Encoder block: unmasked self-attention + MLP."""
+        h = self.attn_ln(x)
+        a = self.attn
+        x = x + a.out(mha(a.q(h), a.k(h), a.v(h), self.n_head))
+        return x + self.mlp(self.mlp_ln(x))
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.n_audio_state
+        self.conv1 = nn.Conv1d(dims.n_mels, d, 3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
+        self.register_buffer("pos_emb", torch.from_numpy(sinusoids(dims.n_audio_ctx, d)))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, dims.n_audio_head, cross=False)
+            for _ in range(dims.n_audio_layer))
+        self.ln_post = LayerNorm(d)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """JAX `encoder_forward`: mel (B, n_mels, 3000) → audio features
+        (B, 1500, d)."""
+        x = mel.to(self.conv1.weight.dtype)
+        x = F.gelu(self.conv1(x))
+        x = F.gelu(self.conv2(x))
+        x = x.transpose(1, 2) + self.pos_emb.to(x.dtype)
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_post(x)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.n_text_state
+        self.dims = dims
+        self.token_emb = nn.Parameter(torch.zeros(dims.n_vocab, d))
+        self.pos_emb = nn.Parameter(torch.zeros(dims.n_text_ctx, d))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, dims.n_text_head, cross=True)
+            for _ in range(dims.n_text_layer))
+        self.ln = LayerNorm(d)
+
+    def precompute_cross_kv(self, audio_features: torch.Tensor,
+                            quantize: bool = False) -> dict:
+        """JAX `precompute_cross_kv`: K/V of every layer's cross-attention
+        over the encoder output, head-major {"k", "v"} (L, B, H, 1500, Dh);
+        quantize=True returns quantize_cross_kv_int8's int8 dict instead."""
+        b, t, d = audio_features.shape
+        h = self.dims.n_text_head
+
+        def heads(x):
+            return x.reshape(b, t, h, d // h).transpose(1, 2)
+
+        k = torch.stack([heads(blk.cross.k(audio_features)) for blk in self.blocks])
+        v = torch.stack([heads(blk.cross.v(audio_features)) for blk in self.blocks])
+        if quantize:
+            return att.quantize_cross_kv_int8(k, v)
+        return {"k": k, "v": v}
+
+    def _cross_attention(self, q: torch.Tensor, cross_kv: dict, li: int) -> torch.Tensor:
+        """q (B, Tq, D) over layer li's cross-KV → (B, Tq, D)."""
+        b, tq, d = q.shape
+        h = self.dims.n_text_head
+        qh = q.reshape(b, tq, h, d // h).transpose(1, 2).contiguous()
+        if "k_q" in cross_kv:
+            out = att.cross_attention_int8(
+                qh, cross_kv["k_q"][li], cross_kv["v_q"][li],
+                cross_kv["k_scale"][li], cross_kv["v_scale"][li],
+                seq_len=self.dims.n_audio_ctx)
+        else:
+            ck, cv = cross_kv["k"][li], cross_kv["v"][li]
+            logits = torch.einsum("bhqd,bhkd->bhqk", qh.float(), ck.float())
+            weights = torch.softmax(logits * (d // h) ** -0.5, dim=-1).to(q.dtype)
+            out = torch.einsum("bhqk,bhkd->bhqd", weights, cv.to(q.dtype))
+        return out.transpose(1, 2).reshape(b, tq, d)
+
+    def forward(self, tokens: torch.Tensor, cross_kv: dict,
+                kv_cache: dict | None = None, pos: int = 0):
+        """JAX `decoder_forward`: tokens (B, T) at positions [pos, pos+T) →
+        (logits (B, T, V) f32, kv_cache). Prefill when T > 1, one step when T == 1.
+
+        kv_cache {"k", "v"} (L, B, max_len, D) is WRITTEN IN PLACE at
+        [pos, pos+T) — the JAX package returns an updated copy
+        (dynamic_update_slice); here the caller's tensors change. Without
+        a cache the call is teacher-forced from position 0."""
+        b, t = tokens.shape
+        x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
+        use_cache = kv_cache is not None
+        if not use_cache:
+            kv_cache = init_kv_cache(self.dims, b, max_len=t, dtype=x.dtype,
+                                     device=x.device)
+            pos = 0
+        # keys at positions ≤ each query's position; keys past pos+T are
+        # all masked, so they are left out of the product
+        n_keys = pos + t
+        mask = None
+        if t > 1:
+            key_pos = torch.arange(n_keys, device=x.device)
+            q_pos = pos + torch.arange(t, device=x.device)
+            mask = (key_pos[None, :] <= q_pos[:, None])[None, None]
+
+        for li, block in enumerate(self.blocks):
+            h = block.attn_ln(x)
+            a = block.attn
+            q, k, v = a.q(h), a.k(h), a.v(h)
+            kv_cache["k"][li, :, pos:pos + t] = k.to(kv_cache["k"].dtype)
+            kv_cache["v"][li, :, pos:pos + t] = v.to(kv_cache["v"].dtype)
+            attn = mha(q, kv_cache["k"][li, :, :n_keys].to(q.dtype),
+                       kv_cache["v"][li, :, :n_keys].to(q.dtype),
+                       block.n_head, mask=mask)
+            x = x + a.out(attn)
+            c = block.cross
+            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li))
+            x = x + block.mlp(block.mlp_ln(x))
+
+        x = self.ln(x).reshape(b * t, -1)
+        if x.is_cuda and x.dtype != torch.float32:
+            # f32 logits from bf16 operands with f32 sums, as the JAX
+            # einsum's preferred_element_type=f32; torch.mm's out_dtype
+            # has no CPU kernel, so the CPU (f32 in the tests) upcasts
+            logits = torch.mm(x, self.token_emb.t(), out_dtype=torch.float32)
+        else:
+            logits = x.float() @ self.token_emb.float().t()
+        return logits.reshape(b, t, -1), (kv_cache if use_cache else None)
+
+
+class Whisper(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        self.dims = dims
+        self.encoder = AudioEncoder(dims)
+        self.decoder = TextDecoder(dims)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.token_emb.dtype
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """JAX `forward`: teacher-forced (mel, tokens) → logits (B, T, V)."""
+        cross_kv = self.decoder.precompute_cross_kv(self.encoder(mel))
+        return self.decoder(tokens, cross_kv)[0]
+
+
+# ---------------------------------------------------------------------------
+# Initialization and cache
+
+
+def init_params(dims: WhisperDims, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: torch.device | str | None = None) -> Whisper:
+    """Random-init model with the JAX init's distributions: linear
+    weights N(0, 1/d_in) and zero biases, unit/zero LayerNorms, convs
+    and embeddings N(0, 0.02²), sinusoidal encoder positions. Draws come
+    from `generator` (f32, on its device), so they differ from JAX's."""
+    device = torch.device(device) if device is not None else generator.device
+    with torch.device(generator.device):
+        model = Whisper(dims)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, device=generator.device,
+                           dtype=torch.float32) * std
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.copy_(normal(mod.weight.shape, mod.in_features ** -0.5))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Conv1d):
+                mod.weight.copy_(normal(mod.weight.shape, 0.02))
+                mod.bias.zero_()
+        model.decoder.token_emb.copy_(normal(model.decoder.token_emb.shape, 0.02))
+        model.decoder.pos_emb.copy_(normal(model.decoder.pos_emb.shape, 0.02))
+    return model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+
+
+def init_kv_cache(dims: WhisperDims, batch: int, max_len: int | None = None,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cpu") -> dict:
+    """Preallocated self-attention cache {"k","v"} (L, B, max_len, D)."""
+    shape = (dims.n_text_layer, batch, max_len or dims.n_text_ctx, dims.n_text_state)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,83 @@
+"""Single-file transcription entry point.
+
+Part of a port of turbo_whisper_workspace_tpu/pipeline/audio_pipeline.py:
+`AudioProcessingPipeline.__init__`, `load_transcription_model` and
+`transcribe`. Diarization, LLM enrichment and `process_audio` /
+`process_batch` are later slices.
+
+The model runs in bf16, as the JAX pipeline loads it. Weights come from
+`<models_dir>/whisper-<name>.npz` (the JAX package's checkpoint format)
+when present; otherwise from a random init seeded with 0, which is
+functional but untrained.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+
+from ..audio import io as audio_io
+from ..config import PipelineConfig
+from ..models import convert
+from ..models import whisper as wm
+from .transcriber import Transcriber, load_transcriber, resolve_device
+
+logger = logging.getLogger(__name__)
+
+INIT_SEED = 0
+
+
+class AudioProcessingPipeline:
+    """Lazy-loading pipeline; an injected transcriber (tests) wins.
+    Runs on CUDA unless `device="cpu"` is passed."""
+
+    def __init__(
+        self,
+        config: PipelineConfig | None = None,
+        transcriber: Transcriber | None = None,
+        device: torch.device | str = "cuda",
+    ):
+        self.config = config or PipelineConfig()
+        self.device = resolve_device(device)
+        self._transcriber = transcriber
+
+    def load_transcription_model(self) -> Transcriber:
+        """Whisper weights from a local converted checkpoint when present,
+        random init otherwise."""
+        if self._transcriber is not None:
+            return self._transcriber
+        name = self.config.transcription.model
+        dims = wm.WHISPER_CONFIGS.get(name)
+        if dims is None:
+            raise ValueError(f"unknown whisper model {name!r}")
+        model = None
+        path = os.path.join(self.config.models_dir, f"whisper-{name}.npz")
+        if os.path.exists(path):
+            try:
+                model = convert.from_jax_params(
+                    convert.load_params(path), dims, dtype=torch.bfloat16,
+                    device=self.device)
+            except (OSError, KeyError, RuntimeError, ValueError) as e:
+                logger.warning("checkpoint load failed from %s: %s", path, e)
+        if model is None:
+            logger.warning("no local weights for %s — random init (untrained)", name)
+            generator = torch.Generator(self.device).manual_seed(INIT_SEED)
+            model = wm.init_params(dims, generator, dtype=torch.bfloat16,
+                                   device=self.device)
+        self._transcriber = load_transcriber(
+            model, self.config.transcription,
+            vocab_dir=os.path.join(self.config.models_dir, "tokenizer"),
+            device=self.device,
+        )
+        return self._transcriber
+
+    def transcribe(self, audio_path: str, task: str = "transcribe",
+                   initial_prompt: str | None = None) -> dict:
+        """Single-file ASR: {"text", "chunks", "segments", "language",
+        "duration", "processing_times"}. initial_prompt → <|startofprev|>
+        conditioning."""
+        t = self.load_transcription_model()
+        audio, _ = audio_io.read_audio_file(audio_path)
+        return t.transcribe([audio], initial_prompt=initial_prompt)[0]
