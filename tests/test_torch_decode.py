@@ -1,7 +1,8 @@
 """Port decode (turbo_whisper_workspace_tpu_torch/decode) against the JAX
-package: token rules, greedy decode at T=0 and language detection on the
-same weights and cross-KV; sampled decode (T>0) for grammar validity
-only, since torch's generator cannot reproduce JAX's rbg draws."""
+package: token rules, greedy decode at T=0, beam search in its three
+self-KV cache modes and language detection on the same weights and
+cross-KV; sampled decode (T>0) for grammar validity only, since torch's
+generator cannot reproduce JAX's rbg draws."""
 
 import jax
 import jax.numpy as jnp
@@ -9,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from turbo_whisper_workspace_tpu.decode import beam as jbeam
 from turbo_whisper_workspace_tpu.decode import greedy as jgreedy
 from turbo_whisper_workspace_tpu.decode import rules as jrules
 from turbo_whisper_workspace_tpu.decode import tokenizer as jtok
 from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu_torch.decode import beam as tbeam
 from turbo_whisper_workspace_tpu_torch.decode import greedy as tgreedy
 from turbo_whisper_workspace_tpu_torch.decode import rules as trules
 from turbo_whisper_workspace_tpu_torch.decode import tokenizer as ttok
@@ -135,3 +138,80 @@ def test_greedy_sampled_obeys_grammar(setup):
         model, ckv_t, prompt, rules=rules, max_len=24, temperature=1.0,
         generator=torch.Generator().manual_seed(7))
     assert torch.equal(res.tokens, again.tokens)
+
+
+# bf16 (regathered), int8 (regathered), int8 lanes: (quantize_cache, lane_cache)
+CACHE_MODES = {"bf16": (False, False), "int8": (True, False), "lanes": (True, True)}
+
+
+@pytest.mark.parametrize("mode", list(CACHE_MODES))
+@pytest.mark.parametrize("beam_size", [3, 5])
+def test_beam_t0_matches_jax(setup, beam_size, mode):
+    params, model, ckv_j, ckv_t = setup
+    quantize_cache, lane_cache = CACHE_MODES[mode]
+    prompt = np.array([SP_J.sot_sequence("en")] * 3, np.int32)
+    kw = dict(beam_size=beam_size, max_len=10, quantize_cache=quantize_cache,
+              lane_cache=lane_cache)
+    ref = jbeam.beam_decode_features(
+        params, DIMS, ckv_j, jnp.asarray(prompt),
+        rules=jrules.DecodeRules(specials=SP_J), **kw)
+    got = tbeam.beam_decode_features(
+        model, ckv_t, torch.from_numpy(prompt).long(),
+        rules=trules.DecodeRules(specials=SP_T), **kw)
+    assert got.all_tokens.shape == (3, beam_size, prompt.shape[1] + 10)
+    for field in ("tokens", "lengths", "all_tokens"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(ref, field)))
+    for field in ("sum_logprobs", "avg_logprobs", "no_speech_probs", "all_scores"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(ref, field)), atol=1e-3)
+
+
+def test_beam1_equals_greedy(setup):
+    """Beam 1 over the bf16-layout cache is greedy decode; over the lane
+    cache it is beam 1 over the regathered int8 cache."""
+    _, model, _, ckv_t = setup
+    prompt = torch.tensor([SP_T.sot_sequence("en")] * 3)
+    rules = trules.DecodeRules(specials=SP_T)
+    g = tgreedy.greedy_decode_features(model, ckv_t, prompt, rules=rules, max_len=12)
+    b = tbeam.beam_decode_features(model, ckv_t, prompt, rules=rules, beam_size=1,
+                                   max_len=12)
+    np.testing.assert_array_equal(b.lengths.numpy(), g.lengths.numpy())
+    for i, n in enumerate(g.lengths.tolist()):
+        n = prompt.shape[1] + n
+        np.testing.assert_array_equal(b.tokens[i, :n].numpy(), g.tokens[i, :n].numpy())
+    np.testing.assert_allclose(b.sum_logprobs.numpy(), g.sum_logprobs.numpy(), atol=1e-3)
+    lanes, int8 = (tbeam.beam_decode_features(
+        model, ckv_t, prompt, rules=rules, beam_size=1, max_len=12, quantize_cache=True,
+        lane_cache=lane_cache) for lane_cache in (True, False))
+    np.testing.assert_array_equal(lanes.all_tokens.numpy(), int8.all_tokens.numpy())
+    np.testing.assert_allclose(lanes.all_scores.numpy(), int8.all_scores.numpy(),
+                               atol=1e-5)
+
+
+def test_beam_batch_independence(setup):
+    """Each item's beam search is independent of its neighbours."""
+    _, model, _, ckv_t = setup
+    prompt = torch.tensor([SP_T.sot_sequence("en")] * 3)
+    rules = trules.DecodeRules(specials=SP_T)
+    kw = dict(rules=rules, beam_size=3, max_len=10, quantize_cache=True)
+    both = tbeam.beam_decode_features(model, ckv_t, prompt, **kw)
+    solo = tbeam.beam_decode_features(
+        model, {key: x[:, 1:2] for key, x in ckv_t.items()}, prompt[1:2], **kw)
+    np.testing.assert_array_equal(both.tokens[1].numpy(), solo.tokens[0].numpy())
+    np.testing.assert_array_equal(both.all_tokens[1].numpy(), solo.all_tokens[0].numpy())
+
+
+def test_top_k_matches_jax_on_ties():
+    """Exact ties (dead beams at -1e30, equal log-probs) come out lower
+    index first, as jax.lax.top_k orders them."""
+    rng = np.random.default_rng(3)
+    x = rng.integers(-3, 3, (6, 40)).astype(np.float32)
+    x[0] = -1e30
+    x[1, ::2] = -1e30
+    x[2] = -1e30 + rng.standard_normal(40).astype(np.float32)   # still all -1e30 in f32
+    for k in (1, 6, 10):
+        ref_v, ref_i = jax.lax.top_k(jnp.asarray(x), k)
+        got_v, got_i = tbeam._top_k(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))

@@ -138,3 +138,72 @@ def test_forward_matches_jax(pair):
     ref = np.asarray(jwm.forward(params, DIMS, mel, tokens))
     got = model(torch.from_numpy(mel), torch.from_numpy(tokens).long()).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-3)
+
+
+def test_decoder_quantized_prefill_and_step_match_jax(pair, feats):
+    """int8 self-cache: the prefill (plain masked path) then a step at
+    pos 3 (self_attention_int8's plain version here), int8 cross-KV."""
+    params, model = pair
+    ckv_j = jwm.precompute_cross_kv(params, DIMS, feats, quantize=True)
+    ckv_t = model.decoder.precompute_cross_kv(torch.from_numpy(feats), quantize=True)
+    prefill = np.array([[11, 3, 7], [42, 9, 1]], np.int32)
+    step = np.array([[500], [300]], np.int32)
+
+    cache_j = jwm.init_kv_cache(DIMS, 2, max_len=8, quantize=True)
+    ref1, cache_j = jwm.decoder_forward(params, DIMS, prefill, ckv_j, cache_j, pos=0)
+    ref2, cache_j = jwm.decoder_forward(params, DIMS, step, ckv_j, cache_j, pos=3)
+
+    cache_t = twm.init_kv_cache(model.dims, 2, max_len=8, dtype=torch.float32,
+                                quantize=True)
+    assert cache_t["k_q"].shape == (2, 2, 2, 8, 32) and cache_t["k_q"].dtype == torch.int8
+    assert cache_t["k_s"].dtype == torch.bfloat16        # whatever the model dtype
+    got1, cache_t = model.decoder(torch.from_numpy(prefill).long(), ckv_t, cache_t, pos=0)
+    got2, cache_t = model.decoder(torch.from_numpy(step).long(), ckv_t, cache_t, pos=3)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(ref1), atol=5e-3, rtol=5e-3)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(ref2), atol=5e-3, rtol=5e-3)
+    for key in ("k_q", "v_q"):
+        # a row may round across a .5 boundary from a last-bit f32 difference
+        diff = np.abs(cache_t[key].numpy().astype(int) - np.asarray(cache_j[key], int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    assert cache_t["k_q"][:, :, :, 4:].abs().max() == 0
+
+
+def test_decoder_lane_step_matches_jax(pair, feats):
+    """Two beam steps (beam 3) over the lane cache after a quantized
+    prefill; the second reads a non-trivial ancestry: at t = 3 beam 0
+    reads lane 2, beams 1 and 2 read lane 0."""
+    params, model = pair
+    beam = 3
+    ckv_j = jwm.precompute_cross_kv(params, DIMS, feats, quantize=True)
+    ckv_t = model.decoder.precompute_cross_kv(torch.from_numpy(feats), quantize=True)
+    prefill = np.array([[11, 3, 7], [42, 9, 1]], np.int32)
+    steps = [np.array([[500], [300], [12], [7], [99], [1]], np.int32),
+             np.array([[5], [30], [120], [70], [9], [10]], np.int32)]
+    lane_maps = [np.zeros((2, beam, 8), np.int32) for _ in steps]
+    lane_maps[0][:, :, 3] = np.arange(beam)
+    lane_maps[1][:, :, 3] = [2, 0, 0]
+    lane_maps[1][:, :, 4] = np.arange(beam)
+
+    cache_j = jwm.init_kv_cache(DIMS, 2, max_len=8, quantize=True)
+    _, cache_j = jwm.decoder_forward(params, DIMS, prefill, ckv_j, cache_j, pos=0)
+    cache_j = jwm.beam_lane_cache(cache_j, beam)
+    cache_t = twm.init_kv_cache(model.dims, 2, max_len=8, dtype=torch.float32,
+                                quantize=True)
+    _, cache_t = model.decoder(torch.from_numpy(prefill).long(), ckv_t, cache_t, pos=0)
+    cache_t = twm.beam_lane_cache(cache_t, beam)
+    for i, (tok, lane_map) in enumerate(zip(steps, lane_maps)):
+        ref, cache_j = jwm.decoder_forward(params, DIMS, tok, ckv_j, cache_j, pos=3 + i,
+                                           beam=beam, lane_map=jnp.asarray(lane_map))
+        got, cache_t = model.decoder(torch.from_numpy(tok).long(), ckv_t, cache_t,
+                                     pos=3 + i, beam=beam,
+                                     lane_map=torch.from_numpy(lane_map))
+        assert got.shape == (6, 1, DIMS.n_vocab)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-3, rtol=5e-3)
+    kp = cache_t["k_p"].numpy()                 # (L, B, H·Dh, K, T)
+    assert kp.shape == (DIMS.n_text_layer, 2, DIMS.n_text_state, beam, 8)
+    assert (np.abs(kp[:, :, :, :, 3:5]).sum(axis=(0, 1, 2)) > 0).all()   # every lane, both steps
+    assert np.abs(kp[:, :, :, 1:, :3]).sum() == 0                        # prompt in lane 0 only
+    assert np.abs(kp[..., 5:]).sum() == 0
+    for key in cache_j:
+        diff = np.abs(cache_t[key].float().numpy() - np.asarray(cache_j[key], np.float32))
+        assert diff.max() <= (1 if key in ("k_p", "v_p") else 1e-2), key

@@ -1,8 +1,9 @@
 """Port ops (turbo_whisper_workspace_tpu_torch/ops) against the JAX package.
 
-The mel frontend, the attention kernels' plain versions and the int8
-cross-KV quantizer run on the CPU here, on the same numpy inputs as
-their JAX counterparts (Pallas in interpret mode, or the XLA twin).
+The mel frontend, the attention kernels' plain versions, the int8
+cross-KV quantizer and the int8 self-KV helpers run on the CPU here, on
+the same numpy inputs as their JAX counterparts (Pallas in interpret
+mode, or the XLA twin).
 The CUDA kernels themselves need a card: the `cuda`-marked test holds
 them to the plain versions there.
 """
@@ -16,9 +17,11 @@ import pytest
 import torch
 
 from turbo_whisper_workspace_tpu.ops import attention as jatt
+from turbo_whisper_workspace_tpu.models import whisper as jwm
 from turbo_whisper_workspace_tpu.ops import mel as jmel
 from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
 from turbo_whisper_workspace_tpu_torch.ops import build
+from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.ops import mel as tmel
 
 
@@ -108,6 +111,118 @@ def test_cross_reference_matches_jax(tq):
     np.testing.assert_allclose(got, xla, atol=2e-2, rtol=2e-2)
 
 
+def _self_inputs(seed=5, b=2, h=3, tq=1, t=16):
+    """int8 (B, H, T, 64) cache with per-(head, position) scales."""
+    rng = np.random.default_rng(seed)
+    kq = rng.integers(-127, 128, (b, h, t, 64)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, h, t, 64)).astype(np.int8)
+    ks = (rng.random((b, h, t)) * 0.02 + 0.01).astype(np.float32)
+    vs = (rng.random((b, h, t)) * 0.02 + 0.01).astype(np.float32)
+    q = rng.standard_normal((b, h, tq, 64)).astype(np.float32)
+    return q, kq, ks, vq, vs
+
+
+def _lane_inputs(seed=6, b=2, h=3, k=4, t=16):
+    """Lane panels as tests/test_attention_kernel.py builds them: K panel
+    (B, H·64, K·T), V panel (B, K·T, H·64), scales (B, H, K·T), column
+    j = lane·T + t, and a random ancestry lane_map (B, K, T)."""
+    rng = np.random.default_rng(seed)
+    kq = rng.integers(-127, 128, (b, h, k, t, 64)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, h, k, t, 64)).astype(np.int8)
+    ks = (rng.random((b, h, k, t)) * 0.02 + 0.01).astype(np.float32)
+    vs = (rng.random((b, h, k, t)) * 0.02 + 0.01).astype(np.float32)
+    q = rng.standard_normal((b, h, k, 64)).astype(np.float32)
+    lane_map = rng.integers(0, k, (b, k, t)).astype(np.int32)
+    kp = kq.transpose(0, 1, 4, 2, 3).reshape(b, h * 64, k * t)
+    vp = vq.transpose(0, 2, 3, 1, 4).reshape(b, k * t, h * 64)
+    return q, kp, ks.reshape(b, h, k * t), vp, vs.reshape(b, h, k * t), lane_map
+
+
+def _bf16(x):
+    """bf16-valued f32 copy of x (what both sides then cast to bf16)."""
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def _to_torch_bf16(*xs):
+    return [torch.from_numpy(x).to(torch.bfloat16) if x.dtype == np.float32
+            else torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("valid_len", [1, 11, 16])
+def test_self_int8_reference_matches_jax(valid_len):
+    q, kq, ks, vq, vs = _self_inputs()
+    got = tatt.self_attention_int8_reference(
+        *map(torch.from_numpy, (q, kq, ks, vq, vs)), valid_len).numpy()
+    mask = (np.arange(16) < valid_len)[None, None, None]
+    xla = np.asarray(jatt.self_attention_int8_xla(q, kq, ks, vq, vs, mask))
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+    # the Pallas kernel at bf16 q and scales: both sides round w·vs to bf16
+    qb, ksb, vsb = _bf16(q), _bf16(ks), _bf16(vs)
+    pallas = np.asarray(jatt.self_attention_int8(
+        jnp.asarray(qb, jnp.bfloat16), kq, jnp.asarray(ksb, jnp.bfloat16), vq,
+        jnp.asarray(vsb, jnp.bfloat16), valid_len, interpret=True), np.float32)
+    got_bf16 = tatt.self_attention_int8_reference(
+        *_to_torch_bf16(qb, kq, ksb, vq, vsb), valid_len)
+    assert got_bf16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("valid_len", [11, 16])
+def test_lanes_reference_matches_jax(valid_len):
+    q, kp, kps, vp, vps, lane_map = _lane_inputs()
+    got = tatt.self_attention_int8_lanes_reference(
+        *map(torch.from_numpy, (q, kp, kps, vp, vps, lane_map)), valid_len).numpy()
+    xla = np.asarray(jatt.self_attention_int8_lanes_xla(
+        q, kp, kps, vp, vps, lane_map, valid_len))
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+    # the Pallas kernel casts q to bf16 first; at bf16 inputs the two agree
+    qb, ksb, vsb = _bf16(q), _bf16(kps), _bf16(vps)
+    pallas = np.asarray(jatt.self_attention_int8_lanes(
+        jnp.asarray(qb, jnp.bfloat16), kp, jnp.asarray(ksb, jnp.bfloat16), vp,
+        jnp.asarray(vsb, jnp.bfloat16), lane_map, valid_len, interpret=True), np.float32)
+    got_bf16 = tatt.self_attention_int8_lanes_reference(
+        *_to_torch_bf16(qb, kp, ksb, vp, vsb, lane_map), valid_len)
+    np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
+
+
+def test_self_int8_xla_prefill_matches_jax():
+    """The quantized prefill's plain path, causal mask over Tq = 5 rows."""
+    q, kq, ks, vq, vs = _self_inputs(seed=7, tq=5, t=8)
+    mask = np.arange(8)[None, :] <= 3 + np.arange(5)[:, None]
+    ref = np.asarray(jatt.self_attention_int8_xla(q, kq, ks, vq, vs, mask[None, None]))
+    got = tatt.self_attention_int8_xla(
+        *map(torch.from_numpy, (q, kq, ks, vq, vs)), torch.from_numpy(mask)[None, None])
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_quantize_kv_rows_bit_equal_to_jax():
+    x = (np.random.default_rng(8).standard_normal((3, 7, 4 * 64)) * 2).astype(np.float32)
+    x[0, 2] = 0.0                          # an all-zero row: the scale clamps at 1e-8
+    xq_j, s_j = jwm._quantize_kv_rows(jnp.asarray(x), 4)
+    xq_t, s_t = twm._quantize_kv_rows(torch.from_numpy(x), 4)
+    assert xq_t.shape == (3, 4, 7, 64) and xq_t.dtype == torch.int8
+    assert s_t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(xq_t.numpy(), np.asarray(xq_j))
+    np.testing.assert_array_equal(s_t.float().numpy(), np.asarray(s_j, np.float32))
+
+
+def test_beam_lane_cache_bit_equal_to_jax():
+    rng = np.random.default_rng(9)
+    l, b, h, t, dh = 2, 2, 3, 6, 64
+    cache = {"k_q": rng.integers(-127, 128, (l, b, h, t, dh)).astype(np.int8),
+             "v_q": rng.integers(-127, 128, (l, b, h, t, dh)).astype(np.int8),
+             "k_s": _bf16(rng.random((l, b, h, t))), "v_s": _bf16(rng.random((l, b, h, t)))}
+    ref = jwm.beam_lane_cache(
+        {key: jnp.asarray(x, jnp.bfloat16 if x.dtype == np.float32 else x.dtype)
+         for key, x in cache.items()}, 3)
+    got = twm.beam_lane_cache(dict(zip(cache, _to_torch_bf16(*cache.values()))), 3)
+    assert got["k_p"].shape == (l, b, h * dh, 3, t) and got["v_p"].shape == (l, b, 3, t, h * dh)
+    for key in ("k_p", "v_p", "k_ps", "v_ps"):
+        assert got[key].dtype == (torch.int8 if key in ("k_p", "v_p") else torch.bfloat16)
+        np.testing.assert_array_equal(got[key].float().numpy(),
+                                      np.asarray(ref[key], np.float32))
+
+
 def test_wrappers_run_plain_versions_on_cpu():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 300, 64)).astype(np.float32))
@@ -121,8 +236,18 @@ def test_wrappers_run_plain_versions_on_cpu():
     torch.testing.assert_close(tatt.cross_attention_int8(*args, seq_len=t),
                                tatt.cross_attention_int8_reference(*args, seq_len=t),
                                rtol=0, atol=0)
+    args = [torch.from_numpy(x) for x in _self_inputs()]
+    torch.testing.assert_close(tatt.self_attention_int8(*args, 11),
+                               tatt.self_attention_int8_reference(*args, 11),
+                               rtol=0, atol=0)
+    args = [torch.from_numpy(x) for x in _lane_inputs()]
+    torch.testing.assert_close(tatt.self_attention_int8_lanes(*args, 11),
+                               tatt.self_attention_int8_lanes_reference(*args, 11),
+                               rtol=0, atol=0)
     # the counts record kernel launches only
-    assert tatt.launch_counts == {"flash_attention": 0, "cross_attention_int8": 0}
+    assert tatt.launch_counts == {"flash_attention": 0, "cross_attention_int8": 0,
+                                  "self_attention_int8": 0,
+                                  "self_attention_int8_lanes": 0}
 
 
 def test_kernel_sources_export_their_entry_points():
@@ -151,7 +276,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tq", [1, 4])
+@pytest.mark.parametrize("tq", [1, 4, 5])
 def test_cuda_kernels_match_plain_versions(cuda_device, tq):
     gen = torch.Generator(cuda_device).manual_seed(0)
 
@@ -176,3 +301,26 @@ def test_cuda_kernels_match_plain_versions(cuda_device, tq):
         tatt.cross_attention_int8(*args, seq_len=1500).float(),
         tatt.cross_attention_int8_reference(*args, seq_len=1500).float(),
         atol=2e-2, rtol=2e-2)
+    # int8 self-KV cache at Tq query rows, and the lane cache at K = tq beams
+    kq, ks = twm._quantize_kv_rows(randn(6, 40, 4 * 64), 4)
+    vq, vs = twm._quantize_kv_rows(randn(6, 40, 4 * 64), 4)
+    args = (randn(6, 4, tq, 64).to(torch.bfloat16), kq, ks, vq, vs)
+    for valid_len in (1, 23, 40):
+        torch.testing.assert_close(
+            tatt.self_attention_int8(*args, valid_len).float(),
+            tatt.self_attention_int8_reference(*args, valid_len).float(),
+            atol=2e-2, rtol=2e-2)
+    b, h, t = 2, 4, 40
+    kq, ks = twm._quantize_kv_rows(randn(b, tq * t, h * 64), h)   # (B, H, K·T, 64)
+    vq, vs = twm._quantize_kv_rows(randn(b, tq * t, h * 64), h)
+    lane_map = torch.randint(0, tq, (b, tq, t), generator=gen, device=cuda_device,
+                             dtype=torch.int32)
+    lane_map[:, :, :3] = 0
+    args = (randn(b, h, tq, 64).to(torch.bfloat16),
+            kq.permute(0, 1, 3, 2).reshape(b, h * 64, tq * t).contiguous(), ks,
+            vq.permute(0, 2, 1, 3).reshape(b, tq * t, h * 64).contiguous(), vs, lane_map)
+    for valid_len in (1, 23, 40):
+        torch.testing.assert_close(
+            tatt.self_attention_int8_lanes(*args, valid_len).float(),
+            tatt.self_attention_int8_lanes_reference(*args, valid_len).float(),
+            atol=2e-2, rtol=2e-2)

@@ -1,8 +1,9 @@
 """Port transcriber and pipeline entry (turbo_whisper_workspace_tpu_torch/
 pipeline) against the JAX package, end to end on the CPU: the same tiny
 random weights, the committed golden clip and a synthesized long-form
-clip, greedy at T=0 only (random weights would otherwise send windows
-into the sampled fallback retries, whose draws differ by design)."""
+clip, greedy or beam-5 (int8 lane self-KV cache) at T=0 only (random
+weights would otherwise send windows into the sampled fallback retries,
+whose draws differ by design)."""
 
 import pathlib
 import struct
@@ -51,14 +52,15 @@ def _long_clip(seconds=48.0, seed=0):
     return audio.astype(np.float32)
 
 
+@pytest.mark.parametrize("beam_size", [1, 5])
 @pytest.mark.parametrize("initial_prompt", [None, "hello there"])
-def test_transcriber_matches_jax(pair, monkeypatch, initial_prompt):
+def test_transcriber_matches_jax(pair, monkeypatch, initial_prompt, beam_size):
     params, model = pair
     monkeypatch.setattr(jtr, "FALLBACK_TEMPERATURES", (0.0,))
     monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
     golden, _ = jio.read_audio_file(str(GOLDEN / "conversation.wav"))
     audios = [golden, _long_clip()]
-    kw = dict(batch_size=4, max_decode_len=24)
+    kw = dict(batch_size=4, max_decode_len=24, beam_size=beam_size)
     jt = jtr.load_transcriber(params, DIMS, JConfig(**kw))
     tt = ttr.load_transcriber(model, TConfig(**kw), device="cpu")
     ref = jt.transcribe(audios, initial_prompt=initial_prompt)
@@ -115,8 +117,6 @@ def test_entry_points_default_to_cuda(pair, monkeypatch):
         tpipe.AudioProcessingPipeline()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.load_transcriber(model)
-    with pytest.raises(NotImplementedError):
-        ttr.load_transcriber(model, TConfig(beam_size=5), device="cpu")
 
 
 def test_longform_and_vad_match_jax():

@@ -1,17 +1,21 @@
 """Whisper encoder-decoder as torch nn.Modules.
 
-Port of turbo_whisper_workspace_tpu/models/whisper.py: the greedy path
-(bf16 self-KV cache, int8 or dense cross-KV). Blocks are one module per
-layer instead of the JAX package's layer-stacked leaves under
-`lax.scan`; models/convert.py maps one layout onto the other. The
-decoder takes and returns the JAX package's cache and cross-KV dicts
-with their (L, B, ...) layouts, so the transcriber's row gather and the
-parity tests see the same arrays.
+Port of turbo_whisper_workspace_tpu/models/whisper.py: the encoder and
+the decoder with its three self-KV caches (bf16; int8 with per-(head,
+position) scales; int8 beam "lane" panels) and int8 or dense cross-KV.
+Blocks are one module per layer instead of the JAX package's
+layer-stacked leaves under `lax.scan`; models/convert.py maps one
+layout onto the other. The decoder takes and returns the JAX package's
+cache and cross-KV dicts with their (L, B, ...) layouts, so the
+transcriber's row gather, beam search and the parity tests see the
+same arrays.
 
 Kernel routing has no switch: the encoder's long self-attention calls
-`ops.attention.flash_attention` and int8 cross-attention calls
-`ops.attention.cross_attention_int8`, which launch their CUDA kernels
-for CUDA tensors and run their plain versions for CPU tensors.
+`ops.attention.flash_attention`, int8 cross-attention
+`ops.attention.cross_attention_int8`, a decode step over the int8
+cache `self_attention_int8` and a beam step over the lane cache
+`self_attention_int8_lanes`; each launches its CUDA kernel for CUDA
+tensors and runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -241,11 +245,19 @@ class TextDecoder(nn.Module):
             return att.quantize_cross_kv_int8(k, v)
         return {"k": k, "v": v}
 
-    def _cross_attention(self, q: torch.Tensor, cross_kv: dict, li: int) -> torch.Tensor:
-        """q (B, Tq, D) over layer li's cross-KV → (B, Tq, D)."""
+    def _cross_attention(self, q: torch.Tensor, cross_kv: dict, li: int,
+                         beam: int = 1) -> torch.Tensor:
+        """q (B, Tq, D) over layer li's cross-KV → (B, Tq, D). With beam > 1
+        the rows are B·K beams of one step: (B·K, 1, D) → (B, H, K, Dh), so
+        the K beams of a batch item ride the query axis and share one read
+        of its cross-KV, which stays at batch B."""
         b, tq, d = q.shape
         h = self.dims.n_text_head
-        qh = q.reshape(b, tq, h, d // h).transpose(1, 2).contiguous()
+        if beam > 1:
+            qh = q.reshape(b // beam, beam, h, d // h)
+        else:
+            qh = q.reshape(b, tq, h, d // h)
+        qh = qh.transpose(1, 2).contiguous()
         if "k_q" in cross_kv:
             out = att.cross_attention_int8(
                 qh, cross_kv["k_q"][li], cross_kv["v_q"][li],
@@ -258,15 +270,71 @@ class TextDecoder(nn.Module):
             out = torch.einsum("bhqk,bhkd->bhqd", weights, cv.to(q.dtype))
         return out.transpose(1, 2).reshape(b, tq, d)
 
+    def _self_attention(self, li: int, q, k, v, cache: dict, pos: int, mask,
+                        beam: int, lane_map) -> torch.Tensor:
+        """Layer li's self-attention, (B, T, D) → (B, T, D), after writing
+        this call's K/V rows into the cache IN PLACE at [pos, pos+T) (the
+        JAX package returns an updated copy). Keys past pos+T are all
+        masked, so they are left out of the product."""
+        b, t, d = q.shape
+        h = self.dims.n_text_head
+        dh = d // h
+        n_keys = pos + t
+        if "k_p" in cache:
+            # lane cache: beam row b·K+k writes lane k of batch item b at pos
+            br = b // beam
+            kq, ks = _quantize_kv_rows(k, h)              # (B·K, H, 1, Dh), (B·K, H, 1)
+            vq, vs = _quantize_kv_rows(v, h)
+            cache["k_p"][li, :, :, :, pos] = kq[:, :, 0].reshape(br, beam, d).transpose(1, 2)
+            cache["v_p"][li, :, :, pos] = vq[:, :, 0].reshape(br, beam, d)
+            cache["k_ps"][li, :, :, :, pos] = ks[:, :, 0].reshape(br, beam, h).transpose(1, 2)
+            cache["v_ps"][li, :, :, :, pos] = vs[:, :, 0].reshape(br, beam, h).transpose(1, 2)
+            # (L, B, ...) panels → one layer's contiguous (B, ...) views, no copies
+            kt = beam * cache["k_p"].shape[-1]
+            out = att.self_attention_int8_lanes(
+                q.reshape(br, beam, h, dh).transpose(1, 2).contiguous(),
+                cache["k_p"][li].reshape(br, d, kt), cache["k_ps"][li].reshape(br, h, kt),
+                cache["v_p"][li].reshape(br, kt, d), cache["v_ps"][li].reshape(br, h, kt),
+                lane_map, n_keys)
+            return out.transpose(1, 2).reshape(b, t, d)
+        if "k_q" in cache:
+            kq, ks = _quantize_kv_rows(k, h)              # (B, H, T, Dh), (B, H, T)
+            vq, vs = _quantize_kv_rows(v, h)
+            cache["k_q"][li, :, :, pos:n_keys] = kq
+            cache["k_s"][li, :, :, pos:n_keys] = ks
+            cache["v_q"][li, :, :, pos:n_keys] = vq
+            cache["v_s"][li, :, :, pos:n_keys] = vs
+            qh = q.reshape(b, t, h, dh).transpose(1, 2)
+            if t == 1:
+                out = att.self_attention_int8(
+                    qh.contiguous(), cache["k_q"][li], cache["k_s"][li],
+                    cache["v_q"][li], cache["v_s"][li], n_keys)
+            else:
+                out = att.self_attention_int8_xla(
+                    qh, cache["k_q"][li, :, :, :n_keys], cache["k_s"][li, :, :, :n_keys],
+                    cache["v_q"][li, :, :, :n_keys], cache["v_s"][li, :, :, :n_keys], mask)
+            return out.transpose(1, 2).reshape(b, t, d)
+        cache["k"][li, :, pos:n_keys] = k.to(cache["k"].dtype)
+        cache["v"][li, :, pos:n_keys] = v.to(cache["v"].dtype)
+        return mha(q, cache["k"][li, :, :n_keys].to(q.dtype),
+                   cache["v"][li, :, :n_keys].to(q.dtype), h, mask=mask)
+
     def forward(self, tokens: torch.Tensor, cross_kv: dict,
-                kv_cache: dict | None = None, pos: int = 0):
+                kv_cache: dict | None = None, pos: int = 0, beam: int = 1,
+                lane_map: torch.Tensor | None = None):
         """JAX `decoder_forward`: tokens (B, T) at positions [pos, pos+T) →
         (logits (B, T, V) f32, kv_cache). Prefill when T > 1, one step when T == 1.
 
-        kv_cache {"k", "v"} (L, B, max_len, D) is WRITTEN IN PLACE at
-        [pos, pos+T) — the JAX package returns an updated copy
-        (dynamic_update_slice); here the caller's tensors change. Without
-        a cache the call is teacher-forced from position 0."""
+        kv_cache is one of init_kv_cache's dicts (bf16 {"k", "v"}, or int8
+        {"k_q", "v_q", "k_s", "v_s"}) or beam_lane_cache's lane panels,
+        and is WRITTEN IN PLACE at [pos, pos+T) — the JAX package returns
+        an updated copy (dynamic_update_slice); here the caller's tensors
+        change. Without a cache the call is teacher-forced from position 0.
+
+        beam > 1: one step (T == 1) of B·K beam rows (row b·K + k) over a
+        cross-KV at batch B. The lane cache needs beam == its lane count
+        and lane_map (B, K, cache length) int32, the lane each beam reads
+        at each position."""
         b, t = tokens.shape
         x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
         use_cache = kv_cache is not None
@@ -274,27 +342,25 @@ class TextDecoder(nn.Module):
             kv_cache = init_kv_cache(self.dims, b, max_len=t, dtype=x.dtype,
                                      device=x.device)
             pos = 0
-        # keys at positions ≤ each query's position; keys past pos+T are
-        # all masked, so they are left out of the product
-        n_keys = pos + t
+        if beam > 1 and t != 1:
+            raise ValueError(f"beam={beam} decodes one step at a time, got T={t}")
+        if "k_p" in kv_cache and (lane_map is None or beam != kv_cache["k_p"].shape[3]):
+            raise ValueError("the lane cache needs lane_map and beam equal to its "
+                             f"{kv_cache['k_p'].shape[3]} lanes, got beam={beam}")
         mask = None
         if t > 1:
-            key_pos = torch.arange(n_keys, device=x.device)
+            key_pos = torch.arange(pos + t, device=x.device)
             q_pos = pos + torch.arange(t, device=x.device)
             mask = (key_pos[None, :] <= q_pos[:, None])[None, None]
 
         for li, block in enumerate(self.blocks):
             h = block.attn_ln(x)
             a = block.attn
-            q, k, v = a.q(h), a.k(h), a.v(h)
-            kv_cache["k"][li, :, pos:pos + t] = k.to(kv_cache["k"].dtype)
-            kv_cache["v"][li, :, pos:pos + t] = v.to(kv_cache["v"].dtype)
-            attn = mha(q, kv_cache["k"][li, :, :n_keys].to(q.dtype),
-                       kv_cache["v"][li, :, :n_keys].to(q.dtype),
-                       block.n_head, mask=mask)
+            attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos, mask,
+                                        beam, lane_map)
             x = x + a.out(attn)
             c = block.cross
-            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li))
+            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li, beam))
             x = x + block.mlp(block.mlp_ln(x))
 
         x = self.ln(x).reshape(b * t, -1)
@@ -360,8 +426,58 @@ def init_params(dims: WhisperDims, generator: torch.Generator,
 
 def init_kv_cache(dims: WhisperDims, batch: int, max_len: int | None = None,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: torch.device | str = "cpu") -> dict:
-    """Preallocated self-attention cache {"k","v"} (L, B, max_len, D)."""
-    shape = (dims.n_text_layer, batch, max_len or dims.n_text_ctx, dims.n_text_state)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+                  device: torch.device | str = "cpu", quantize: bool = False) -> dict:
+    """Preallocated self-attention cache.
+
+    quantize=False: {"k","v"} (L, B, max_len, D) in `dtype`.
+    quantize=True: head-major int8 payload {"k_q","v_q"} (L, B, H,
+    max_len, Dh) with per-(head, position) scales {"k_s","v_s"} (L, B, H,
+    max_len) in bf16 whatever `dtype` is, as in the JAX package."""
+    max_len = max_len or dims.n_text_ctx
+    if not quantize:
+        shape = (dims.n_text_layer, batch, max_len, dims.n_text_state)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    h = dims.n_text_head
+    qshape = (dims.n_text_layer, batch, h, max_len, dims.n_text_state // h)
+    sshape = qshape[:-1]
+    return {"k_q": torch.zeros(qshape, dtype=torch.int8, device=device),
+            "v_q": torch.zeros(qshape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+            "v_s": torch.zeros(sshape, dtype=torch.bfloat16, device=device)}
+
+
+def beam_lane_cache(cache_b: dict, beam: int) -> dict:
+    """Quantized (L, B, H, T, Dh) prefill cache → the beam "lane" panels
+    that self_attention_int8_lanes reads, in the JAX package's layouts:
+
+      k_p  (L, B, H·Dh, K, T) int8  (one layer's (B, H·Dh, K·T) K panel)
+      v_p  (L, B, K, T, H·Dh) int8  (one layer's (B, K·T, H·Dh) V panel)
+      k_ps, v_ps (L, B, H, K, T)    per-(head, position) scales
+
+    The shared prompt goes in lane 0 only (every beam's lane_map starts
+    at 0); lanes 1..K-1 start zeroed and fill as beams write their rows."""
+    l, b, h, t, dh = cache_b["k_q"].shape
+    dev = cache_b["k_q"].device
+    sdtype = cache_b["k_s"].dtype
+    k_p = torch.zeros((l, b, h * dh, beam, t), dtype=torch.int8, device=dev)
+    k_p[:, :, :, 0] = cache_b["k_q"].transpose(3, 4).reshape(l, b, h * dh, t)
+    v_p = torch.zeros((l, b, beam, t, h * dh), dtype=torch.int8, device=dev)
+    v_p[:, :, 0] = cache_b["v_q"].permute(0, 1, 3, 2, 4).reshape(l, b, t, h * dh)
+    k_ps = torch.zeros((l, b, h, beam, t), dtype=sdtype, device=dev)
+    k_ps[:, :, :, 0] = cache_b["k_s"]
+    v_ps = torch.zeros((l, b, h, beam, t), dtype=sdtype, device=dev)
+    v_ps[:, :, :, 0] = cache_b["v_s"]
+    return {"k_p": k_p, "v_p": v_p, "k_ps": k_ps, "v_ps": v_ps}
+
+
+def _quantize_kv_rows(x: torch.Tensor, n_head: int):
+    """(B, T, D) → head-major int8 payload (B, H, T, Dh) and per-(B, H, T)
+    bf16 scales, both dense: divide by the f32 scale (clamped at 1e-8),
+    round half to even, and only then store the scale as bf16, as the JAX
+    function does."""
+    b, t, d = x.shape
+    xh = x.reshape(b, t, n_head, d // n_head).transpose(1, 2).float().contiguous()
+    s = (xh.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    xq = torch.clamp(torch.round(xh / s[..., None]), -127, 127).to(torch.int8)
+    return xq, s.to(torch.bfloat16)

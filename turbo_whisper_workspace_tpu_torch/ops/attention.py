@@ -1,7 +1,8 @@
-"""Attention kernels of the greedy path: CUDA wrappers and plain twins.
+"""Attention kernels of the decode paths: CUDA wrappers and plain twins.
 
 Port of turbo_whisper_workspace_tpu/ops/attention.py (flash_attention,
-cross_attention_int8, quantize_cross_kv_int8). Each kernel has:
+cross_attention_int8, quantize_cross_kv_int8, self_attention_int8,
+self_attention_int8_lanes, self_attention_int8_xla). Each kernel has:
 
 * a wrapper that, for CUDA tensors, checks them, allocates the output,
   launches the hand-written CUDA C++ kernel (csrc/) on the current
@@ -22,6 +23,8 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIM = 64     # the kernels' head dim (every Whisper size)
+MAX_BEAMS = 8     # self_attention_int8_lanes: one warp per beam in the softmax
+LOG2E = math.log2(math.e)
 
 # kernel name → launches since the last reset_launch_counts()
 launch_counts = {name: 0 for name in build.SIGNATURES}
@@ -32,10 +35,11 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int,
+def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int | dict,
                 contiguous: bool = True) -> None:
     """Device, dtype, contiguity and alignment checks before a launch
-    (`align`: the widest load, in bytes, the kernel makes)."""
+    (`align`: the widest load, in bytes, the kernel makes; a dict gives
+    it per argument)."""
     device = next(iter(tensors.values())).device
     for arg, t in tensors.items():
         if t.device != device or t.device.type != "cuda":
@@ -44,8 +48,9 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int,
             raise ValueError(f"{name}: {arg} must be {dtypes[arg]}, got {t.dtype}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.data_ptr() % align:
-            raise ValueError(f"{name}: {arg} must be {align}-byte aligned")
+        arg_align = align[arg] if isinstance(align, dict) else align
+        if t.data_ptr() % arg_align:
+            raise ValueError(f"{name}: {arg} must be {arg_align}-byte aligned")
 
 
 def _stream(device: torch.device) -> int:
@@ -61,7 +66,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     """Plain non-causal attention with the TPU kernel's math
     (_one_pass_kernel): f32 scores scaled by d^-1/2·log2 e, exp2 softmax,
     weights cast to q's dtype before PV with f32 sums. (B, H, T, D)."""
-    scale = (q.shape[-1] ** -0.5) * math.log2(math.e)
+    scale = q.shape[-1] ** -0.5 * LOG2E
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp2(scores - scores.amax(-1, keepdim=True))
     w = (p / p.sum(-1, keepdim=True)).to(q.dtype)
@@ -139,7 +144,7 @@ def cross_attention_int8_reference(q, kq, vq, k_scale, v_scale,
     b, h, tq, dh = q.shape
     tpad = kq.shape[-1]
     seq_len = tpad if seq_len is None else seq_len
-    scale = (dh ** -0.5) * math.log2(math.e)
+    scale = dh ** -0.5 * LOG2E
     qs = (q.float() * (k_scale[:, :, None, None] * scale)).to(torch.bfloat16)
     scores = torch.einsum("bhqd,bhdt->bhqt", qs.float(), kq.float())
     if seq_len < tpad:
@@ -180,4 +185,138 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
                  b, h, tq, tpad, seq_len, _stream(q.device))
     launch_counts["cross_attention_int8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decoder self-attention over the int8 self-KV cache (beam search)
+
+
+def self_attention_int8_xla(q, kq, ks, vq, vs, mask: torch.Tensor) -> torch.Tensor:
+    """Masked attention over an int8 (B, H, T, Dh) cache with per-(head,
+    position) scales ks, vs (B, H, T); mask broadcasts to (B, H, Tq, T).
+
+    This is the JAX package's XLA path (self_attention_int8_xla), which
+    it runs for the quantized prefill (Tq > 1, causal mask) on every
+    backend; there is no kernel for it there either, so it is plain
+    torch on the card too, not a fallback. f32 logits and softmax,
+    weights × vs rounded to q's dtype, PV summed in f32 and rounded to
+    q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float())
+    logits = logits * (ks.float()[:, :, None, :] * scale)
+    weights = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    weights = (weights * vs.float()[:, :, None, :]).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.float(), vq.float()).to(q.dtype)
+
+
+def self_attention_int8_reference(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
+    """Plain version with the TPU kernel's rounding points
+    (_self_int8_kernel): f32 scores q·kq × ks·d^-1/2·log2 e, keys at
+    t ≥ valid_len masked, exp2 softmax in f32, weights × vs rounded to
+    q's dtype, f32 PV, one rounding to q's dtype.
+    q (B, H, Tq, Dh); kq, vq (B, H, T, Dh) int8; ks, vs (B, H, T)."""
+    scale = q.shape[-1] ** -0.5 * LOG2E
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float())
+    scores = scores * (ks.float()[:, :, None, :] * scale)
+    scores[..., valid_len:] = NEG_INF
+    p = torch.exp2(scores - scores.amax(-1, keepdim=True))
+    w = p / p.sum(-1, keepdim=True)
+    w = (w * vs.float()[:, :, None, :]).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w.float(), vq.float()).to(q.dtype)
+
+
+def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
+    """One decode step of self-attention over the int8 cache; returns
+    (B, H, Tq, 64). `valid_len` is a host int (keys t < valid_len count),
+    passed to the kernel as an argument.
+
+    CUDA: csrc/self_attention_int8.cu, bf16 q and scales. CPU: the plain
+    version."""
+    if q.device.type == "cpu":
+        return self_attention_int8_reference(q, kq, ks, vq, vs, valid_len)
+    _check_cuda("self_attention_int8",
+                {"q": q, "kq": kq, "ks": ks, "vq": vq, "vs": vs},
+                {"q": torch.bfloat16, "kq": torch.int8, "ks": torch.bfloat16,
+                 "vq": torch.int8, "vs": torch.bfloat16},
+                align={"q": 2, "kq": 16, "ks": 2, "vq": 4, "vs": 2})
+    b, h, tq, dh = q.shape
+    t = kq.shape[2]
+    if (dh != HEAD_DIM or kq.shape != (b, h, t, dh) or vq.shape != kq.shape
+            or ks.shape != (b, h, t) or vs.shape != ks.shape):
+        raise ValueError(
+            "self_attention_int8: expected q (B, H, Tq, 64), kq and vq (B, H, T, 64), "
+            f"ks and vs (B, H, T); got {q.shape}, {kq.shape}, {vq.shape}, "
+            f"{ks.shape}, {vs.shape}")
+    if not 1 <= valid_len <= t or not 1 <= tq <= 65535 or b * h < 1:
+        raise ValueError(f"self_attention_int8: valid_len={valid_len}, T={t}, "
+                         f"Tq={tq}, B·H={b * h} out of range")
+    out = torch.empty_like(q)
+    build.launch("self_attention_int8", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+                 vq.data_ptr(), vs.data_ptr(), out.data_ptr(), b * h, tq, t, valid_len,
+                 _stream(q.device))
+    launch_counts["self_attention_int8"] += 1
+    return out
+
+
+def self_attention_int8_lanes_reference(q, kq, ks, vq, vs, lane_map: torch.Tensor,
+                                        valid_len: int) -> torch.Tensor:
+    """Plain version of the beam step over the lane cache, with the TPU
+    kernel's rounding points (_bd_self_int8_kernel): for beam k, key
+    column j = l·T + t counts only when lane l == lane_map[b, k, t] and
+    t < valid_len; f32 scores × ks·d^-1/2·log2 e, exp2 softmax, weights ×
+    vs rounded to q's dtype, f32 PV, one rounding to q's dtype.
+    q (B, H, K, Dh); kq (B, H·Dh, K·T) and vq (B, K·T, H·Dh) int8 panels;
+    ks, vs (B, H, K·T); lane_map (B, K, T) int."""
+    b, h, k, dh = q.shape
+    kt = kq.shape[-1]
+    t = kt // k
+    scale = dh ** -0.5 * LOG2E
+    scores = torch.einsum("bhkd,bhdj->bhkj", q.float(), kq.reshape(b, h, dh, kt).float())
+    scores = scores * (ks.float()[:, :, None, :] * scale)
+    lanes = torch.arange(k, device=q.device)[None, None, :, None]
+    keep = (lane_map[:, :, None, :] == lanes) & (
+        torch.arange(t, device=q.device) < valid_len)            # (B, K, K lanes, T)
+    scores = scores.masked_fill(~keep.reshape(b, 1, k, kt), NEG_INF)
+    p = torch.exp2(scores - scores.amax(-1, keepdim=True))
+    w = p / p.sum(-1, keepdim=True)
+    w = (w * vs.float()[:, :, None, :]).to(q.dtype)
+    vh = vq.reshape(b, kt, h, dh)
+    return torch.einsum("bhkj,bjhd->bhkd", w.float(), vh.float()).to(q.dtype)
+
+
+def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
+                              valid_len: int) -> torch.Tensor:
+    """Beam-decode self-attention over the un-reordered lane cache;
+    returns (B, H, K, 64). The kernel reads `lane_map` itself; the TPU
+    wrapper's additive (B, K, K·T) bias is not built. `valid_len` is a
+    host int.
+
+    CUDA: csrc/self_attention_int8_lanes.cu, bf16 q and scales, int32
+    lane_map, K ≤ 8 beams. CPU: the plain version."""
+    if q.device.type == "cpu":
+        return self_attention_int8_lanes_reference(q, kq, ks, vq, vs, lane_map, valid_len)
+    _check_cuda("self_attention_int8_lanes",
+                {"q": q, "kq": kq, "ks": ks, "vq": vq, "vs": vs, "lane_map": lane_map},
+                {"q": torch.bfloat16, "kq": torch.int8, "ks": torch.bfloat16,
+                 "vq": torch.int8, "vs": torch.bfloat16, "lane_map": torch.int32},
+                align={"q": 2, "kq": 1, "ks": 2, "vq": 4, "vs": 2, "lane_map": 4})
+    b, h, k, dh = q.shape
+    kt = kq.shape[-1]
+    t = kt // k
+    if (dh != HEAD_DIM or kt != k * t or kq.shape != (b, h * dh, kt)
+            or vq.shape != (b, kt, h * dh) or ks.shape != (b, h, kt)
+            or vs.shape != ks.shape or lane_map.shape != (b, k, t)):
+        raise ValueError(
+            "self_attention_int8_lanes: expected q (B, H, K, 64), kq (B, H·64, K·T), "
+            "vq (B, K·T, H·64), ks and vs (B, H, K·T), lane_map (B, K, T); got "
+            f"{q.shape}, {kq.shape}, {vq.shape}, {ks.shape}, {vs.shape}, {lane_map.shape}")
+    if not 1 <= k <= MAX_BEAMS or not 1 <= valid_len <= t or b * h < 1:
+        raise ValueError(f"self_attention_int8_lanes: K={k} (at most {MAX_BEAMS}), "
+                         f"valid_len={valid_len}, T={t}, B·H={b * h} out of range")
+    out = torch.empty_like(q)
+    build.launch("self_attention_int8_lanes", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+                 vq.data_ptr(), vs.data_ptr(), lane_map.data_ptr(), out.data_ptr(),
+                 b, h, k, t, valid_len, _stream(q.device))
+    launch_counts["self_attention_int8_lanes"] += 1
     return out

@@ -34,6 +34,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "cross_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "self_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

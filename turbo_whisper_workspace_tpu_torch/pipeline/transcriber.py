@@ -1,14 +1,15 @@
 """Batched Whisper transcriber: files → 30 s windows → device batches.
 
-Port of turbo_whisper_workspace_tpu/pipeline/transcriber.py, greedy
-path. All windows of all input files are flattened into batches whose
-size is the next power of two ≥ the window count (capped at the
-configured batch size), padded with silence; each batch is encoded
-once (mel → encoder → cross-KV), the language read from that cross-KV
-with one decoder step, and decoded greedily. Windows that fail
-openai/whisper's quality thresholds are decoded again at rising
-temperatures from their gathered cross-KV rows, without re-running the
-encoder. Results are merged back per file.
+Port of turbo_whisper_workspace_tpu/pipeline/transcriber.py. All
+windows of all input files are flattened into batches whose size is the
+next power of two ≥ the window count (capped at the configured batch
+size), padded with silence; each batch is encoded once (mel → encoder →
+cross-KV), the language read from that cross-KV with one decoder step,
+and decoded greedily, or by beam search when `config.beam_size` > 1
+(over the int8 lane self-KV cache when `config.quantize_self_kv`).
+Windows that fail openai/whisper's quality thresholds are decoded again
+greedily at rising temperatures from their gathered cross-KV rows,
+without re-running the encoder. Results are merged back per file.
 
 Audio reaches the device as int16 PCM (converted on the device in the
 mel frontend), all batches' copies issued from pinned memory before the
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import TranscriptionConfig
+from ..decode import beam as beam_mod
 from ..decode import greedy as greedy_mod
 from ..decode import longform
 from ..decode.rules import DecodeRules
@@ -75,9 +77,6 @@ class Transcriber:
     device: torch.device | str = "cuda"
 
     def __post_init__(self):
-        if self.config.beam_size > 1:
-            raise NotImplementedError(
-                "beam search is not ported yet; use beam_size=1 (greedy)")
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device)
         self.dims = self.model.dims
@@ -134,11 +133,21 @@ class Transcriber:
         cross_kv: dict,
         languages: Sequence[str | None],
         temperature: float = 0.0,
+        beam_size: int | None = None,
         prefix: list[int] | None = None,
     ):
+        beam_size = beam_size if beam_size is not None else self.config.beam_size
         prompt = torch.tensor(
             [self._prompt_row(l, prefix) for l in languages], dtype=torch.long,
             device=self.device)
+        sot_index = len(prefix) if prefix else 0
+        if beam_size > 1 and temperature == 0.0:
+            res = beam_mod.beam_decode_features(
+                self.model, cross_kv, prompt, rules=self.rules, beam_size=beam_size,
+                max_len=self.config.max_decode_len, sot_index=sot_index,
+                quantize_cache=self.config.quantize_self_kv,
+            )
+            return res, prompt.shape[1]
         generator = None
         if temperature > 0:
             generator = torch.Generator(self.device).manual_seed(
@@ -146,7 +155,7 @@ class Transcriber:
         res = greedy_mod.greedy_decode_features(
             self.model, cross_kv, prompt, rules=self.rules,
             max_len=self.config.max_decode_len, temperature=float(temperature),
-            generator=generator, sot_index=len(prefix) if prefix else 0,
+            generator=generator, sot_index=sot_index,
         )
         return res, prompt.shape[1]
 
