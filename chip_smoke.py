@@ -45,10 +45,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    mode (int8 lanes, int8 regathered with lane_cache=False, bf16
    regathered), twice each in turns, timed; the beam calls must launch
    self_attention_int8_lanes and cross_attention_int8, the int8
-   regathered calls self_attention_int8.
+   regathered calls self_attention_int8;
+6. the LLM enrichment path (llama-3.1-8b at full width, random bf16
+   weights from seed 0 drawn on the card, then quantized there by
+   quantize_tree at quantize_bits=4: int4 body, int8 lm_head):
+   int8_matmul, int4_matmul and int4_matmul_s8 against their plain
+   versions at each of the path's shapes and one small ragged shape
+   each, max abs error within 2e-2 × max|ref| and relative L2 within
+   5e-3, each wrong reading of the weight layout (nibble halves swapped,
+   nibbles not sign-extended, the scale of the wrong group or column)
+   read above that limit, timed as in phase 3; the quantizers on the
+   card bit-equal to the same call on the CPU for one full-width weight;
+   the model's prefill of a 512-token prompt and one decode step within
+   5e-2 relative L2 of the same model with the plain versions, with the
+   hidden state's error after each layer printed, and as a control the
+   plain twin against itself with TF32 sums; then, with the counts
+   zeroed, the stage end to end:
+   TorchLlama injected with set_llm, and AudioProcessingPipeline's
+   identify_speaker_names, generate_summary and extract_topics on a
+   20-segment two-speaker conversation, timed (prefill ms, ms per decode
+   step, tokens/s); all three kernels must have been launched. Last, a
+   torch.profiler window over three decode steps: host wall against
+   device busy time per step, launches per step, the heaviest kernels.
 
-Prints a `kernels` JSON line (launches summed over the runs of phases 4
-and 5), then as its last line
+Prints a `kernels` JSON line (launches summed over the runs of phases 4,
+5 and 6), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -79,6 +100,7 @@ BEAM, PROMPT, DECODE = 5, 3, 224   # the beam phase: beam 5, <|sot|> en transcri
 MID_DECODE = PROMPT + 112          # valid_len halfway through a decode
 MODEL_TOL = 5e-2           # relative L2 error of encoder features / logits
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 RUNS = 25
 REPLACES = {
@@ -86,6 +108,21 @@ REPLACES = {
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
     "self_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:384",
     "self_attention_int8_lanes": "turbo_whisper_workspace_tpu/ops/attention.py:497",
+    "int8_matmul": "turbo_whisper_workspace_tpu/ops/quant.py:41",
+    "int4_matmul": "turbo_whisper_workspace_tpu/ops/quant.py:151",
+    "int4_matmul_s8": "turbo_whisper_workspace_tpu/ops/quant.py:260",
+}
+LLM = "llama-3.1-8b"
+LLM_PROMPT = 512           # tokens of the prefill the model check runs
+# phase 6's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
+# prefill rows or the decode step's M = 1 (and the route's largest, 8),
+# then one small ragged shape; the first is the kernels line's row
+QUANT_SHAPES = {
+    "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
+    "int4_matmul": ((LLM_PROMPT, 4096, 14336), (LLM_PROMPT, 14336, 4096),
+                    (LLM_PROMPT, 4096, 4096), (LLM_PROMPT, 4096, 1024), (3, 256, 1000)),
+    "int4_matmul_s8": ((1, 4096, 14336), (1, 14336, 4096), (1, 4096, 4096), (1, 4096, 1024),
+                       (8, 4096, 14336), (8, 14336, 4096), (3, 256, 1000)),
 }
 
 
@@ -114,9 +151,10 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -130,17 +168,21 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got - ref).norm() / ref.norm()).item()
 
 
-def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dropped: dict):
+def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dropped: dict,
+            relative_max: bool = False):
     """Max abs and relative L2 error of a kernel against its plain
-    version; `dropped` maps each mask the kernel must apply to the plain
-    version run without it, an error the relative check must catch."""
+    version; `dropped` maps each mask the kernel must apply (or each
+    wrong reading of its layout) to the plain version run without it, an
+    error the relative check must catch. With `relative_max` the max abs
+    limit is KERNEL_TOL × max|ref| (outputs not of order one)."""
     err = (got.float() - ref.float()).abs().max().item()
     rel = rel_err(got, ref)
+    tol = KERNEL_TOL * (ref.float().abs().max().item() if relative_max else 1.0)
     misses = {what: rel_err(out, ref) for what, out in dropped.items()}
     shown = "".join(f"; without the {what} {m:.3e}" for what, m in misses.items())
-    print(f"{name}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL}), rel_l2_err "
+    print(f"{name}: max_abs_err {err:.3e} (tolerance {tol:.3e}), rel_l2_err "
           f"{rel:.3e} (tolerance {KERNEL_REL_TOL}{shown})")
-    assert math.isfinite(err) and err <= KERNEL_TOL and rel <= KERNEL_REL_TOL, (err, rel)
+    assert math.isfinite(err) and err <= tol and rel <= KERNEL_REL_TOL, (err, rel)
     assert all(m > KERNEL_REL_TOL for m in misses.values()), misses
     return err, rel
 
@@ -218,10 +260,11 @@ def check_kernels(att, dev) -> dict:
     return stats
 
 
-def timed(label: str, kernel, plain, n_bytes: float, n_ops: float, flush) -> dict:
+def timed(label: str, kernel, plain, n_bytes: float, n_ops: float, flush,
+          peak_ops: float = PEAK_BF16_FLOPS) -> dict:
     """The kernel's and its plain version's times beside the bound."""
     ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush)
-    bms, by = bound_ms(n_bytes, n_ops)
+    bms, by = bound_ms(n_bytes, n_ops, peak_ops)
     print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None}
@@ -308,19 +351,21 @@ def check_self_kernels(att, dev, gen, flush) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels(att):
-    """Every kernel wrapper replaced by its plain version, for a run
-    that must launch nothing."""
-    kernels = {name: getattr(att, name) for name in att.launch_counts}
-    counts = dict(att.launch_counts)
-    for name in kernels:
-        setattr(att, name, getattr(att, f"{name}_reference"))
+def plain_kernels(*modules):
+    """Every kernel wrapper of the given modules (ops/attention.py,
+    ops/quant.py) replaced by its plain version, for a run that must
+    launch nothing."""
+    kernels = {(mod, name): getattr(mod, name) for mod in modules
+               for name in mod.launch_counts}
+    counts = [dict(mod.launch_counts) for mod in modules]
+    for mod, name in kernels:
+        setattr(mod, name, getattr(mod, f"{name}_reference"))
     try:
         yield
     finally:
-        for name, fn in kernels.items():
-            setattr(att, name, fn)
-    assert att.launch_counts == counts, "the plain run launched a kernel"
+        for (mod, name), fn in kernels.items():
+            setattr(mod, name, fn)
+    assert [mod.launch_counts for mod in modules] == counts, "the plain run launched a kernel"
 
 
 def check_model(att, transcriber, audio: np.ndarray) -> None:
@@ -391,6 +436,374 @@ def check_beam_step(att, transcriber, audio: np.ndarray) -> None:
             print(f"full-width beam-{BEAM} step over the {kernel} cache vs its plain twin: "
                   f"logits rel err {e:.3e} (tolerance {MODEL_TOL}); launches {launched}")
             assert logits.shape == (BEAM, 1, model.dims.n_vocab) and e <= MODEL_TOL
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LLM enrichment path
+
+
+def wrong_nibbles(tq, w_q4: torch.Tensor) -> dict:
+    """The packed (K/2, N) weight's (lo, hi) nibbles read in each wrong
+    way the relative check must catch."""
+    lo, hi = tq._unpack_int4(w_q4)
+    w32 = w_q4.to(torch.int32)
+    return {"low/high nibble order": (hi, lo),
+            "sign extension": (w32 & 15, (w32 >> 4) & 15)}
+
+
+def library_int8(x, w_q, scale, flush):
+    """torch._weight_int8pack_mm (x @ (int8 W · per-column scale), W as
+    (N, K)) where this torch has a CUDA kernel for it: (ms, None), else
+    (None, the reason)."""
+    try:
+        w_nk = w_q.t().contiguous()
+        s = scale.to(x.dtype)
+        torch._weight_int8pack_mm(x, w_nk, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"torch._weight_int8pack_mm: {str(e).splitlines()[0][:120]}"
+    ms = time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s), flush)
+    del w_nk
+    return ms, None
+
+
+def check_quant_kernels(tq, dev) -> dict:
+    """Phase 6: each quantized-matmul kernel against its plain version
+    at the LLM path's shapes in bf16 and one ragged shape, with the wrong
+    layout readings shown to matter, timed. The row in the kernels line
+    is the first shape of each kernel (the path's heaviest use)."""
+    gen = torch.Generator(dev).manual_seed(1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    stats = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def weight(k, n, bits):
+        w = randn(k, n) * k ** -0.5
+        return tq.quantize_int8(w) if bits == 8 else tq.quantize_int4(w)
+
+    # int8_matmul: the lm_head prefill, the body at quantize_bits=8, ragged
+    rows, errs, notes = {}, {}, {}
+    for m, k, n in QUANT_SHAPES["int8_matmul"]:
+        x = randn(m, k).to(torch.bfloat16)
+        q = weight(k, n, 8)
+        wq, sc = q["w_q"], q["scale"]
+        out = tq.int8_matmul(x, wq, sc)
+        torch.cuda.synchronize()
+        ref = tq.int8_matmul_reference(x, wq, sc)
+        errs[(m, k, n)] = compare(
+            f"int8_matmul M={m} K={k} N={n}", out, ref,
+            {"right column's scale": tq.int8_matmul_reference(x, wq, sc.roll(1))},
+            relative_max=True)
+        del ref
+        row = timed(f"int8_matmul M={m} K={k} N={n}", lambda: tq.int8_matmul(x, wq, sc),
+                    lambda: tq.int8_matmul_reference(x, wq, sc),
+                    nbytes(x, wq, sc, out), 2 * m * k * n, flush)
+        lib, why = library_int8(x, wq, sc, flush)
+        row["library_ms"], notes[(m, k, n)] = lib, why
+        w_deq = (wq.to(torch.bfloat16) * sc.to(torch.bfloat16))
+        print(f"int8_matmul M={m} K={k} N={n}: library "
+              f"{'%.4f ms' % lib if lib is not None else 'none (' + why + ')'}; cuBLAS bf16 "
+              f"on the pre-dequantized weight (context only) "
+              f"{time_ms(lambda: x @ w_deq, flush):.4f} ms")
+        rows[(m, k, n)] = row
+        del x, q, wq, sc, out, w_deq
+    first = QUANT_SHAPES["int8_matmul"][0]
+    stats["int8_matmul"] = kernel_row(rows[first], errs)
+    stats["int8_matmul"]["library_note"] = notes[first]
+
+    # int4_matmul: the body prefill's four shapes (gate/up, down, q/out, k/v), ragged
+    rows, errs = {}, {}
+    for m, k, n in QUANT_SHAPES["int4_matmul"]:
+        x = randn(m, k).to(torch.bfloat16)
+        q = weight(k, n, 4)
+        wq, sc = q["w_q4"], q["scale4"]
+        out = tq.int4_matmul(x, wq, sc)
+        torch.cuda.synchronize()
+        ref = tq.int4_matmul_reference(x, wq, sc)
+        dropped = {what: tq._int4_from_halves(x, lo, hi, sc)
+                   for what, (lo, hi) in wrong_nibbles(tq, wq).items()}
+        dropped["right group's scale"] = tq.int4_matmul_reference(x, wq, sc.roll(1, 0))
+        errs[(m, k, n)] = compare(f"int4_matmul M={m} K={k} N={n}", out, ref, dropped,
+                                  relative_max=True)
+        del ref
+        rows[(m, k, n)] = timed(f"int4_matmul M={m} K={k} N={n}",
+                                lambda: tq.int4_matmul(x, wq, sc),
+                                lambda: tq.int4_matmul_reference(x, wq, sc),
+                                nbytes(x, wq, sc, out), 2 * m * k * n, flush)
+        lo, hi = tq._dequant4_halves(wq, sc, k)
+        w_deq = torch.cat([lo, hi])
+        print(f"int4_matmul M={m} K={k} N={n}: library none (no PyTorch call takes this "
+              f"packing); cuBLAS bf16 on the pre-dequantized weight (context only) "
+              f"{time_ms(lambda: x @ w_deq, flush):.4f} ms")
+        del x, q, wq, sc, out, lo, hi, w_deq
+    stats["int4_matmul"] = kernel_row(rows[QUANT_SHAPES["int4_matmul"][0]], errs)
+
+    # int4_matmul_s8: the decode step's four shapes (M = 1), the route's largest M, ragged
+    rows, errs = {}, {}
+    for m, k, n in QUANT_SHAPES["int4_matmul_s8"]:
+        q = weight(k, n, 4)
+        wq, sc = q["w_q4"], q["scale4"]
+        xq, xs = tq.quant_act_grouped(randn(m, k), sc.shape[0])
+        out = tq.int4_matmul_s8(xq, xs, wq, sc)
+        torch.cuda.synchronize()
+        ref = tq.int4_matmul_s8_reference(xq, xs, wq, sc)
+        dropped = {what: tq._s8_from_halves(xq, xs, lo, hi, sc)
+                   for what, (lo, hi) in wrong_nibbles(tq, wq).items()}
+        dropped["right group's scale"] = tq.int4_matmul_s8_reference(xq, xs, wq, sc.roll(1, 0))
+        errs[(m, k, n)] = compare(f"int4_matmul_s8 M={m} K={k} N={n}", out, ref, dropped,
+                                  relative_max=True)
+        # the packed weight and its scales, xq, xs and the bf16 output
+        rows[(m, k, n)] = timed(f"int4_matmul_s8 M={m} K={k} N={n}",
+                                lambda: tq.int4_matmul_s8(xq, xs, wq, sc),
+                                lambda: tq.int4_matmul_s8_reference(xq, xs, wq, sc),
+                                nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
+                                peak_ops=PEAK_INT8_OPS)
+        del q, wq, sc, xq, xs, out, ref
+    print("int4_matmul_s8: library none (no PyTorch call takes int4 weights packed in "
+          "halves with grouped int8 activations)")
+    stats["int4_matmul_s8"] = kernel_row(rows[QUANT_SHAPES["int4_matmul_s8"][0]], errs)
+    return stats
+
+
+def check_quantizer(tq, dev) -> None:
+    """The quantizers on the card give the CPU's bytes for one
+    full-width weight (the gate projection, 4096 × 14336)."""
+    gen = torch.Generator(dev).manual_seed(2)
+    w = torch.randn(4096, 14336, generator=gen, device=dev) * 4096 ** -0.5
+    w_cpu = w.cpu()
+    for name, fn in (("quantize_int4", tq.quantize_int4), ("quantize_int8", tq.quantize_int8)):
+        on_card, on_cpu = fn(w), fn(w_cpu)
+        for key in on_card:
+            assert torch.equal(on_card[key].cpu(), on_cpu[key]), (name, key)
+        print(f"{name} of a 4096 x 14336 weight: bit-equal on the card and the CPU")
+
+
+@contextlib.contextmanager
+def residual_stream(lm):
+    """Records the residual stream of each lm.forward run inside: the
+    value entering every RMSNorm, in call order ([2l] enters layer l,
+    [2l + 1] follows its attention, the last enters the final norm)."""
+    seen = []
+    rms_norm = lm.rms_norm
+
+    def recording(x, p, eps):
+        seen.append(x.clone())
+        return rms_norm(x, p, eps)
+
+    lm.rms_norm = recording
+    try:
+        yield seen
+    finally:
+        lm.rms_norm = rms_norm
+
+
+def layer_errors(got: list, ref: list) -> str:
+    """Relative error of the hidden state after each layer."""
+    return " ".join(f"{rel_err(a, b):.2e}" for a, b in zip(got[2::2], ref[2::2]))
+
+
+def check_llm_model(tq, lm, params, dims, dev) -> None:
+    """The full-width model with its kernels against the same model with
+    the plain versions: the prefill of a LLM_PROMPT-token prompt
+    (int4_matmul, int8_matmul) and one decode step (int4_matmul_s8),
+    with the hidden state after each layer held to the plain twin's, and
+    beside them the plain twin against itself with its f32 sums in
+    another order."""
+    gen = torch.Generator(dev).manual_seed(3)
+    prompt = torch.randint(0, dims.n_vocab, (1, LLM_PROMPT), generator=gen, device=dev)
+    step = torch.randint(0, dims.n_vocab, (1, 1), generator=gen, device=dev)
+    cache = lm.init_kv_cache(dims, 1, LLM_PROMPT + 8, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        before = dict(tq.launch_counts)
+        with residual_stream(lm) as hidden:
+            logits, _ = lm.forward(params, dims, prompt, cache, pos=0)
+        launched = {n: tq.launch_counts[n] - before[n] for n in before}
+        prefilled = {key: x.clone() for key, x in cache.items()}
+        with plain_kernels(tq), residual_stream(lm) as hidden_plain:
+            logits_plain, _ = lm.forward(params, dims, prompt,
+                                         {key: torch.zeros_like(x) for key, x in cache.items()})
+        e_prefill = rel_err(logits, logits_plain)
+        e_layers = layer_errors(hidden, hidden_plain)
+        # control: the plain twin again with TF32 matmuls. Every f32 product
+        # of the forward is of bf16 values, exact in TF32, so this twin
+        # parts from the plain one only in the order of its f32 sums
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with plain_kernels(tq), residual_stream(lm) as hidden_tf32:
+                logits_tf32, _ = lm.forward(params, dims, prompt, {
+                    key: torch.zeros_like(x) for key, x in cache.items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        e_tf32 = rel_err(logits_tf32, logits_plain)
+        e_tf32_layers = layer_errors(hidden_tf32, hidden_plain)
+        del logits, logits_plain, logits_tf32, hidden, hidden_plain, hidden_tf32
+        before = dict(tq.launch_counts)
+        with residual_stream(lm) as hidden:
+            step_logits, _ = lm.forward(params, dims, step, cache, pos=LLM_PROMPT)
+        launched_step = {n: tq.launch_counts[n] - before[n] for n in before}
+        with plain_kernels(tq), residual_stream(lm) as hidden_plain:
+            step_plain, _ = lm.forward(params, dims, step, prefilled, pos=LLM_PROMPT)
+        e_step = rel_err(step_logits, step_plain)
+        e_step_layers = layer_errors(hidden, hidden_plain)
+    print(f"full-width {LLM} (int4 body, int8 head) vs its plain twin: prefill of "
+          f"{LLM_PROMPT} tokens logits rel err {e_prefill:.3e} (launches {launched}), "
+          f"decode step logits rel err {e_step:.3e} (launches {launched_step}); "
+          f"tolerance {MODEL_TOL}")
+    print(f"  hidden state rel err after each of the {dims.n_layer} layers, prefill: "
+          f"{e_layers}")
+    print(f"  the same, decode step: {e_step_layers}")
+    print(f"  control, the plain twin with TF32 sums vs the plain twin: prefill logits rel "
+          f"err {e_tf32:.3e}; after each layer: {e_tf32_layers}")
+    n_proj = 7 * dims.n_layer
+    assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0}
+    assert launched_step == {"int8_matmul": 0, "int4_matmul": 0, "int4_matmul_s8": n_proj}
+    assert e_prefill <= MODEL_TOL and e_step <= MODEL_TOL
+
+
+SPEAKERS = ("Speaker 0", "Speaker 1")
+CONVERSATION = [
+    "Hi, I'm Maria. Thanks for joining the call about the studio move.",
+    "Hello Maria, this is David. Happy to help with the planning.",
+    "We need to move the recording gear before the end of the month.",
+    "How many microphones and stands are we talking about?",
+    "Twelve microphones, eight stands, and the mixing desk.",
+    "The desk is heavy. We should book a van with a lift.",
+    "Agreed. Can you get quotes from two rental companies?",
+    "Sure, I'll call them tomorrow morning and send you the prices.",
+    "Also, the new room needs acoustic panels on the back wall.",
+    "I measured it last week: about twenty square metres of panels.",
+    "That fits the budget if we reuse the old bass traps.",
+    "The bass traps are fine, but two of them have torn covers.",
+    "Let's order new covers then, it's cheaper than new traps.",
+    "What about the network? The old studio had cable runs everywhere.",
+    "The building has fibre, so we only need a switch and patch cables.",
+    "Good. Then the last question is the schedule for the first booking.",
+    "The band wants to record on the fifteenth, in the afternoon.",
+    "That gives us two days to test the gear after the move.",
+    "Fine by me. I'll write up the plan and share it tonight.",
+    "Great, thanks David. Talk to you tomorrow.",
+]
+
+
+def conversation() -> list[dict]:
+    """20 merged segments of two speakers, as the transcript merge hands
+    them over: start, end, speaker, text."""
+    segs, t = [], 0.0
+    for i, text in enumerate(CONVERSATION):
+        dur = 0.35 * len(text.split())
+        segs.append({"start": round(t, 2), "end": round(t + dur, 2),
+                     "speaker": SPEAKERS[i % 2], "text": text})
+        t += dur + 0.4
+    return segs
+
+
+def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
+                   steps: int = 3) -> None:
+    """Where a decode step's time goes: host wall per step against the
+    device's busy time (torch.profiler, kernel self time) after a
+    prompt_len-token prefill, the kernel launches per step and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(dev).manual_seed(4)
+    prompt = torch.randint(0, dims.n_vocab, (1, prompt_len), generator=gen, device=dev)
+    cache = lm.init_kv_cache(dims, 1, prompt_len + 2 * steps + 2, dtype=torch.bfloat16,
+                             device=dev)
+    tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        lm.forward(params, dims, prompt, cache, pos=0)
+        lm.forward(params, dims, tok, cache, pos=prompt_len)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lm.forward(params, dims, tok, cache, pos=prompt_len + 1 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                lm.forward(params, dims, tok, cache, pos=prompt_len + 1 + steps + i)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")]
+    busy = sum(device_us(e) for e in kernels) / steps / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
+    print(f"decode step profile ({LLM}, cache at {prompt_len} positions): host wall "
+          f"{wall * 1e3:.2f} ms per step, device busy {busy:.2f} ms per step "
+          f"({100 * (1 - busy / (wall * 1e3)):.0f}% idle), {launches:.0f} kernel launches "
+          f"per step [{card}]")
+    for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+        print(f"  {device_us(e) / steps / 1e3:.3f} ms per step, {e.count // steps} calls: "
+              f"{e.key[:90]}")
+
+
+def llm_phase(att, dev, card: str):
+    """Phase 6. Returns the three kernels' stats and the launches of the
+    stage's run (counts zeroed just before it)."""
+    from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.models import llama as lm
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
+        AudioProcessingPipeline)
+
+    qstats = check_quant_kernels(tq, dev)
+    for name, s in qstats.items():
+        note = s.pop("library_note", None)
+        lib = (f"{s['library_ms']:.4f} ms" if s["library_ms"] is not None else
+               f"none ({note or 'no PyTorch call takes int4 weights packed in halves'})")
+        print(f"{name}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {s['bound_ms']:.4f} ms ({s['bound_by']}) [{card}]")
+    check_quantizer(tq, dev)
+
+    llm_cfg = LLMConfig()
+    assert llm_cfg.model == LLM and llm_cfg.quantize_bits == 4, llm_cfg
+    dims = lm.LLAMA_CONFIGS[LLM]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tq.quantize_tree(lm.init_params(dims, torch.Generator(dev).manual_seed(0),
+                                             torch.bfloat16, dev),
+                              bits=llm_cfg.quantize_bits)
+    torch.cuda.synchronize()
+    print(f"{LLM}: random bf16 weights (seed 0) drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_llm_model(tq, lm, params, dims, dev)
+
+    llm = llm_helper.TorchLlama(params, dims, device=dev)
+    llm_helper.set_llm(llm)
+    llm_pipe = AudioProcessingPipeline(PipelineConfig(llm=llm_cfg), device=dev)
+    segs = conversation()
+    stages = (("identify_speaker_names", dict, llm_cfg.max_tokens_names),
+              ("generate_summary", str, llm_cfg.max_tokens_summary),
+              ("extract_topics", list, llm_cfg.max_tokens_topics))
+    tq.reset_launch_counts()
+    att.reset_launch_counts()
+    for name, kind, max_tokens in stages:
+        llm.last_generation = {}
+        t0 = time.perf_counter()
+        out = getattr(llm_pipe, name)(segs)
+        wall = time.perf_counter() - t0
+        assert isinstance(out, kind), (name, out)
+        g = llm.last_generation
+        assert g, f"{name}: the LLM did not generate"       # generate_text hides errors
+        steps = g["decode_forwards"] + 1           # sampled tokens: the last needs no forward
+        print(f"LLM stage {name}: prompt {g['prompt_tokens']} tokens, {steps} sampled "
+              f"(max {max_tokens}), {g['new_tokens']} before EOS; prefill "
+              f"{g['prefill_s'] * 1e3:.1f} ms; decode {g['decode_s'] * 1e3 / max(steps - 1, 1):.3f} "
+              f"ms per step, {steps / g['decode_s']:.1f} tokens/s; wall {wall:.3f} s; "
+              f"result {str(out)[:100]!r} [{card}]")
+    counts = {**dict(tq.launch_counts), **{n: c for n, c in att.launch_counts.items() if c}}
+    print(f"launches on the LLM path: {counts}")
+    assert all(tq.launch_counts[name] > 0 for name in tq.launch_counts), counts
+    llm_helper.set_llm(None)
+    profile_decode(lm, params, dims, dev, card)
+    return qstats, counts
 
 
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
@@ -570,13 +983,19 @@ def main() -> int:
               f"{ws[1]:.3f} s, {len(windows) * 30 / statistics.mean(ws):.2f} audio-s/s "
               f"[{card}]")
 
+    # 6. the LLM enrichment path: llama-3.1-8b at the Q4 point
+    del beam_tr, cross_kv, transcriber, pipe
+    torch.cuda.empty_cache()
+    qstats, path_counts["llm"] = llm_phase(att, dev, card)
+    stats.update(qstats)
+
     lines = []
     for name, s in stats.items():
         lines.append({
             "name": name, "route": "cuda",
             "source": f"turbo_whisper_workspace_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": sum(counts[name] for counts in path_counts.values()), **s,
+            "launches": sum(counts.get(name, 0) for counts in path_counts.values()), **s,
         })
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

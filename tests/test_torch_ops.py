@@ -259,12 +259,18 @@ def test_kernel_sources_export_their_entry_points():
         assert f'extern "C" int tww_{name}(' in src
         assert f'extern "C" const char* tww_{name}_error(int code)' in src
         head = src.split("#include")[0]
-        assert f"turbo_whisper_workspace_tpu/ops/attention.py" in head
+        assert "turbo_whisper_workspace_tpu/ops/attention.py" in head or \
+            "turbo_whisper_workspace_tpu/ops/quant.py" in head
         assert "bound" in head and "Design" in head
-    # the wrappers pass as many arguments as the C signatures declare
-    tree = ast.parse(pathlib.Path(tatt.__file__).read_text())
-    calls = {c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
-             if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"}
+    # the wrappers (ops/attention.py, ops/quant.py) pass as many arguments
+    # as the C signatures declare, and every kernel has one
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
+
+    calls = {}
+    for module in (tatt, tquant):
+        tree = ast.parse(pathlib.Path(module.__file__).read_text())
+        calls.update({c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
+                      if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"})
     assert calls == {n: len(s) for n, s in build.SIGNATURES.items()}
 
 

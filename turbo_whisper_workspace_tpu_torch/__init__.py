@@ -8,10 +8,13 @@ package. Entry points run on CUDA unless the caller passes
 `sm_90a` under `csrc/`, built at first use (`ops/build.py`).
 
 Layering:
-    ops/       mel frontend, attention kernels' wrappers, kernel build
-    models/    Whisper encoder/decoder as nn.Modules, weight conversion
-    decode/    token rules, greedy decode, long-form chunking/merge
-    pipeline/  transcriber and the single-file pipeline entry
+    ops/       mel frontend, attention and quantized-matmul kernels'
+               wrappers, quantizers, kernel build
+    models/    Whisper encoder/decoder as nn.Modules, the Llama LM,
+               weight conversion
+    decode/    token rules, greedy and beam decode, long-form chunking/merge
+    llm/       Llama generation, speaker naming, summaries, topics
+    pipeline/  transcriber, the single-file pipeline entry, LLM stages
     audio/     first-party audio decode (copy of the JAX package's)
 """
 

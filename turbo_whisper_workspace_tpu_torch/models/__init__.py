@@ -1,2 +1,3 @@
-"""Whisper as torch nn.Modules, and weight conversion from the JAX tree
+"""Whisper as torch nn.Modules, the Llama LM on plain tensors, and weight
+conversion from the JAX tree
 (counterpart: turbo_whisper_workspace_tpu/models/__init__.py)."""

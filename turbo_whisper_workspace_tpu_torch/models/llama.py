@@ -1,0 +1,186 @@
+"""Llama-architecture decoder-only LM on plain tensors.
+
+Port of turbo_whisper_workspace_tpu/models/llama.py: GQA, RoPE
+(half-split layout), RMSNorm, SwiGLU, f32 softmax and norm statistics.
+Parameters are a plain dict: {"token_emb", "blocks", "norm", "lm_head"},
+with "blocks" a list of one dict per layer (the JAX tree stacks them
+along a leading layer axis; `models/convert.py:llama_from_jax_params`
+splits it). A projection is a dense {"w"} (d_in, d_out), int8 {"w_q",
+"scale"} or int4 {"w_q4", "scale4"} dict in the JAX package's layouts,
+and every projection goes through `ops/quant.matmul_any`.
+
+Unlike the JAX function, `forward` writes the KV cache in place: the
+returned cache is the same tensors as the one passed in.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import quant
+
+PROJECTIONS = ("q", "k", "v", "out", "gate", "up", "down")
+
+
+@dataclass(frozen=True)
+class LlamaDims:
+    n_vocab: int
+    d_model: int
+    n_layer: int
+    n_head: int
+    n_kv_head: int
+    d_ff: int
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    max_ctx: int = 4096
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_head
+
+
+LLAMA_CONFIGS: dict[str, LlamaDims] = {
+    # Hermes-3-Llama-3.1-8B, the reference's default LLM
+    "llama-3.1-8b": LlamaDims(
+        n_vocab=128256, d_model=4096, n_layer=32, n_head=32, n_kv_head=8,
+        d_ff=14336,
+    ),
+    # DeepHermes-3-3B, the reference's smaller alternative
+    "llama-3.2-3b": LlamaDims(
+        n_vocab=128256, d_model=3072, n_layer=28, n_head=24, n_kv_head=8,
+        d_ff=8192,
+    ),
+    "test-tiny": LlamaDims(
+        n_vocab=512, d_model=64, n_layer=2, n_head=4, n_kv_head=2, d_ff=128,
+        max_ctx=512,
+    ),
+}
+
+
+def init_params(dims: LlamaDims, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cpu") -> dict:
+    """Random weights: projections N(0, 1)·d_in^-1/2, embedding N(0, 1)·0.02,
+    norm scales 1, each drawn in f32 and cast to `dtype` (the JAX function
+    casts every leaf). `quant.quantize_tree(params, bits=...)` quantizes
+    them afterwards."""
+    d, kv_d = dims.d_model, dims.n_kv_head * dims.head_dim
+
+    def lin(din, dout):
+        w = torch.randn(din, dout, generator=generator, device=device) * din ** -0.5
+        return {"w": w.to(dtype)}
+
+    def ones():
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+    shapes = {"q": (d, d), "k": (d, kv_d), "v": (d, kv_d), "out": (d, d),
+              "gate": (d, dims.d_ff), "up": (d, dims.d_ff), "down": (dims.d_ff, d)}
+    blocks = []
+    for _ in range(dims.n_layer):
+        block = {name: lin(*shapes[name]) for name in PROJECTIONS}
+        block.update(attn_norm=ones(), mlp_norm=ones())
+        blocks.append(block)
+    emb = torch.randn(dims.n_vocab, d, generator=generator, device=device) * 0.02
+    return {
+        "token_emb": emb.to(dtype),
+        "blocks": blocks,
+        "norm": ones(),
+        "lm_head": lin(d, dims.n_vocab),
+    }
+
+
+def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def _rope_tables(positions: torch.Tensor, half: int, theta: float):
+    """(cos, sin), each (1, T, 1, half) f32. The frequencies are float64
+    on the host cast to f32, and the angles are formed in f32, as the JAX
+    function forms them."""
+    freqs = 1.0 / (theta ** (np.arange(0, half) / half))
+    freqs = torch.from_numpy(freqs.astype(np.float32)).to(positions.device)
+    angles = positions[:, None].float() * freqs[None, :]              # (T, half)
+    return torch.cos(angles)[None, :, None, :], torch.sin(angles)[None, :, None, :]
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, T, H, Dh), positions (T,) → rotated (Llama half-split layout)."""
+    return _apply_rope(x, *_rope_tables(positions, x.shape[-1] // 2, theta))
+
+
+def init_kv_cache(dims: LlamaDims, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cpu") -> dict:
+    shape = (dims.n_layer, batch, max_len, dims.n_kv_head * dims.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
+            kv_cache: dict | None = None, pos: int = 0):
+    """tokens (B, T) → (logits (B, T, vocab) f32, cache). Logits come for
+    every position, as the JAX function computes them (the prefill's
+    lm_head thus runs at m = B·T). With no cache a fresh one of length T
+    is used and None is returned in its place."""
+    b, t = tokens.shape
+    dtype = params["token_emb"].dtype
+    h, kvh, dh = dims.n_head, dims.n_kv_head, dims.head_dim
+    device = tokens.device
+    x = params["token_emb"][tokens].to(dtype)
+
+    use_cache = kv_cache is not None
+    if not use_cache:
+        kv_cache = init_kv_cache(dims, b, max_len=t, dtype=dtype, device=device)
+        pos = 0
+    cache_len = kv_cache["k"].shape[2]
+    positions = pos + torch.arange(t, device=device)
+    key_pos = torch.arange(cache_len, device=device)
+    attn_mask = key_pos[None, :] <= positions[:, None]               # (t, cache_len)
+    group = h // kvh
+    rope = _rope_tables(positions, dh // 2, dims.rope_theta)    # shared by every layer
+
+    for li, block in enumerate(params["blocks"]):
+        ck, cv = kv_cache["k"][li], kv_cache["v"][li]                # (B, S, kvh·dh) views
+        hnorm = rms_norm(x, block["attn_norm"], dims.norm_eps)
+        q = quant.matmul_any(hnorm, block["q"]).reshape(b, t, h, dh)
+        k = quant.matmul_any(hnorm, block["k"]).reshape(b, t, kvh, dh)
+        v = quant.matmul_any(hnorm, block["v"]).reshape(b, t, kvh, dh)
+        q = _apply_rope(q, *rope)
+        k = _apply_rope(k, *rope)
+
+        # written in place
+        ck[:, pos:pos + t] = k.reshape(b, t, kvh * dh).to(ck.dtype)
+        cv[:, pos:pos + t] = v.reshape(b, t, kvh * dh).to(cv.dtype)
+        kk = ck.reshape(b, cache_len, kvh, dh).to(dtype)
+        vv = cv.reshape(b, cache_len, kvh, dh).to(dtype)
+        # GQA: query head i reads kv head i // group
+        q5 = q.reshape(b, t, kvh, group, dh)
+        logits = torch.einsum("btkgd,bskd->bkgts", q5.float(), kk.float()) * dh ** -0.5
+        logits = logits.masked_fill(~attn_mask, -1e30)
+        w = torch.softmax(logits, dim=-1).to(dtype)
+        attn = torch.einsum("bkgts,bskd->btkgd", w, vv)
+        x = x + quant.matmul_any(attn.reshape(b, t, h * dh), block["out"])
+
+        hnorm = rms_norm(x, block["mlp_norm"], dims.norm_eps)
+        gate = quant.matmul_any(hnorm, block["gate"])
+        gate = gate * torch.sigmoid(gate)
+        up = quant.matmul_any(hnorm, block["up"])
+        x = x + quant.matmul_any(gate * up, block["down"])
+
+    x = rms_norm(x, params["norm"], dims.norm_eps)
+    if "w" not in params["lm_head"]:        # int8 (or int4) quantized head
+        logits = quant.matmul_any(x, params["lm_head"]).float()
+    else:
+        logits = x.float() @ params["lm_head"]["w"].to(dtype).float()
+    return logits, (kv_cache if use_cache else None)

@@ -27,7 +27,8 @@ MAX_BEAMS = 8     # self_attention_int8_lanes: one warp per beam in the softmax
 LOG2E = math.log2(math.e)
 
 # kernel name → launches since the last reset_launch_counts()
-launch_counts = {name: 0 for name in build.SIGNATURES}
+launch_counts = {name: 0 for name in ("flash_attention", "cross_attention_int8",
+                                      "self_attention_int8", "self_attention_int8_lanes")}
 
 
 def reset_launch_counts() -> None:

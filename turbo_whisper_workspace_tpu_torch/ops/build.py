@@ -8,7 +8,8 @@ is newer. Nothing here runs at import time: the CPU tests import every
 module on machines with no `nvcc`.
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by
-`jax.jit` at their call sites (turbo_whisper_workspace_tpu/ops/attention.py).
+`jax.jit` at their call sites (turbo_whisper_workspace_tpu/ops/attention.py,
+turbo_whisper_workspace_tpu/ops/quant.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ SIGNATURES = {
     "cross_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "self_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,0 +1,352 @@
+"""Weight quantization and the quantized-matmul kernels of the LLM.
+
+Port of turbo_whisper_workspace_tpu/ops/quant.py: symmetric
+per-output-channel int8 (`quantize_int8`), grouped int4 packed two rows
+to a byte (`quantize_int4`: the LOW nibbles hold rows [0, K/2), the HIGH
+nibbles rows [K/2, K); one f32 scale per (group of GROUP4 rows, column)),
+`quantize_tree` (the Q4 point: int4 body, int8 `lm_head`), the grouped
+int8 activation quantizer of the W4A8 path, and `matmul_any`, which
+routes a projection by its weight format and its row count.
+
+Three kernels, each with a wrapper and a plain PyTorch version beside it:
+
+* `int8_matmul`    x @ (int8 W · bf16 scale), csrc/int8_matmul.cu;
+* `int4_matmul`    x @ dequant4(W), csrc/int4_matmul.cu;
+* `int4_matmul_s8` W4A8: int8 activations × int4 weights, exact s32 sums
+  per group, csrc/int4_matmul_s8.cu.
+
+For CUDA tensors a wrapper checks them, allocates the output, launches
+its kernel on the current stream and counts the launch in
+`launch_counts`; for CPU tensors it runs the plain version; anything
+else raises. The quantizers run on the device their input lies on; on
+the CPU their payloads and scales are bit-equal to the JAX package's
+numpy versions (f32 division, round half to even, clip).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .attention import _check_cuda, _stream
+
+GROUP4 = 128
+
+# kernel name → launches since the last reset_launch_counts()
+launch_counts = {name: 0 for name in ("int8_matmul", "int4_matmul", "int4_matmul_s8")}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Quantizers
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. PyTorch's CUDA kernels
+    turn a division by a Python scalar into a product with its
+    reciprocal, which is off by an ulp now and then; a tensor divisor
+    keeps the card's payloads bit-equal to the CPU's."""
+    return x / torch.full_like(x, d)
+
+
+def quantize_int8(w: torch.Tensor) -> dict:
+    """(K, N) or layer-stacked (L, K, N) float → {"w_q": int8, "scale":
+    f32 (N,) / (L, N)}, symmetric per output channel."""
+    wf = w.float()
+    scale = _div(wf.abs().amax(dim=-2), 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127)
+    return {"w_q": q.to(torch.int8), "scale": scale}
+
+
+def quantize_int4(w: torch.Tensor, group: int = GROUP4) -> dict:
+    """(K, N) or layer-stacked (L, K, N) float → {"w_q4": int8 (…, K/2, N)
+    packed, "scale4": f32 (…, K/group, N)}, symmetric per (group, column).
+    K must be divisible by 2·group."""
+    wf = w.float()
+    k, n = wf.shape[-2:]
+    if k % (2 * group):
+        raise ValueError(f"K={k} not divisible by 2*group={2 * group}")
+    wg = wf.reshape(*wf.shape[:-2], k // group, group, n)
+    scale = _div(wg.abs().amax(dim=-2), 7.0).clamp_min(1e-12)        # (…, K/G, N)
+    q = torch.clamp(torch.round(wg / scale.unsqueeze(-2)), -7, 7).reshape(wf.shape)
+    q = q.to(torch.int32)
+    lo, hi = q[..., : k // 2, :], q[..., k // 2:, :]
+    packed = (lo & 0x0F) | (hi << 4)       # in [-128, 127]: exact in int8
+    return {"w_q4": packed.to(torch.int8), "scale4": scale}
+
+
+def quantize_tree(params, keys=("q", "k", "v", "out", "gate", "up", "down",
+                                "fc1", "fc2", "lm_head"), bits: int = 8,
+                  group: int = GROUP4):
+    """Quantize every matching {"w": ...} projection dict of a parameter
+    tree (dicts and lists; 2-D weights or layer-stacked 3-D). bits=4 uses
+    grouped int4 and keeps the lm_head int8; the group shrinks to fit a
+    small K, and a projection falls back to int8 when no group ≥ 8 fits."""
+    def quant(w, name):
+        if bits == 4 and name != "lm_head":
+            k = w.shape[-2]
+            g = min(group, k // 2)
+            while g >= 8 and k % (2 * g):
+                g //= 2
+            if g >= 8:
+                return quantize_int4(w, group=g)
+        return quantize_int8(w)
+
+    def walk(node, name=""):
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if isinstance(node, dict):
+            if "w" in node and name in keys and node["w"].ndim in (2, 3):
+                q = quant(node["w"], name)
+                if "b" in node:
+                    q["b"] = node["b"]
+                return q
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
+def quant_act_grouped(x: torch.Tensor, n_groups: int):
+    """(M, K) float → (xq int8 (M, K), xs f32 (M, n_groups)): symmetric
+    int8 per (row, group of K / n_groups)."""
+    m, k = x.shape
+    xf = x.float().reshape(m, n_groups, k // n_groups)
+    xs = _div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12), 127.0)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq.reshape(m, k), xs[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+
+
+def _unpack_int4(w_q4: torch.Tensor):
+    """packed (K/2, N) int8 → (lo, hi) int32 (K/2, N), sign-extended."""
+    w32 = w_q4.to(torch.int32)
+    return (w32 << 28) >> 28, w32 >> 4
+
+
+def _scale_halves(lo: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor, k: int):
+    """(lo, hi) nibbles (K/2, N) + scale (K/G, N) → (lo, hi) bf16 (K/2, N):
+    nibble × its group's f32 scale in f32, rounded once to bf16."""
+    n_groups = scale.shape[-2]
+    g = k // n_groups
+    half = n_groups // 2
+
+    def scale_half(x, s):
+        xg = x.reshape(half, g, -1).float()
+        return (xg * s[:, None, :]).reshape(k // 2, -1).to(torch.bfloat16)
+
+    return scale_half(lo, scale[:half]), scale_half(hi, scale[half:])
+
+
+def _dequant4_halves(w_q4: torch.Tensor, scale: torch.Tensor, k: int):
+    """packed (K/2, N) int8 + scale (K/G, N) → (lo, hi) bf16 (K/2, N)."""
+    return _scale_halves(*_unpack_int4(w_q4), scale, k)
+
+
+def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's math (_q_matmul_kernel): W = bf16(w_q) ·
+    bf16(scale) rounded to bf16, bf16(x) @ W with f32 sums, one rounding
+    to x's dtype."""
+    w = w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+    return (x.to(torch.bfloat16).float() @ w.float()).to(x.dtype)
+
+
+def _int8_matmul_xla(x: torch.Tensor, w_q: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's dequant matmul for m ≤ 8 (plain XLA there, plain
+    torch here): W as int8_matmul's, the product rounded to bf16, then to
+    x's dtype."""
+    w = w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+    return (x.to(torch.bfloat16) @ w).to(x.dtype)
+
+
+def _int4_from_halves(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """int4_matmul's math over the given (lo, hi) nibbles: both halves
+    dequantized by _scale_halves, x_lo @ lo + x_hi @ hi in f32 over
+    bf16(x), one rounding to x's dtype."""
+    k = x.shape[-1]
+    lo, hi = _scale_halves(lo, hi, scale, k)
+    xb = x.to(torch.bfloat16).float()
+    acc = xb[:, : k // 2] @ lo.float()
+    acc += xb[:, k // 2:] @ hi.float()
+    return acc.to(x.dtype)
+
+
+def int4_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's math (_q4_matmul_kernel), see _int4_from_halves."""
+    return _int4_from_halves(x, *_unpack_int4(w_q4), scale)
+
+
+def _int4_matmul_xla(x: torch.Tensor, w_q4: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's plain twin of int4_matmul: the same sums, but
+    the result rounded to bf16 whatever x's dtype."""
+    return int4_matmul_reference(x.to(torch.bfloat16), w_q4, scale)
+
+
+def _s8_from_halves(xq: torch.Tensor, xs: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+    """int4_matmul_s8's math over the given (lo, hi) nibbles: per group g
+    an exact integer dot of xq and the nibbles, then, groups in order,
+    acc += dot · (xs[:, g] · ws[g]) in f32; bf16 out. The dots run as f32
+    products, exact because every partial sum is an integer below 2^24
+    (|xq·w| ≤ 127·15 over at most 8800 terms a group)."""
+    m, k = xq.shape
+    n_groups = scale4.shape[0]
+    g = k // n_groups
+    w = torch.cat([lo, hi]).float().reshape(n_groups, g, -1)          # (ng, g, N)
+    x = xq.float().reshape(m, n_groups, g).transpose(0, 1)            # (ng, M, g)
+    dots = torch.bmm(x, w)                                            # (ng, M, N)
+    acc = torch.zeros(m, w.shape[-1], dtype=torch.float32, device=xq.device)
+    for gi in range(n_groups):
+        acc += dots[gi] * (xs[:, gi:gi + 1] * scale4[gi:gi + 1])
+    return acc.to(torch.bfloat16)
+
+
+def int4_matmul_s8_reference(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
+                             scale4: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's math (_s8g4_kernel) over the sign-extended
+    nibbles, see _s8_from_halves."""
+    return _s8_from_halves(xq, xs, *_unpack_int4(w_q4), scale4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ dequant(w_q (K, N) int8, scale (N,) f32) → (M, N) in
+    x's dtype.
+
+    CUDA: csrc/int8_matmul.cu; bf16 x, K a multiple of 8, N of 4; ragged
+    M and N are masked in the kernel (no padded copy of W). CPU: the
+    plain version."""
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, scale)
+    _check_cuda("int8_matmul", {"x": x, "w_q": w_q, "scale": scale},
+                {"x": torch.bfloat16, "w_q": torch.int8, "scale": torch.float32},
+                align={"x": 16, "w_q": 4, "scale": 4})
+    m, k = x.shape
+    n = w_q.shape[-1]
+    if w_q.shape != (k, n) or scale.shape != (n,):
+        raise ValueError(f"int8_matmul: expected x (M, K), w_q (K, N), scale (N,); "
+                         f"got {x.shape}, {w_q.shape}, {scale.shape}")
+    if m < 1 or k < 8 or k % 8 or n < 4 or n % 4 or -(-n // 64) > 65535:
+        raise ValueError(f"int8_matmul: M={m}, K={k} (multiple of 8) and N={n} "
+                         f"(multiple of 4, at most 4194240) out of range")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    build.launch("int8_matmul", x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, k, n, _stream(x.device))
+    launch_counts["int8_matmul"] += 1
+    return out
+
+
+def _check_int4(name: str, k: int, w_q4: torch.Tensor, scale: torch.Tensor) -> int:
+    n = w_q4.shape[-1]
+    n_groups = scale.shape[0]
+    if w_q4.shape != (k // 2, n) or scale.shape != (n_groups, n):
+        raise ValueError(f"{name}: expected w_q4 (K/2, N) and scale (K/G, N) for "
+                         f"K={k}; got {w_q4.shape}, {scale.shape}")
+    if k % 16 or n % 4 or n_groups < 2 or n_groups % 2 or k % n_groups:
+        raise ValueError(f"{name}: K={k} (multiple of 16), N={n} (multiple of 4) "
+                         f"and {n_groups} groups (even, dividing K) out of range")
+    return n
+
+
+def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ dequant4(w_q4 (K/2, N) packed, scale (K/G, N) f32) →
+    (M, N) in x's dtype.
+
+    CUDA: csrc/int4_matmul.cu; bf16 x. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return int4_matmul_reference(x, w_q4, scale)
+    _check_cuda("int4_matmul", {"x": x, "w_q4": w_q4, "scale": scale},
+                {"x": torch.bfloat16, "w_q4": torch.int8, "scale": torch.float32},
+                align={"x": 16, "w_q4": 4, "scale": 16})
+    m, k = x.shape
+    n = _check_int4("int4_matmul", k, w_q4, scale)
+    if m < 1 or -(-n // 64) > 65535:
+        raise ValueError(f"int4_matmul: M={m} out of range")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    build.launch("int4_matmul", x.data_ptr(), w_q4.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, k, n, scale.shape[0], _stream(x.device))
+    launch_counts["int4_matmul"] += 1
+    return out
+
+
+def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
+                   scale4: torch.Tensor) -> torch.Tensor:
+    """W4A8: xq (M, K) int8 with xs (M, K/G) f32 against w_q4 (K/2, N)
+    packed and scale4 (K/G, N) f32 → (M, N) bf16. Any M: rows go in
+    chunks of 8 across the grid.
+
+    CUDA: csrc/int4_matmul_s8.cu, with an (M, K/G, N) f32 scratch of the
+    per-group terms, summed in group order by its second pass. CPU: the
+    plain version."""
+    if xq.device.type == "cpu":
+        return int4_matmul_s8_reference(xq, xs, w_q4, scale4)
+    _check_cuda("int4_matmul_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4},
+                {"xq": torch.int8, "xs": torch.float32, "w_q4": torch.int8,
+                 "scale4": torch.float32}, align={"xq": 1, "xs": 4, "w_q4": 4, "scale4": 4})
+    m, k = xq.shape
+    n = _check_int4("int4_matmul_s8", k, w_q4, scale4)
+    n_groups = scale4.shape[0]
+    if xs.shape != (m, n_groups):
+        raise ValueError(f"int4_matmul_s8: xs must be (M, K/G) = {(m, n_groups)}, "
+                         f"got {xs.shape}")
+    if not 1 <= m <= 65535 or n_groups // 2 > 65535:
+        raise ValueError(f"int4_matmul_s8: M={m} or {n_groups} groups out of range")
+    terms = torch.empty((m, n_groups, n), dtype=torch.float32, device=xq.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
+    build.launch("int4_matmul_s8", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
+                 scale4.data_ptr(), terms.data_ptr(), out.data_ptr(), m, k, n, n_groups,
+                 _stream(xq.device))
+    launch_counts["int4_matmul_s8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Routing
+
+
+def matmul_any(x: torch.Tensor, wp: dict) -> torch.Tensor:
+    """x (..., K) @ w for a dense {"w"}, int8 {"w_q", "scale"} or int4
+    {"w_q4", "scale4"} param dict, with the JAX package's TPU route by
+    the row count m after the leading dims are flattened:
+
+    * int4: m ≤ 8 → quant_act_grouped + int4_matmul_s8; m > 8 → int4_matmul;
+    * int8: m ≤ 8 → the dequant matmul (plain torch, as XLA computes it
+      in the JAX package); m > 8 → int8_matmul;
+    * dense: x @ w.
+
+    The route is the same on every device; on the CPU each kernel's
+    plain version takes its place. The wrappers are looked up as module
+    attributes at call time, so a caller may swap them."""
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    xf = x.reshape(-1, k).contiguous()      # the kernels take dense rows
+    m = xf.shape[0]
+    if "w_q4" in wp:
+        if m <= 8:
+            xq, xs = quant_act_grouped(xf, wp["scale4"].shape[0])
+            out = int4_matmul_s8(xq, xs, wp["w_q4"], wp["scale4"]).to(x.dtype)
+        else:
+            out = int4_matmul(xf, wp["w_q4"], wp["scale4"])
+        return out.reshape(*lead, -1)
+    if "w_q" not in wp:
+        return x @ wp["w"].to(x.dtype)
+    if m <= 8:
+        out = _int8_matmul_xla(xf, wp["w_q"], wp["scale"])
+    else:
+        out = int8_matmul(xf, wp["w_q"], wp["scale"])
+    return out.reshape(*lead, -1)

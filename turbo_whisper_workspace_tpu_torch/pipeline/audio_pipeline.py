@@ -1,8 +1,10 @@
-"""Single-file transcription entry point.
+"""Pipeline entry: single-file transcription and the LLM enrichment stages.
 
 Part of a port of turbo_whisper_workspace_tpu/pipeline/audio_pipeline.py:
-`AudioProcessingPipeline.__init__`, `load_transcription_model` and
-`transcribe`. Diarization, LLM enrichment and `process_audio` /
+`AudioProcessingPipeline.__init__`, `load_transcription_model`,
+`transcribe`, and the LLM enrichment stages `identify_speaker_names`,
+`generate_summary` and `extract_topics`, which take the merged
+{"speaker", "text", ...} segments. Diarization and `process_audio` /
 `process_batch` are later slices.
 
 The model runs in bf16, as the JAX pipeline loads it. Weights come from
@@ -20,6 +22,7 @@ import torch
 
 from ..audio import io as audio_io
 from ..config import PipelineConfig
+from ..llm import llm_helper
 from ..models import convert
 from ..models import whisper as wm
 from .transcriber import Transcriber, load_transcriber, resolve_device
@@ -81,3 +84,20 @@ class AudioProcessingPipeline:
         t = self.load_transcription_model()
         audio, _ = audio_io.read_audio_file(audio_path)
         return t.transcribe([audio], initial_prompt=initial_prompt)[0]
+
+    # -- LLM enrichment: the LLM is loaded on the pipeline's device (an
+    # injected one, llm_helper.set_llm, wins)
+    def identify_speaker_names(self, merged_segments) -> dict:
+        return llm_helper.identify_speaker_names(
+            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+            config=self.config.llm)
+
+    def generate_summary(self, merged_segments) -> str:
+        return llm_helper.summarize_conversation(
+            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+            config=self.config.llm)
+
+    def extract_topics(self, merged_segments) -> list[str]:
+        return llm_helper.extract_topics(
+            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+            config=self.config.llm)

@@ -1,2 +1,2 @@
-"""Shared utilities: native-library build/loading
+"""Shared utilities: native-library build/loading, wordlists
 (counterpart: turbo_whisper_workspace_tpu/utils/__init__.py)."""
