@@ -8,11 +8,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products and convolutions;
-2. build: compiles the CUDA kernels from csrc/ (one nvcc each, in parallel);
+2. build: compiles the ten CUDA kernels from csrc/ (one nvcc each, in
+   parallel);
 3. kernels against their plain PyTorch versions at large-v3-turbo shapes
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
    viewed as heads, as the encoder calls it; cross_attention_int8 B=8
-   H=20 Tq 1, 4 and 5 (the beam step), Tpad 1536; self_attention_int8
+   H=20 Tq 1, 4 and 5 (the beam step), Tpad 1536; cross_attention_s8 on
+   the same K/V at Tq 1 and 5 and seq_len 1500 and 1536, also held
+   within 3% mean relative of cross_attention_int8; self_attention_int8
    over the regathered int8 cache of B·K=40 beam rows and
    self_attention_int8_lanes over the lane cache of B=8 items, K=5
    beams and a random beam ancestry, both at H=20, T=P+224=227 and
@@ -46,7 +49,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    regathered), twice each in turns, timed; the beam calls must launch
    self_attention_int8_lanes and cross_attention_int8, the int8
    regathered calls self_attention_int8;
-6. the LLM enrichment path (llama-3.1-8b at full width, random bf16
+6. the s8 route (TranscriptionConfig(cross_attention_s8=True)), same
+   model: one decode step of the decoder with the route on against the
+   same step with the plain versions (logits); then, with the counts
+   zeroed before and read after each, one batch call of
+   Transcriber.transcribe on the same 8 windows greedy and one at beam 5;
+   each must launch cross_attention_s8 and not cross_attention_int8;
+7. the LLM enrichment path (llama-3.1-8b at full width, random bf16
    weights from seed 0 drawn on the card, then quantized there by
    quantize_tree at quantize_bits=4: int4 body, int8 lm_head):
    int8_matmul, int4_matmul and int4_matmul_s8 against their plain
@@ -66,10 +75,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    20-segment two-speaker conversation, timed (prefill ms, ms per decode
    step, tokens/s); all three kernels must have been launched. Last, a
    torch.profiler window over three decode steps: host wall against
-   device busy time per step, launches per step, the heaviest kernels.
+   device busy time per step, launches per step, the heaviest kernels;
+8. the LLM-ops profiler path at full llama-3.2-3b width: s8_matmul and
+   s8g4_matmul against their plain versions at the profiler's m = 1
+   shapes (3072→3072, →1024, →8192, 8192→3072, the head 3072→128256), at
+   M = 8 and one ragged shape, with the limits and wrong readings of
+   phase 7 (s8g4_matmul also equal to int4_matmul_s8 on the same
+   inputs), timed, with torch._int_mm plus the rescale timed at M = 32
+   as the library context (it takes no M ≤ 16); then, with the counts
+   zeroed, profile_llm_ops.main --steps 8 --iters 2, whose JSON of ms
+   per step is printed; both kernels must have been launched there.
 
-Prints a `kernels` JSON line (launches summed over the runs of phases 4,
-5 and 6), then as its last line
+Prints a `kernels` JSON line (launches summed over the runs of phases 4
+to 8; every one of the ten kernels must have been launched), then as
+its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -106,15 +125,18 @@ RUNS = 25
 REPLACES = {
     "flash_attention": "turbo_whisper_workspace_tpu/ops/attention.py:55",
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
+    "cross_attention_s8": "turbo_whisper_workspace_tpu/ops/attention.py:298",
     "self_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:384",
     "self_attention_int8_lanes": "turbo_whisper_workspace_tpu/ops/attention.py:497",
     "int8_matmul": "turbo_whisper_workspace_tpu/ops/quant.py:41",
     "int4_matmul": "turbo_whisper_workspace_tpu/ops/quant.py:151",
     "int4_matmul_s8": "turbo_whisper_workspace_tpu/ops/quant.py:260",
+    "s8_matmul": "scripts/profile_llm_ops.py:86",
+    "s8g4_matmul": "scripts/profile_llm_ops.py:150",
 }
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
-# phase 6's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
+# phase 7's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
 # prefill rows or the decode step's M = 1 (and the route's largest, 8),
 # then one small ragged shape; the first is the kernels line's row
 QUANT_SHAPES = {
@@ -124,6 +146,13 @@ QUANT_SHAPES = {
     "int4_matmul_s8": ((1, 4096, 14336), (1, 14336, 4096), (1, 4096, 4096), (1, 4096, 1024),
                        (8, 4096, 14336), (8, 14336, 4096), (3, 256, 1000)),
 }
+PROFILER = "llama-3.2-3b"
+# phase 8's (M, K, N) for both profiler kernels: llama-3.2-3b's m = 1
+# projections (gate/up first: the kernels line's row), its lm_head, the
+# largest M of the W4A8 route and one small ragged shape
+S8_SHAPES = ((1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
+             (1, 3072, 128256), (8, 3072, 8192), (3, 256, 1000))
+LIBRARY_M = 32             # torch._int_mm takes M > 16 only
 
 
 def card_line() -> str:
@@ -255,9 +284,44 @@ def check_kernels(att, dev) -> dict:
                          4 * b * h * tq * seq_len * d, flush)
     # the greedy decode step's shape, Tq = 1, is the row in the kernels line
     stats["cross_attention_int8"] = kernel_row(rows[1], errs)
+    stats["cross_attention_s8"] = check_cross_s8(att, dev, gen, flush, kv, seq_len)
     del kv, kq, vq, ks, vs
     stats.update(check_self_kernels(att, dev, gen, flush))
     return stats
+
+
+def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int) -> dict:
+    """Phase 3, cross_attention_s8 on cross_attention_int8's K/V: the s8
+    route's decode step (Tq = 1, the row in the kernels line) and beam
+    step (Tq = 5), with the mask live (seq_len 1500) and off (1536);
+    also within 3% mean relative of cross_attention_int8 on the same
+    inputs (tests/test_attention_kernel.py:142-164)."""
+    kq, vq, ks, vs = kv["k_q"][0], kv["v_q"][0], kv["k_scale"][0], kv["v_scale"][0]
+    b, h, d, tpad = kq.shape
+    rows, errs = {}, {}
+    for tq in (1, BEAM):
+        qc = torch.randn(b, h, tq, d, generator=gen, device=dev).to(torch.bfloat16)
+        args = (qc, kq, vq, ks, vs)
+        for valid in (seq_len, tpad):
+            out = att.cross_attention_s8(*args, seq_len=valid)
+            torch.cuda.synchronize()
+            dropped = ({"key mask": att.cross_attention_s8_reference(*args, seq_len=tpad)}
+                       if valid < tpad else {})
+            errs[(tq, valid)] = compare(
+                f"cross_attention_s8 B={b} H={h} Tq={tq} Tpad={tpad} seq_len={valid}", out,
+                att.cross_attention_s8_reference(*args, seq_len=valid), dropped)
+            int8 = att.cross_attention_int8(*args, seq_len=valid).float()
+            mean_rel = ((out.float() - int8).abs().mean() / int8.abs().mean()).item()
+            print(f"  against cross_attention_int8 on the same inputs: mean relative "
+                  f"{mean_rel:.3e} (limit 0.03)")
+            assert mean_rel < 0.03, mean_rel
+        # the kernel reads K and V only at t < seq_len, each once; s8 x s8 products
+        rows[tq] = timed(f"cross_attention_s8 B={b} H={h} Tq={tq}",
+                         lambda: att.cross_attention_s8(*args, seq_len=seq_len),
+                         lambda: att.cross_attention_s8_reference(*args, seq_len=seq_len),
+                         nbytes(qc, ks, vs, out) + 2 * b * h * d * seq_len,
+                         4 * b * h * tq * seq_len * d, flush, peak_ops=PEAK_INT8_OPS)
+    return kernel_row(rows[1], errs)
 
 
 def timed(label: str, kernel, plain, n_bytes: float, n_ops: float, flush,
@@ -438,8 +502,44 @@ def check_beam_step(att, transcriber, audio: np.ndarray) -> None:
             assert logits.shape == (BEAM, 1, model.dims.n_vocab) and e <= MODEL_TOL
 
 
+def check_s8_step(att, transcriber, audio: np.ndarray) -> None:
+    """One decode step of the full-width decoder on the s8 route (after
+    its prefill, bf16 self cache) against the same step with the plain
+    versions: cross_attention_s8 in every layer, cross_attention_int8 in
+    none."""
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import mel as mel_ops
+
+    model, dev = transcriber.model, transcriber.device
+    n_layer = model.dims.n_text_layer
+    with torch.no_grad():
+        cross_kv = transcriber._encode_windows(mel_ops.pad_or_trim(audio)[None])
+        prompt = torch.tensor([transcriber._prompt_row("en")], device=dev)
+        p = prompt.shape[1]
+        cache = wm.init_kv_cache(model.dims, 1, max_len=p + 8, dtype=model.dtype, device=dev)
+        _, cache = model.decoder(prompt, cross_kv, cache, pos=0, cross_s8=True)
+        step = torch.tensor([[220]], device=dev)
+
+        def run():
+            # the decoder writes the cache in place: each run gets a copy
+            c = {key: x.clone() for key, x in cache.items()}
+            return model.decoder(step, cross_kv, c, pos=p, cross_s8=True)[0]
+
+        before = dict(att.launch_counts)
+        logits = run()
+        launched = {n: att.launch_counts[n] - before[n] for n in before}
+        with plain_kernels(att):
+            logits_plain = run()
+    e = rel_err(logits, logits_plain)
+    print(f"full-width decode step on the s8 route vs its plain twin: logits rel err "
+          f"{e:.3e} (tolerance {MODEL_TOL}); launches {launched}")
+    assert launched["cross_attention_s8"] == n_layer, launched
+    assert launched["cross_attention_int8"] == 0, launched
+    assert logits.shape == (1, 1, model.dims.n_vocab) and e <= MODEL_TOL
+
+
 # ---------------------------------------------------------------------------
-# Phase 6: the LLM enrichment path
+# Phase 7: the LLM enrichment path
 
 
 def wrong_nibbles(tq, w_q4: torch.Tensor) -> dict:
@@ -468,7 +568,7 @@ def library_int8(x, w_q, scale, flush):
 
 
 def check_quant_kernels(tq, dev) -> dict:
-    """Phase 6: each quantized-matmul kernel against its plain version
+    """Phase 7: each quantized-matmul kernel against its plain version
     at the LLM path's shapes in bf16 and one ragged shape, with the wrong
     layout readings shown to matter, timed. The row in the kernels line
     is the first shape of each kernel (the path's heaviest use)."""
@@ -743,7 +843,7 @@ def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
 
 
 def llm_phase(att, dev, card: str):
-    """Phase 6. Returns the three kernels' stats and the launches of the
+    """Phase 7. Returns the three kernels' stats and the launches of the
     stage's run (counts zeroed just before it)."""
     from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
     from turbo_whisper_workspace_tpu_torch.llm import llm_helper
@@ -804,6 +904,126 @@ def llm_phase(att, dev, card: str):
     llm_helper.set_llm(None)
     profile_decode(lm, params, dims, dev, card)
     return qstats, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the LLM-ops profiler path
+
+
+def library_s8(prof, xq, xs, w_q, scale, flush) -> None:
+    """torch._int_mm (s8 x s8 → s32, M > 16 only) plus the rescale, at
+    M = LIBRARY_M, beside the kernel at the same M; printed as context:
+    no PyTorch call computes s8_matmul at the profiler's M = 1."""
+    m, k = xq.shape
+    n = w_q.shape[1]
+
+    def library():
+        return (torch._int_mm(xq, w_q).float() * xs * scale).to(torch.bfloat16)
+
+    try:
+        same = torch.equal(library(), prof.s8_matmul(xq, xs, w_q, scale))
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        print(f"s8_matmul M={m} K={k} N={n}: torch._int_mm: {str(e).splitlines()[0][:120]}")
+        return
+    print(f"s8_matmul M={m} K={k} N={n}: library torch._int_mm + rescale "
+          f"{time_ms(library, flush):.4f} ms, the kernel "
+          f"{time_ms(lambda: prof.s8_matmul(xq, xs, w_q, scale), flush):.4f} ms; "
+          f"bit-equal {same}")
+    assert same
+
+
+def check_s8_kernels(tq, prof, dev) -> dict:
+    """Phase 8: s8_matmul and s8g4_matmul against their plain versions at
+    S8_SHAPES in the profiler's formats (int8 weights with per-column
+    scales; grouped int4 with G = 128), with the wrong layout readings
+    shown to matter, timed. The row in the kernels line is the first
+    shape of each kernel."""
+    gen = torch.Generator(dev).manual_seed(5)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    stats = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    rows, errs = {}, {}
+    for m, k, n in S8_SHAPES:
+        q = tq.quantize_int8(randn(k, n) * k ** -0.5)
+        wq, sc = q["w_q"], q["scale"]
+        xq, xs = prof.quant_act(randn(m, k))
+        out = prof.s8_matmul(xq, xs, wq, sc)
+        torch.cuda.synchronize()
+        ref = prof.s8_matmul_reference(xq, xs, wq, sc)
+        dropped = {"right column's scale": prof.s8_matmul_reference(xq, xs, wq, sc.roll(1))}
+        if m > 1:
+            dropped["right row's scale"] = prof.s8_matmul_reference(xq, xs.roll(1, 0), wq, sc)
+        errs[(m, k, n)] = compare(f"s8_matmul M={m} K={k} N={n}", out, ref, dropped,
+                                  relative_max=True)
+        # the int8 weight and its scales, xq, xs and the bf16 output
+        rows[(m, k, n)] = timed(f"s8_matmul M={m} K={k} N={n}",
+                                lambda: prof.s8_matmul(xq, xs, wq, sc),
+                                lambda: prof.s8_matmul_reference(xq, xs, wq, sc),
+                                nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
+                                peak_ops=PEAK_INT8_OPS)
+        if (m, k, n) == S8_SHAPES[0]:
+            xq, xs = prof.quant_act(randn(LIBRARY_M, k))
+            library_s8(prof, xq, xs, wq, sc, flush)
+        del q, wq, sc, xq, xs, out, ref, dropped
+    stats["s8_matmul"] = kernel_row(rows[S8_SHAPES[0]], errs)
+    stats["s8_matmul"]["library_note"] = (
+        "no PyTorch call takes M = 1: torch._int_mm needs M > 16 (timed at M = 32 above)")
+
+    rows, errs = {}, {}
+    for m, k, n in S8_SHAPES:
+        q = tq.quantize_int4(randn(k, n) * k ** -0.5)
+        wq, sc = q["w_q4"], q["scale4"]
+        xq, xs = tq.quant_act_grouped(randn(m, k), sc.shape[0])
+        out = prof.s8g4_matmul(xq, xs, wq, sc)
+        torch.cuda.synchronize()
+        ref = prof.s8g4_matmul_reference(xq, xs, wq, sc)
+        dropped = {what: tq._s8_from_halves(xq, xs, lo, hi, sc)
+                   for what, (lo, hi) in wrong_nibbles(tq, wq).items()}
+        dropped["right group's scale"] = prof.s8g4_matmul_reference(xq, xs, wq, sc.roll(1, 0))
+        errs[(m, k, n)] = compare(f"s8g4_matmul M={m} K={k} N={n}", out, ref, dropped,
+                                  relative_max=True)
+        same = torch.equal(out, tq.int4_matmul_s8(xq, xs, wq, sc))
+        print(f"  equal to the int4_matmul_s8 kernel on the same inputs: {same}")
+        assert same
+        rows[(m, k, n)] = timed(f"s8g4_matmul M={m} K={k} N={n}",
+                                lambda: prof.s8g4_matmul(xq, xs, wq, sc),
+                                lambda: prof.s8g4_matmul_reference(xq, xs, wq, sc),
+                                nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
+                                peak_ops=PEAK_INT8_OPS)
+        del q, wq, sc, xq, xs, out, ref, dropped
+    stats["s8g4_matmul"] = kernel_row(rows[S8_SHAPES[0]], errs)
+    stats["s8g4_matmul"]["library_note"] = (
+        "no PyTorch call takes int4 weights packed in halves with grouped int8 activations")
+    return stats
+
+
+def profiler_phase(dev, card: str):
+    """Phase 8. Returns the two kernels' stats and the launches of the
+    profiler's run (counts zeroed just before it)."""
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+    from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
+
+    stats = check_s8_kernels(tq, prof, dev)
+    for name, s in stats.items():
+        print(f"{name}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
+              f"none ({s.pop('library_note')}), bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    prof.reset_launch_counts()
+    tq.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = prof.main(["--device", "cuda", "--model", PROFILER, "--steps", "8",
+                         "--iters", "2"])
+    wall = time.perf_counter() - t0
+    counts = {**dict(prof.launch_counts), **{n: c for n, c in tq.launch_counts.items() if c}}
+    print(f"LLM-ops profiler ({PROFILER}, ms per decode step): {json.dumps(results)}; "
+          f"wall {wall:.1f} s [{card}]")
+    print(f"launches on the profiler path: {counts}")
+    assert all(prof.launch_counts[name] > 0 for name in prof.launch_counts), counts
+    return stats, counts
 
 
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
@@ -983,11 +1203,27 @@ def main() -> int:
               f"{ws[1]:.3f} s, {len(windows) * 30 / statistics.mean(ws):.2f} audio-s/s "
               f"[{card}]")
 
-    # 6. the LLM enrichment path: llama-3.1-8b at the Q4 point
-    del beam_tr, cross_kv, transcriber, pipe
+    # 6. the s8 route: the int8 cross-KV read by cross_attention_s8, same model
+    check_s8_step(att, transcriber, golden)
+    for label, s8_cfg in (("s8 greedy", TranscriptionConfig(cross_attention_s8=True)),
+                          (f"s8 beam-{BEAM}", TranscriptionConfig(beam_size=BEAM,
+                                                                  cross_attention_s8=True))):
+        s8_tr = load_transcriber(transcriber.model, s8_cfg, device="cuda")
+        att.reset_launch_counts()
+        batch_call(s8_tr, batch, label)
+        path_counts[label] = read_counts(label, ("flash_attention", "cross_attention_s8"))
+        assert path_counts[label]["cross_attention_int8"] == 0, path_counts[label]
+
+    # 7. the LLM enrichment path: llama-3.1-8b at the Q4 point
+    del beam_tr, s8_tr, cross_kv, transcriber, pipe
     torch.cuda.empty_cache()
     qstats, path_counts["llm"] = llm_phase(att, dev, card)
     stats.update(qstats)
+
+    # 8. the LLM-ops profiler path at llama-3.2-3b width
+    torch.cuda.empty_cache()
+    pstats, path_counts["profiler"] = profiler_phase(dev, card)
+    stats.update(pstats)
 
     lines = []
     for name, s in stats.items():
@@ -997,6 +1233,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(counts.get(name, 0) for counts in path_counts.values()), **s,
         })
+    assert sorted(line["name"] for line in lines) == sorted(build.SIGNATURES), lines
+    assert all(line["launches"] > 0 for line in lines), lines
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -236,6 +236,9 @@ def test_wrappers_run_plain_versions_on_cpu():
     torch.testing.assert_close(tatt.cross_attention_int8(*args, seq_len=t),
                                tatt.cross_attention_int8_reference(*args, seq_len=t),
                                rtol=0, atol=0)
+    torch.testing.assert_close(tatt.cross_attention_s8(*args, seq_len=t),
+                               tatt.cross_attention_s8_reference(*args, seq_len=t),
+                               rtol=0, atol=0)
     args = [torch.from_numpy(x) for x in _self_inputs()]
     torch.testing.assert_close(tatt.self_attention_int8(*args, 11),
                                tatt.self_attention_int8_reference(*args, 11),
@@ -246,7 +249,7 @@ def test_wrappers_run_plain_versions_on_cpu():
                                rtol=0, atol=0)
     # the counts record kernel launches only
     assert tatt.launch_counts == {"flash_attention": 0, "cross_attention_int8": 0,
-                                  "self_attention_int8": 0,
+                                  "cross_attention_s8": 0, "self_attention_int8": 0,
                                   "self_attention_int8_lanes": 0}
 
 
@@ -259,15 +262,18 @@ def test_kernel_sources_export_their_entry_points():
         assert f'extern "C" int tww_{name}(' in src
         assert f'extern "C" const char* tww_{name}_error(int code)' in src
         head = src.split("#include")[0]
-        assert "turbo_whisper_workspace_tpu/ops/attention.py" in head or \
-            "turbo_whisper_workspace_tpu/ops/quant.py" in head
+        assert any(where in head for where in (
+            "turbo_whisper_workspace_tpu/ops/attention.py",
+            "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py"))
         assert "bound" in head and "Design" in head
-    # the wrappers (ops/attention.py, ops/quant.py) pass as many arguments
-    # as the C signatures declare, and every kernel has one
+    # the wrappers (ops/attention.py, ops/quant.py, the profiler's two)
+    # pass as many arguments as the C signatures declare, and every
+    # kernel has one
     from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
+    from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as tprof
 
     calls = {}
-    for module in (tatt, tquant):
+    for module in (tatt, tquant, tprof):
         tree = ast.parse(pathlib.Path(module.__file__).read_text())
         calls.update({c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
                       if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"})

@@ -1,0 +1,385 @@
+"""The port's s8×s8 kernels against the JAX package, on the CPU.
+
+* `cross_attention_s8`'s plain version against the JAX Pallas kernel in
+  interpret mode, and the s8 route of Whisper decoding
+  (`TranscriptionConfig.cross_attention_s8`) against the JAX package run
+  with TWW_PALLAS=interpret and TWW_CROSS_S8=1 on the same weights: one
+  decoder step's logits, greedy and beam-3 tokens through the
+  transcriber, and the pipeline entry point;
+* the LLM-ops profiler's `s8_matmul` and `s8g4_matmul` plain versions
+  against the JAX script's Pallas kernels in interpret mode, and the
+  profiler's `main` at a small model.
+
+The CUDA kernels themselves need a card: the `cuda`-marked test holds
+them to the plain versions there (chip_smoke.py does it at full width).
+"""
+
+import functools
+import importlib.util
+import json
+import pathlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from turbo_whisper_workspace_tpu.config import TranscriptionConfig as JConfig
+from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu.ops import attention as jatt
+from turbo_whisper_workspace_tpu.pipeline import transcriber as jtr
+from turbo_whisper_workspace_tpu_torch.config import PipelineConfig
+from turbo_whisper_workspace_tpu_torch.config import TranscriptionConfig as TConfig
+from turbo_whisper_workspace_tpu_torch.models import convert
+from turbo_whisper_workspace_tpu_torch.models import llama as tlm
+from turbo_whisper_workspace_tpu_torch.models import whisper as twm
+from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
+from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+from turbo_whisper_workspace_tpu_torch.pipeline import audio_pipeline as tpipe
+from turbo_whisper_workspace_tpu_torch.pipeline import transcriber as ttr
+from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as tprof
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GOLDEN = REPO / "examples" / "golden" / "conversation.wav"
+# tests/test_pallas_model_path.py's tiny Whisper, with the multilingual
+# vocabulary the transcriber's tokenizer needs
+DIMS = jwm.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# cross_attention_s8
+
+
+def _cross_inputs(tq_, t=256, seed=0):
+    """tests/test_attention_kernel.py's s8 inputs: (b, h, dh) = (2, 4, 64)."""
+    rng = np.random.default_rng(seed)
+    b, h, dh = 2, 4, 64
+    q = rng.standard_normal((b, h, tq_, dh)).astype(np.float32)
+    kq = rng.integers(-127, 128, (b, h, dh, t)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, t, h * dh)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.02, (b, h)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (b, h)).astype(np.float32)
+    return q, kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_len", [256, 200])
+@pytest.mark.parametrize("tq_", [1, 5])
+def test_cross_s8_reference_matches_jax(tq_, seq_len, dtype):
+    """Measured relative L2 against the Pallas kernel: at most 1.5e-7 in
+    f32 and 0 in bf16 (limit 2e-3). The s8 output sits 1.3-2.0% mean
+    relative from the int8 kernel's; without the mask it reads 0.32-0.58."""
+    q, kq, vq, ks, vs = _cross_inputs(tq_)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    pallas = np.asarray(jatt.cross_attention_s8(
+        jnp.asarray(q, jdt), kq, vq, ks, vs, seq_len=seq_len, interpret=True), np.float32)
+    args = (torch.from_numpy(q).to(tdt), *map(torch.from_numpy, (kq, vq, ks, vs)))
+    got = tatt.cross_attention_s8_reference(*args, seq_len=seq_len)
+    assert got.dtype == tdt and got.shape == (2, 4, tq_, 64)
+    assert rel_l2(_np(got), pallas) <= 2e-3
+    # the yardstick of tests/test_attention_kernel.py:142-164: within 3%
+    # mean relative of the bf16-dequant kernel's plain version
+    ref = _np(tatt.cross_attention_int8_reference(*args, seq_len=seq_len))
+    assert np.abs(_np(got) - ref).mean() / np.abs(ref).mean() < 0.03
+    # the t ≥ seq_len mask matters
+    if seq_len < 256:
+        unmasked = _np(tatt.cross_attention_s8_reference(*args))
+        assert rel_l2(unmasked, pallas) > 5e-3
+
+
+# ---------------------------------------------------------------------------
+# The s8 route of Whisper decoding
+
+
+@pytest.fixture(scope="module")
+def pair():
+    params = jwm.init_params(DIMS, jax.random.PRNGKey(0))
+    model = convert.from_jax_params(jax.tree.map(np.asarray, params),
+                                    twm.WhisperDims(**DIMS.__dict__))
+    feats = (np.random.default_rng(1).standard_normal(
+        (2, DIMS.n_audio_ctx, DIMS.n_audio_state)) * 0.3).astype(np.float32)
+    ckv_j = jwm.precompute_cross_kv(params, DIMS, feats, quantize=True)
+    ckv_t = model.decoder.precompute_cross_kv(torch.from_numpy(feats), quantize=True)
+    return params, model, ckv_j, ckv_t
+
+
+@pytest.fixture
+def jax_s8(monkeypatch):
+    """The JAX package on its s8 route: both switches are read at trace
+    time (tests/test_pallas_model_path.py:47-54), and the route is
+    ignored when the Pallas mode is "off", the CPU default."""
+    monkeypatch.setenv("TWW_PALLAS", "interpret")
+    monkeypatch.setenv("TWW_CROSS_S8", "1")
+    jax.clear_caches()
+    yield
+    monkeypatch.delenv("TWW_PALLAS")
+    monkeypatch.delenv("TWW_CROSS_S8")
+    jax.clear_caches()
+
+
+def _forbid(monkeypatch, name):
+    """ops.attention.<name> raises if called; returns the calls of the
+    other cross-attention kernel's plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{name} was called")
+
+    other = ("cross_attention_int8" if name == "cross_attention_s8"
+             else "cross_attention_s8")
+    calls = []
+    fn = getattr(tatt, other)
+    monkeypatch.setattr(tatt, name, refuse)
+    monkeypatch.setattr(tatt, other, lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+def test_decoder_step_s8_matches_jax(pair, jax_s8, monkeypatch):
+    """Prefill then one step at pos 3 over the int8 cross-KV, f32 self
+    cache. Measured relative L2: 4.6e-7 prefill, 5.2e-7 step (limit
+    5e-3); the route itself moves the logits by 1.2-1.3e-4, so the port's
+    int8 route must read at least ten times farther from the JAX s8 logits."""
+    params, model, ckv_j, ckv_t = pair
+    prefill = np.array([[11, 3, 7], [42, 9, 1]], np.int32)
+    step = np.array([[500], [300]], np.int32)
+    cache_j = jwm.init_kv_cache(DIMS, 2, max_len=8, dtype=jnp.float32)
+    ref1, cache_j = jwm.decoder_forward(params, DIMS, prefill, ckv_j, cache_j, pos=0)
+    ref2, _ = jwm.decoder_forward(params, DIMS, step, ckv_j, cache_j, pos=3)
+
+    def run(cross_s8):
+        cache_t = twm.init_kv_cache(model.dims, 2, max_len=8, dtype=torch.float32)
+        got1, cache_t = model.decoder(torch.from_numpy(prefill).long(), ckv_t, cache_t,
+                                      pos=0, cross_s8=cross_s8)
+        got2, _ = model.decoder(torch.from_numpy(step).long(), ckv_t, cache_t, pos=3,
+                                cross_s8=cross_s8)
+        return got1.numpy(), got2.numpy()
+
+    int8_route = run(False)
+    calls = _forbid(monkeypatch, "cross_attention_int8")
+    got1, got2 = run(True)
+    assert len(calls) == 2 * DIMS.n_text_layer
+    for got, ref, other in zip((got1, got2), (ref1, ref2), int8_route):
+        assert rel_l2(got, ref) <= 5e-3
+        assert rel_l2(got, ref) < 0.1 * rel_l2(other, ref)
+
+
+def _assert_same_tokens(got, ref, p_len):
+    """Equal tokens and lengths. A divergence at a near-tie of the logits
+    would be allowed (tests/test_torch_llm.py:assert_same_tokens), but
+    none occurs at these weights and inputs, so the check is exact."""
+    got_t, ref_t = got.tokens.numpy(), np.asarray(ref.tokens)
+    assert got_t.shape == ref_t.shape and got_t.shape[1] == p_len + 8
+    np.testing.assert_array_equal(got_t, ref_t)
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(ref.lengths))
+
+
+@pytest.mark.parametrize("beam_size", [1, 3])
+def test_transcriber_s8_tokens_match_jax(pair, jax_s8, monkeypatch, beam_size):
+    """Greedy and beam-3 decodes of 8 steps through the transcriber with
+    cross_attention_s8=True, against the JAX transcriber on its s8 route,
+    over the same int8 cross-KV; language detection first."""
+    params, model, ckv_j, ckv_t = pair
+    kw = dict(max_decode_len=8, beam_size=beam_size)
+    jt = jtr.load_transcriber(params, DIMS, JConfig(**kw))
+    tt = ttr.load_transcriber(model, TConfig(cross_attention_s8=True, **kw), device="cpu")
+    calls = _forbid(monkeypatch, "cross_attention_int8")
+    langs = tt._detect_language_rows(ckv_t)
+    assert langs == jt._detect_language_rows(ckv_j)
+    ref, p_len = jt._decode_batch(ckv_j, langs)
+    got, _ = tt._decode_batch(ckv_t, langs)
+    assert calls
+    _assert_same_tokens(got, ref, p_len)
+    np.testing.assert_allclose(got.avg_logprobs.numpy(), np.asarray(ref.avg_logprobs),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("beam_size", [1, 3])
+def test_default_config_never_calls_cross_attention_s8(pair, monkeypatch, beam_size):
+    _, model, _, ckv_t = pair
+    tt = ttr.load_transcriber(model, TConfig(max_decode_len=4, beam_size=beam_size),
+                              device="cpu")
+    assert not tt.config.cross_attention_s8
+    calls = _forbid(monkeypatch, "cross_attention_s8")
+    langs = tt._detect_language_rows(ckv_t)
+    tt._decode_batch(ckv_t, langs)
+    assert calls
+
+
+def test_pipeline_honours_cross_attention_s8(monkeypatch, tmp_path):
+    """AudioProcessingPipeline loads its transcriber with its config's
+    field, and its requests then take the s8 route."""
+    monkeypatch.setitem(twm.WHISPER_CONFIGS, "test-s8", twm.WhisperDims(**DIMS.__dict__))
+    monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
+    cfg = TConfig(model="test-s8", max_decode_len=4, cross_attention_s8=True)
+    pipe = tpipe.AudioProcessingPipeline(
+        PipelineConfig(transcription=cfg, models_dir=str(tmp_path)), device="cpu")
+    calls = _forbid(monkeypatch, "cross_attention_int8")
+    result = pipe.transcribe(str(GOLDEN))
+    assert pipe.load_transcription_model().config.cross_attention_s8
+    assert calls and sorted(result) == ["chunks", "duration", "language",
+                                        "processing_times", "segments", "text"]
+
+
+# ---------------------------------------------------------------------------
+# The LLM-ops profiler's kernels
+
+
+@pytest.fixture(scope="module")
+def jprof(tmp_path_factory):
+    """scripts/profile_llm_ops.py loaded by path, its Pallas calls in
+    interpret mode. Importing it points JAX's persistent compilation cache
+    at $JAX_COMPILATION_CACHE_DIR: that goes to a temporary directory, and
+    the cache settings are restored afterwards."""
+    names = ("jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
+             "jax_persistent_cache_min_compile_time_secs")
+    saved = {name: getattr(jax.config, name) for name in names}
+    mp = pytest.MonkeyPatch()
+    mp.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path_factory.mktemp("jax_cache")))
+    spec = importlib.util.spec_from_file_location(
+        "jax_profile_llm_ops", REPO / "scripts" / "profile_llm_ops.py")
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        mp.undo()
+    mod.pl = types.SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True),
+        BlockSpec=pl.BlockSpec, GridSpec=pl.GridSpec, CostEstimate=pl.CostEstimate)
+    yield mod
+    for name, value in saved.items():
+        jax.config.update(name, value)
+    from jax._src import compilation_cache
+
+    compilation_cache.reset_cache()
+
+
+SHAPES = [(1, 512, 256), (3, 256, 1000), (8, 512, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_s8_matmul_reference_bit_equal_to_jax(jprof, m, k, n):
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    scale = rng.uniform(0.005, 0.02, n).astype(np.float32)
+    xq_j, xs_j = jprof.quant_act(jnp.asarray(x))
+    xq, xs = tprof.quant_act(torch.from_numpy(x))
+    assert xs.shape == (m, 1)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(xq_j))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(xs_j))
+    ref = np.asarray(jprof.s8_matmul(xq_j, xs_j, w_q, scale), np.float32)
+    got = tprof.s8_matmul_reference(xq, xs, torch.from_numpy(w_q), torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    np.testing.assert_array_equal(_np(got), ref)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_s8g4_matmul_reference_matches_jax(jprof, m, k, n):
+    """Bit-equal: at these shapes XLA does not contract the kernel's
+    acc + dot·(xs·ws) into a fused multiply-add (it does now and then for
+    int4_matmul_s8's kernel, tests/test_torch_quant.py)."""
+    rng = np.random.default_rng(10 + m)
+    n_groups = k // tprof.GROUP
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_q4 = rng.integers(-128, 128, (k // 2, n)).astype(np.int8)
+    scale4 = rng.uniform(0.005, 0.02, (n_groups, n)).astype(np.float32)
+    xq_j, xs_j = jprof.quant_act_grouped(jnp.asarray(x), n_groups)
+    xq, xs = tprof.quant_act_grouped(torch.from_numpy(x), n_groups)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(xq_j))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(xs_j))
+    ref = np.asarray(jprof.s8g4_matmul(xq_j, xs_j, w_q4, scale4), np.float32)
+    got = _np(tprof.s8g4_matmul_reference(xq, xs, torch.from_numpy(w_q4),
+                                          torch.from_numpy(scale4)))
+    assert got.shape == (m, n)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_s8_wrappers_run_plain_versions_on_cpu():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 200)).astype(np.float32))
+    q8, q4 = tq.quantize_int8(w), tq.quantize_int4(w)
+    tprof.reset_launch_counts()
+    xq, xs = tprof.quant_act(x)
+    torch.testing.assert_close(tprof.s8_matmul(xq, xs, q8["w_q"], q8["scale"]),
+                               tprof.s8_matmul_reference(xq, xs, q8["w_q"], q8["scale"]),
+                               rtol=0, atol=0)
+    xq, xs = tprof.quant_act_grouped(x, 2)
+    torch.testing.assert_close(tprof.s8g4_matmul(xq, xs, q4["w_q4"], q4["scale4"]),
+                               tq.int4_matmul_s8(xq, xs, q4["w_q4"], q4["scale4"]),
+                               rtol=0, atol=0)
+    assert tprof.launch_counts == {"s8_matmul": 0, "s8g4_matmul": 0}
+
+
+VARIANT_KEYS = ["layers bf16 dense", "layers int8 pallas (shipping)",
+                "layers int8 XLA dequant-einsum", "layers s8xs8 MXU (prototype)",
+                "layers int4 pallas (shipping)", "layers int4 XLA twin",
+                "layers s8xs8 grouped-int4 (proto)", "lm_head int8 pallas (shipping)",
+                "lm_head s8xs8 MXU (prototype)", "lm_head int8 XLA dequant-einsum"]
+
+
+def test_profiler_main_runs_on_cpu(monkeypatch, capsys):
+    """Every variant at a small model: d_model 256, d_ff 512, two layers
+    (test-tiny's d_model 64 has no 128-row group)."""
+    monkeypatch.setitem(tlm.LLAMA_CONFIGS, "test-small", tlm.LlamaDims(
+        n_vocab=1024, d_model=256, n_layer=2, n_head=4, n_kv_head=2, d_ff=512,
+        max_ctx=512))
+    results = tprof.main(["--device", "cpu", "--model", "test-small", "--steps", "1",
+                          "--iters", "1", "--variants",
+                          "bf16,int8,xla8,s8,int4,xla4,s8g4,head"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == results and list(results) == VARIANT_KEYS
+    assert all(v > 0 for v in results.values())
+
+
+def test_profiler_main_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tprof.main(["--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# On the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (3, 256, 1000), (20, 1024, 264)])
+def test_cuda_s8_kernels_match_plain_versions(cuda_device, m, k, n):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    w = torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5
+    q8, q4 = tq.quantize_int8(w), tq.quantize_int4(w)
+    xq, xs = tprof.quant_act(x)
+    assert torch.equal(tprof.s8_matmul(xq, xs, q8["w_q"], q8["scale"]),
+                       tprof.s8_matmul_reference(xq, xs, q8["w_q"], q8["scale"]))
+    xq, xs = tprof.quant_act_grouped(x, k // tprof.GROUP)
+    assert torch.equal(tprof.s8g4_matmul(xq, xs, q4["w_q4"], q4["scale4"]),
+                       tprof.s8g4_matmul_reference(xq, xs, q4["w_q4"], q4["scale4"]))
+    kv = tatt.quantize_cross_kv_int8(torch.randn(1, 2, 4, 1500, 64, generator=gen,
+                                                 device=cuda_device),
+                                     torch.randn(1, 2, 4, 1500, 64, generator=gen,
+                                                 device=cuda_device))
+    args = (torch.randn(2, 4, min(m, 8), 64, generator=gen, device=cuda_device)
+            .to(torch.bfloat16), kv["k_q"][0], kv["v_q"][0], kv["k_scale"][0],
+            kv["v_scale"][0])
+    got = tatt.cross_attention_s8(*args, seq_len=1500).float()
+    ref = tatt.cross_attention_s8_reference(*args, seq_len=1500).float()
+    assert (got - ref).norm() <= 5e-3 * ref.norm()

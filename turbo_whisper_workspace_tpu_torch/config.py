@@ -1,4 +1,7 @@
-"""Port copy of turbo_whisper_workspace_tpu/config.py, unchanged.
+"""Port copy of turbo_whisper_workspace_tpu/config.py, unchanged but for
+one field: `TranscriptionConfig.cross_attention_s8`, the observable form
+of the JAX package's trace-time `TWW_CROSS_S8=1` switch (the port routes
+no kernel by environment variable).
 
 Central configuration tree.
 
@@ -54,6 +57,11 @@ class TranscriptionConfig:
     # reorder of the cache is the largest beam cost; int8 payload +
     # per-(position, head) scales cut it 4.2x (profile_beam_ops.py)
     quantize_self_kv: bool = True
+    # int8 cross-KV decoding through the s8×s8 cross-attention kernel
+    # (query and softmax weights quantized per row to int8), the opt-in
+    # route the JAX package takes with TWW_CROSS_S8=1 at trace time
+    # (turbo_whisper_workspace_tpu/models/whisper.py:641-645); off by default
+    cross_attention_s8: bool = False
 
 
 @dataclass

@@ -73,7 +73,10 @@ def beam_decode_features(
     sot_index: int = 0,
     quantize_cache: bool = False,
     lane_cache: bool = True,
+    cross_s8: bool = False,
 ) -> BeamResult:
+    """cross_s8: an int8 cross-KV is read by the s8×s8 cross-attention
+    kernel (TranscriptionConfig.cross_attention_s8)."""
     dims = model.dims
     sp = rules.specials
     device = prompt.device
@@ -91,7 +94,8 @@ def beam_decode_features(
     # prefill once at B rows: every beam shares the prompt
     cache = wm.init_kv_cache(dims, b, max_len=total, dtype=model.dtype, device=device,
                              quantize=quantize_cache)
-    prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0)
+    prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0,
+                                         cross_s8=cross_s8)
     if lane_cache:
         cache = wm.beam_lane_cache(cache, k)
     else:
@@ -170,7 +174,8 @@ def beam_decode_features(
         penult_tok = ts_sent if step == 0 else last_tok_g
         last_tok = next_tok
         logits, cache = model.decoder(next_tok[:, None], cross_kv, cache, pos=pos, beam=k,
-                                      lane_map=lane_map if lane_cache else None)
+                                      lane_map=lane_map if lane_cache else None,
+                                      cross_s8=cross_s8)
         last_logits = logits[:, 0]
 
     # nothing finished in a slot (max_len hit): fall back to the alive hypothesis

@@ -41,7 +41,10 @@ def greedy_decode_features(
     temperature: float = 0.0,
     generator: torch.Generator | None = None,
     sot_index: int = 0,
+    cross_s8: bool = False,
 ) -> DecodeResult:
+    """cross_s8: an int8 cross-KV is read by the s8×s8 cross-attention
+    kernel (TranscriptionConfig.cross_attention_s8)."""
     dims = model.dims
     sp = rules.specials
     device = prompt.device
@@ -59,7 +62,8 @@ def greedy_decode_features(
     begin_mask = rules.begin_mask(device)
 
     # prefill the prompt in one pass
-    prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0)
+    prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0,
+                                         cross_s8=cross_s8)
     no_speech_probs = torch.softmax(prefill_logits[:, sot_index], dim=-1)[:, sp.no_speech]
 
     tokens = torch.cat(
@@ -93,7 +97,8 @@ def greedy_decode_features(
         ts_floor = update_ts_floor(ts_floor, next_tok, last_tok, sp)
         if step + 1 == max_len or bool(finished.all()):
             break
-        logits, cache = model.decoder(next_tok[:, None], cross_kv, cache, pos=p + step)
+        logits, cache = model.decoder(next_tok[:, None], cross_kv, cache, pos=p + step,
+                                      cross_s8=cross_s8)
         # penultimate stays the ts-sentinel while fewer than 2 tokens sampled
         penult_tok = ts_sentinel if step == 0 else last_tok
         last_tok = next_tok
@@ -110,12 +115,13 @@ def greedy_decode_features(
 
 @torch.no_grad()
 def detect_language_features(model: wm.Whisper, cross_kv: dict, sot: int,
-                             lang_token_start: int, n_languages: int) -> torch.Tensor:
+                             lang_token_start: int, n_languages: int,
+                             cross_s8: bool = False) -> torch.Tensor:
     """One decoder step from <|sot|>, restricted to language tokens:
     (B, n_languages) probabilities."""
     b = next(iter(cross_kv.values())).shape[1]
     device = next(iter(cross_kv.values())).device
     prompt = torch.full((b, 1), sot, dtype=torch.long, device=device)
-    logits, _ = model.decoder(prompt, cross_kv)
+    logits, _ = model.decoder(prompt, cross_kv, cross_s8=cross_s8)
     lang_logits = logits[:, 0, lang_token_start:lang_token_start + n_languages]
     return torch.softmax(lang_logits, dim=-1)

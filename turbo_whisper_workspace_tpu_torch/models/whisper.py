@@ -10,9 +10,12 @@ cache and cross-KV dicts with their (L, B, ...) layouts, so the
 transcriber's row gather, beam search and the parity tests see the
 same arrays.
 
-Kernel routing has no switch: the encoder's long self-attention calls
-`ops.attention.flash_attention`, int8 cross-attention
-`ops.attention.cross_attention_int8`, a decode step over the int8
+Kernel routing follows the inputs and one argument: the encoder's long
+self-attention calls `ops.attention.flash_attention`, int8
+cross-attention `ops.attention.cross_attention_int8` (or, when the
+caller passes `cross_s8=True`, `cross_attention_s8`: the JAX package's
+trace-time `TWW_CROSS_S8=1`, chosen here by
+`TranscriptionConfig.cross_attention_s8`), a decode step over the int8
 cache `self_attention_int8` and a beam step over the lane cache
 `self_attention_int8_lanes`; each launches its CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors.
@@ -246,11 +249,12 @@ class TextDecoder(nn.Module):
         return {"k": k, "v": v}
 
     def _cross_attention(self, q: torch.Tensor, cross_kv: dict, li: int,
-                         beam: int = 1) -> torch.Tensor:
+                         beam: int = 1, cross_s8: bool = False) -> torch.Tensor:
         """q (B, Tq, D) over layer li's cross-KV → (B, Tq, D). With beam > 1
         the rows are B·K beams of one step: (B·K, 1, D) → (B, H, K, Dh), so
         the K beams of a batch item ride the query axis and share one read
-        of its cross-KV, which stays at batch B."""
+        of its cross-KV, which stays at batch B. An int8 cross-KV goes to
+        cross_attention_s8 with cross_s8, else to cross_attention_int8."""
         b, tq, d = q.shape
         h = self.dims.n_text_head
         if beam > 1:
@@ -259,7 +263,8 @@ class TextDecoder(nn.Module):
             qh = q.reshape(b, tq, h, d // h)
         qh = qh.transpose(1, 2).contiguous()
         if "k_q" in cross_kv:
-            out = att.cross_attention_int8(
+            kernel = att.cross_attention_s8 if cross_s8 else att.cross_attention_int8
+            out = kernel(
                 qh, cross_kv["k_q"][li], cross_kv["v_q"][li],
                 cross_kv["k_scale"][li], cross_kv["v_scale"][li],
                 seq_len=self.dims.n_audio_ctx)
@@ -321,7 +326,7 @@ class TextDecoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cross_kv: dict,
                 kv_cache: dict | None = None, pos: int = 0, beam: int = 1,
-                lane_map: torch.Tensor | None = None):
+                lane_map: torch.Tensor | None = None, cross_s8: bool = False):
         """JAX `decoder_forward`: tokens (B, T) at positions [pos, pos+T) →
         (logits (B, T, V) f32, kv_cache). Prefill when T > 1, one step when T == 1.
 
@@ -334,7 +339,10 @@ class TextDecoder(nn.Module):
         beam > 1: one step (T == 1) of B·K beam rows (row b·K + k) over a
         cross-KV at batch B. The lane cache needs beam == its lane count
         and lane_map (B, K, cache length) int32, the lane each beam reads
-        at each position."""
+        at each position.
+
+        cross_s8: an int8 cross-KV is read by cross_attention_s8 instead
+        of cross_attention_int8 (the JAX package's TWW_CROSS_S8=1)."""
         b, t = tokens.shape
         x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
         use_cache = kv_cache is not None
@@ -360,7 +368,8 @@ class TextDecoder(nn.Module):
                                         beam, lane_map)
             x = x + a.out(attn)
             c = block.cross
-            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li, beam))
+            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li, beam,
+                                                cross_s8))
             x = x + block.mlp(block.mlp_ln(x))
 
         x = self.ln(x).reshape(b * t, -1)

@@ -1,8 +1,9 @@
 """Attention kernels of the decode paths: CUDA wrappers and plain twins.
 
 Port of turbo_whisper_workspace_tpu/ops/attention.py (flash_attention,
-cross_attention_int8, quantize_cross_kv_int8, self_attention_int8,
-self_attention_int8_lanes, self_attention_int8_xla). Each kernel has:
+cross_attention_int8, cross_attention_s8, quantize_cross_kv_int8,
+self_attention_int8, self_attention_int8_lanes, self_attention_int8_xla).
+Each kernel has:
 
 * a wrapper that, for CUDA tensors, checks them, allocates the output,
   launches the hand-written CUDA C++ kernel (csrc/) on the current
@@ -28,12 +29,21 @@ LOG2E = math.log2(math.e)
 
 # kernel name → launches since the last reset_launch_counts()
 launch_counts = {name: 0 for name in ("flash_attention", "cross_attention_int8",
-                                      "self_attention_int8", "self_attention_int8_lanes")}
+                                      "cross_attention_s8", "self_attention_int8",
+                                      "self_attention_int8_lanes")}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. PyTorch's CUDA kernels
+    turn a division by a Python scalar into a product with its
+    reciprocal, which is off by an ulp now and then; a tensor divisor
+    keeps the card's results bit-equal to the CPU's."""
+    return x / torch.full_like(x, d)
 
 
 def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int | dict,
@@ -164,8 +174,19 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
     CUDA: csrc/cross_attention_int8.cu, bf16 q. CPU: the plain version."""
     if q.device.type == "cpu":
         return cross_attention_int8_reference(q, kq, vq, k_scale, v_scale, seq_len)
-    _check_cuda("cross_attention_int8",
-                {"q": q, "kq": kq, "vq": vq, "k_scale": k_scale, "v_scale": v_scale},
+    seq_len = _check_cross("cross_attention_int8", q, kq, vq, k_scale, v_scale, seq_len)
+    b, h, tq, _ = q.shape
+    out = torch.empty_like(q)
+    build.launch("cross_attention_int8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+                 b, h, tq, kq.shape[-1], seq_len, _stream(q.device))
+    launch_counts["cross_attention_int8"] += 1
+    return out
+
+
+def _check_cross(name: str, q, kq, vq, k_scale, v_scale, seq_len: int | None) -> int:
+    """The CUDA cross-attention kernels' checks; returns seq_len."""
+    _check_cuda(name, {"q": q, "kq": kq, "vq": vq, "k_scale": k_scale, "v_scale": v_scale},
                 {"q": torch.bfloat16, "kq": torch.int8, "vq": torch.int8,
                  "k_scale": torch.float32, "v_scale": torch.float32}, align=4)
     b, h, tq, dh = q.shape
@@ -175,17 +196,63 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
             or vq.shape != (b, tpad, h * dh) or k_scale.shape != (b, h)
             or v_scale.shape != (b, h)):
         raise ValueError(
-            "cross_attention_int8: expected q (B, H, Tq, 64), kq (B, H, 64, Tpad), "
+            f"{name}: expected q (B, H, Tq, 64), kq (B, H, 64, Tpad), "
             f"vq (B, Tpad, H·64), scales (B, H); got {q.shape}, {kq.shape}, "
             f"{vq.shape}, {k_scale.shape}, {v_scale.shape}")
     if tpad % 4 or not 1 <= seq_len <= tpad or tq < 1:
-        raise ValueError(f"cross_attention_int8: Tpad={tpad} (multiple of 4), "
+        raise ValueError(f"{name}: Tpad={tpad} (multiple of 4), "
                          f"seq_len={seq_len}, Tq={tq} out of range")
+    return seq_len
+
+
+def cross_attention_s8_reference(q, kq, vq, k_scale, v_scale,
+                                 seq_len: int | None = None) -> torch.Tensor:
+    """Plain version with the TPU kernel's rounding points
+    (_bd_attn_s8_kernel and its wrapper): q·(k_scale·d^-1/2·log2 e)
+    rounded to bf16; each (b, h, query) row quantized to int8 at
+    qs = max(amax, 1e-30)/127, round half to even, clipped to ±127;
+    scores = f32(s32 dot with kq) · qs, columns ≥ seq_len masked, exp2
+    softmax with the weights as p · (1/Σp); the weights quantized per row
+    at wscale = max(max w, 1e-30)/127 (no clip: w ≤ max w); out =
+    f32(s32 Σ w8·vq) · wscale, × v_scale in f32, one rounding to q's
+    dtype. The integer products run in float64, exact at every sum.
+    q (B, H, Tq, Dh); kq (B, H, Dh, Tpad); vq (B, Tpad, H·Dh) int8."""
+    b, h, tq, dh = q.shape
+    tpad = kq.shape[-1]
+    seq_len = tpad if seq_len is None else seq_len
+    scale = dh ** -0.5 * LOG2E
+    qf = (q.float() * (k_scale[:, :, None, None] * scale)).to(torch.bfloat16).float()
+    qs = _div(qf.abs().amax(-1, keepdim=True).clamp_min(1e-30), 127.0)
+    q8 = torch.clamp(torch.round(qf / qs), -127, 127)
+    dots = torch.einsum("bhqd,bhdt->bhqt", q8.double(), kq.double())
+    scores = dots.float() * qs
+    scores[..., seq_len:] = NEG_INF
+    p = torch.exp2(scores - scores.amax(-1, keepdim=True))
+    w = p * torch.reciprocal(p.sum(-1, keepdim=True))
+    wscale = _div(w.amax(-1, keepdim=True).clamp_min(1e-30), 127.0)
+    w8 = torch.round(w / wscale)
+    vh = vq.reshape(b, tpad, h, dh)
+    out = torch.einsum("bhqt,bthd->bhqd", w8.double(), vh.double()).float() * wscale
+    return (out * v_scale[:, :, None, None]).to(q.dtype)
+
+
+def cross_attention_s8(q, kq, vq, k_scale, v_scale,
+                       seq_len: int | None = None) -> torch.Tensor:
+    """Decode cross-attention over int8 K/V with the query and the
+    softmax weights quantized per row to int8, both products s8×s8 into
+    s32; returns (B, H, Tq, 64). The opt-in twin of cross_attention_int8
+    (TranscriptionConfig.cross_attention_s8).
+
+    CUDA: csrc/cross_attention_s8.cu, bf16 q. CPU: the plain version."""
+    if q.device.type == "cpu":
+        return cross_attention_s8_reference(q, kq, vq, k_scale, v_scale, seq_len)
+    seq_len = _check_cross("cross_attention_s8", q, kq, vq, k_scale, v_scale, seq_len)
+    b, h, tq, _ = q.shape
     out = torch.empty_like(q)
-    build.launch("cross_attention_int8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+    build.launch("cross_attention_s8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-                 b, h, tq, tpad, seq_len, _stream(q.device))
-    launch_counts["cross_attention_int8"] += 1
+                 b, h, tq, kq.shape[-1], seq_len, _stream(q.device))
+    launch_counts["cross_attention_s8"] += 1
     return out
 
 

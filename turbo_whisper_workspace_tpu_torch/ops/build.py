@@ -3,9 +3,10 @@
 Each source has a plain C interface and becomes its own shared library,
 compiled by `nvcc` for `sm_90a` into `build/torch_cuda/` at the repo
 root (ignored by git) and loaded with ctypes. All stale sources compile
-at once, one `nvcc` process each. A library is rebuilt when its source
-is newer. Nothing here runs at import time: the CPU tests import every
-module on machines with no `nvcc`.
+at once, one `nvcc` process each. A library is rebuilt when its source,
+or a header in csrc/ (the sources' shared helpers), is newer. Nothing
+here runs at import time: the CPU tests import every module on machines
+with no `nvcc`.
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by
 `jax.jit` at their call sites (turbo_whisper_workspace_tpu/ops/attention.py,
@@ -15,6 +16,7 @@ turbo_whisper_workspace_tpu/ops/quant.py).
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -35,11 +37,14 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "cross_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cross_attention_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "self_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "s8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "s8g4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()
@@ -65,10 +70,12 @@ def build_all() -> float:
     t0 = time.perf_counter()
     with _LOCK:
         os.makedirs(_BUILD_DIR, exist_ok=True)
+        headers = [os.path.getmtime(h) for h in glob.glob(os.path.join(_CSRC, "*.cuh"))]
         procs = {}
         for name in SIGNATURES:
             src, so = source_path(name), os.path.join(_BUILD_DIR, f"lib{name}.so")
-            if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+            if os.path.exists(so) and os.path.getmtime(so) >= max(
+                    [os.path.getmtime(src), *headers]):
                 continue
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", so, src]
             procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,

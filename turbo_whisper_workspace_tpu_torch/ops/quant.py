@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .attention import _check_cuda, _stream
+from .attention import _check_cuda, _div, _stream
 
 GROUP4 = 128
 
@@ -43,14 +43,6 @@ def reset_launch_counts() -> None:
 
 # ---------------------------------------------------------------------------
 # Quantizers
-
-
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """x / d, correctly rounded on every device. PyTorch's CUDA kernels
-    turn a division by a Python scalar into a product with its
-    reciprocal, which is off by an ulp now and then; a tensor divisor
-    keeps the card's payloads bit-equal to the CPU's."""
-    return x / torch.full_like(x, d)
 
 
 def quantize_int8(w: torch.Tensor) -> dict:

@@ -9,7 +9,11 @@ and decoded greedily, or by beam search when `config.beam_size` > 1
 (over the int8 lane self-KV cache when `config.quantize_self_kv`).
 Windows that fail openai/whisper's quality thresholds are decoded again
 greedily at rising temperatures from their gathered cross-KV rows,
-without re-running the encoder. Results are merged back per file.
+without re-running the encoder. Results are merged back per file. With
+`config.cross_attention_s8` every decoder call (language detection,
+greedy, beam, retries) reads the int8 cross-KV through the s8×s8
+cross-attention kernel; the model itself is not changed, so
+transcribers with either setting may share one.
 
 Audio reaches the device as int16 PCM (converted on the device in the
 mel frontend), all batches' copies issued from pinned memory before the
@@ -146,6 +150,7 @@ class Transcriber:
                 self.model, cross_kv, prompt, rules=self.rules, beam_size=beam_size,
                 max_len=self.config.max_decode_len, sot_index=sot_index,
                 quantize_cache=self.config.quantize_self_kv,
+                cross_s8=self.config.cross_attention_s8,
             )
             return res, prompt.shape[1]
         generator = None
@@ -156,6 +161,7 @@ class Transcriber:
             self.model, cross_kv, prompt, rules=self.rules,
             max_len=self.config.max_decode_len, temperature=float(temperature),
             generator=generator, sot_index=sot_index,
+            cross_s8=self.config.cross_attention_s8,
         )
         return res, prompt.shape[1]
 
@@ -175,7 +181,8 @@ class Transcriber:
         decoder step on the cached cross-KV; the encoder is not re-run)."""
         sp = self.tokenizer.specials
         probs = greedy_mod.detect_language_features(
-            self.model, cross_kv, sp.sot, sp.sot + 1, sp.n_languages)
+            self.model, cross_kv, sp.sot, sp.sot + 1, sp.n_languages,
+            cross_s8=self.config.cross_attention_s8)
         return [LANGUAGES[int(i)] for i in probs.argmax(-1).tolist()]
 
     def detect_languages(self, first_windows: np.ndarray) -> list[str]:
