@@ -26,7 +26,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (the script prints those readings), and the median of 25 timed runs
    (CUDA events, L2 flushed before each run) of the kernel, the plain
    version and, where one exists, the one PyTorch call computing the
-   same function, beside the least time the card could take;
+   same function, beside the least time the card could take; for the
+   redesigned kernels (flash_attention here, int4_matmul_s8 in
+   phase 7) also a back-to-back time (20 launches in one CUDA graph over
+   input copies larger than the L2 cache, per launch) beside the
+   earlier design's single-launch time;
 4. the greedy main path at full large-v3-turbo width (random weights
    from seed 0, bf16, default TranscriptionConfig: greedy, int8
    cross-KV, language detection): first the model is held to its
@@ -63,7 +67,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    each, max abs error within 2e-2 × max|ref| and relative L2 within
    5e-3, each wrong reading of the weight layout (nibble halves swapped,
    nibbles not sign-extended, the scale of the wrong group or column)
-   read above that limit, timed as in phase 3; the quantizers on the
+   read above that limit, timed as in phase 3; int4_matmul_s8 also
+   bit-equal to its plain version at every shape; the quantizers on the
    card bit-equal to the same call on the CPU for one full-width weight;
    the model's prefill of a 512-token prompt and one decode step within
    5e-2 relative L2 of the same model with the plain versions, with the
@@ -122,6 +127,12 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 RUNS = 25
+BACK_TO_BACK = 20          # launches in a row for the back-to-back time
+L2_BYTES = 50e6            # H100 L2: the back-to-back inputs exceed it
+# the redesigned kernels' single-launch times in their earlier design
+# (PERF.md's kernel table, "Before"; NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's
+BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339}
 REPLACES = {
     "flash_attention": "turbo_whisper_workspace_tpu/ops/attention.py:55",
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
@@ -180,6 +191,47 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def back_to_back_ms(fn, copies: list, flush: torch.Tensor) -> float:
+    """Device ms per launch of BACK_TO_BACK launches in a row, launch i
+    on copies[i % len(copies)] of the inputs (over L2_BYTES in all, and
+    the L2 cache flushed before the window, so every launch reads HBM).
+    The launches are captured once in a CUDA graph and replayed between
+    the two events: the window holds no host dispatch, which a window of
+    eager launches shorter than ~40 µs each would."""
+    for args in copies:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(BACK_TO_BACK):
+            fn(*copies[i % len(copies)])
+    graph.replay()
+    flush.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / BACK_TO_BACK
+
+
+def input_copies(args: tuple, n_bytes: int) -> list:
+    """args and enough clones of its tensors (at most BACK_TO_BACK in
+    all) that the copies hold more than L2_BYTES."""
+    n = min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / n_bytes) + 1))
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+
+
+def print_redesigned(name: str, label: str, single: float, b2b: float, copies: list,
+                     card: str) -> None:
+    total = sum(nbytes(*args) for args in copies)
+    print(f"{label}: single launch {single:.4f} ms (before the redesign: {BEFORE_MS[name]:.4f} ms), "
+          f"back-to-back {b2b:.4f} ms per launch ({BACK_TO_BACK} in a row over "
+          f"{len(copies)} copies, {total / 1e6:.0f} MB) [{card}]")
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              peak_ops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
@@ -230,7 +282,7 @@ def random_ancestry(gen, b: int, k: int, t: int, dev) -> torch.Tensor:
     return lane_map
 
 
-def check_kernels(att, dev) -> dict:
+def check_kernels(att, dev, card: str) -> dict:
     """Phase 3: each kernel against its plain version, timed."""
     gen = torch.Generator(dev).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -259,7 +311,11 @@ def check_kernels(att, dev) -> dict:
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), flush),
     }
-    del q, k, v, out
+    copies = input_copies((q, k, v), nbytes(q, k, v))
+    print_redesigned("flash_attention", f"flash_attention B={b} H={h} T={t}",
+                     stats["flash_attention"]["ms"],
+                     back_to_back_ms(att.flash_attention, copies, flush), copies, card)
+    del q, k, v, out, copies
 
     seq_len = 1500
     kv = att.quantize_cross_kv_int8(
@@ -567,7 +623,7 @@ def library_int8(x, w_q, scale, flush):
     return ms, None
 
 
-def check_quant_kernels(tq, dev) -> dict:
+def check_quant_kernels(tq, dev, card: str) -> dict:
     """Phase 7: each quantized-matmul kernel against its plain version
     at the LLM path's shapes in bf16 and one ragged shape, with the wrong
     layout readings shown to matter, timed. The row in the kernels line
@@ -654,13 +710,19 @@ def check_quant_kernels(tq, dev) -> dict:
         dropped["right group's scale"] = tq.int4_matmul_s8_reference(xq, xs, wq, sc.roll(1, 0))
         errs[(m, k, n)] = compare(f"int4_matmul_s8 M={m} K={k} N={n}", out, ref, dropped,
                                   relative_max=True)
+        same = torch.equal(out, ref)
+        print(f"  bit-equal to its plain version: {same}")
+        assert same
         # the packed weight and its scales, xq, xs and the bf16 output
-        rows[(m, k, n)] = timed(f"int4_matmul_s8 M={m} K={k} N={n}",
-                                lambda: tq.int4_matmul_s8(xq, xs, wq, sc),
+        label = f"int4_matmul_s8 M={m} K={k} N={n}"
+        rows[(m, k, n)] = timed(label, lambda: tq.int4_matmul_s8(xq, xs, wq, sc),
                                 lambda: tq.int4_matmul_s8_reference(xq, xs, wq, sc),
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
-        del q, wq, sc, xq, xs, out, ref
+        copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
+        print_redesigned("int4_matmul_s8", label, rows[(m, k, n)]["ms"],
+                         back_to_back_ms(tq.int4_matmul_s8, copies, flush), copies, card)
+        del q, wq, sc, xq, xs, out, ref, copies
     print("int4_matmul_s8: library none (no PyTorch call takes int4 weights packed in "
           "halves with grouped int8 activations)")
     stats["int4_matmul_s8"] = kernel_row(rows[QUANT_SHAPES["int4_matmul_s8"][0]], errs)
@@ -852,7 +914,7 @@ def llm_phase(att, dev, card: str):
     from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
         AudioProcessingPipeline)
 
-    qstats = check_quant_kernels(tq, dev)
+    qstats = check_quant_kernels(tq, dev, card)
     for name, s in qstats.items():
         note = s.pop("library_note", None)
         lib = (f"{s['library_ms']:.4f} ms" if s["library_ms"] is not None else
@@ -1078,7 +1140,7 @@ def main() -> int:
         print(f"  {name}: {'; '.join(used)}")
 
     # 3. kernels against their plain versions
-    stats = check_kernels(att, dev)
+    stats = check_kernels(att, dev, card)
     for name, s in stats.items():
         lib = ("none (no single PyTorch call computes attention over int8 K/V "
                "with per-head or per-position scales, or with a lane selection)"

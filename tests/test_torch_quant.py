@@ -184,10 +184,15 @@ def test_int4_reference_matches_jax(dtype, tol, n, group):
         np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32))
 
 
-@pytest.mark.parametrize("m,n", [(1, 256), (8, 200), (13, 256)])
-def test_int4_s8_reference_matches_jax(m, n):
-    x, q = _inputs(m, 256, n, 4, group=32)
-    xq, xs = jq.quant_act_grouped(jnp.asarray(x), 8)
+# the group size too: 8 groups of 32, 16 of 16, and 2 groups of 128 (one
+# group pair, the kernel's smallest) at the ragged N = 1000; M = 3 and 9
+# take the kernel's row pairs with an odd row and a second chunk of 8
+@pytest.mark.parametrize("m,n,group", [(1, 256, 32), (8, 200, 32), (13, 256, 32),
+                                       (1, 1000, 128), (3, 1000, 128), (9, 256, 16)])
+def test_int4_s8_reference_matches_jax(m, n, group):
+    n_groups = 256 // group
+    x, q = _inputs(m, 256, n, 4, group=group)
+    xq, xs = jq.quant_act_grouped(jnp.asarray(x), n_groups)
     xq, xs = np.array(xq), np.array(xs)
     pallas = np.asarray(jq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"], block_n=128,
                                           interpret=True), np.float32)
@@ -197,10 +202,10 @@ def test_int4_s8_reference_matches_jax(m, n):
     # bit-equal to the kernel's math in numpy: exact integer dots, then
     # acc + dot·(xs·ws) in f32, groups in order
     packed = q["w_q4"].astype(np.int32)
-    w = np.concatenate([(packed << 28) >> 28, packed >> 4]).reshape(8, 32, n)
-    xg = xq.astype(np.int64).reshape(m, 8, 32)
+    w = np.concatenate([(packed << 28) >> 28, packed >> 4]).reshape(n_groups, group, n)
+    xg = xq.astype(np.int64).reshape(m, n_groups, group)
     acc = np.zeros((m, n), np.float32)
-    for g in range(8):
+    for g in range(n_groups):
         acc = acc + (xg[:, g] @ w[g]).astype(np.float32) * (xs[:, g:g + 1] * q["scale4"][g:g + 1])
     np.testing.assert_array_equal(
         got.float().numpy(), np.asarray(jnp.asarray(acc, jnp.bfloat16), np.float32))
@@ -210,6 +215,38 @@ def test_int4_s8_reference_matches_jax(m, n):
     # against the bf16-dequant twin: activation quantization noise only
     ref = np.asarray(jq._int4_matmul_xla(jnp.asarray(x), q["w_q4"], q["scale4"]), np.float32)
     assert rel_l2(got.float().numpy(), ref) <= 2e-2
+
+
+@pytest.mark.parametrize("m,k,n,wide,pairs", [
+    (1, 4096, 14336, True, 16),    # 112 column tiles fill the card: no split
+    (8, 4096, 14336, True, 16),    # and the 8 rows' terms still fit
+    (1, 14336, 4096, True, 8),     # 32 tiles: K split, a pair a warp, 224 blocks
+    (1, 4096, 4096, True, 2),      # 32 tiles: 2 pairs a block, 4 warps a pair
+    (1, 4096, 1024, True, 1),      # 8 tiles: 16 blocks a tile
+    (3, 256, 1000, False, 1)])     # one pair: nothing to split
+def test_s8_plan_splits_k_only_to_fill_the_card(m, k, n, wide, pairs):
+    n_groups = k // 128
+    assert tq.s8_pairs_per_block(m, k, n, n_groups, wide) == pairs
+    # whatever the shape, a block takes a power of two of pairs that its
+    # 8 warps share evenly, or all of the pairs
+    for m2, n2 in ((1, 64), (8, 4096), (40, 96), (1, 128256)):
+        pb = tq.s8_pairs_per_block(m2, k, n2, n_groups, n2 % 16 == 0)
+        assert pb == n_groups // 2 or pb in (1, 2, 4, 8)
+
+
+def test_int4_s8_rejects_groups_the_kernel_cannot_split():
+    """The kernel takes G a multiple of 4 (a lane's 4-row dp4a stays in
+    one group): the wrapper's checks refuse other shapes before a launch;
+    the plain version still runs them on the CPU."""
+    w = torch.randn(48, 8)
+    q = tq.quantize_int4(w, group=6)          # 8 groups of 6: the CPU path is fine
+    xq, xs = tq.quant_act_grouped(torch.randn(1, 48), 8)
+    assert tq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"]).shape == (1, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tq._check_int4_s8(xq, xs, q["w_q4"], q["scale4"])
+    q8 = tq.quantize_int4(w, group=8)
+    xq, xs = tq.quant_act_grouped(torch.randn(1, 48), 6)
+    assert tq._check_int4_s8(xq, xs, q8["w_q4"], q8["scale4"]) == (1, 48, 8, 6)
 
 
 def tpu_route(x, wp):
@@ -309,5 +346,11 @@ def test_cuda_quant_kernels_match_plain_versions(cuda_device, m, k, n):
     check(tq.int4_matmul(x, q4["w_q4"], q4["scale4"]),
           tq.int4_matmul_reference(x, q4["w_q4"], q4["scale4"]))
     xq, xs = tq.quant_act_grouped(x, k // 32)
-    check(tq.int4_matmul_s8(xq, xs, q4["w_q4"], q4["scale4"]),
-          tq.int4_matmul_s8_reference(xq, xs, q4["w_q4"], q4["scale4"]))
+    # bit-equal: (1, 4096, 1024) splits K over blocks, (3, 256, 1000) has
+    # rows 1000 bytes apart (4-byte loads)
+    assert torch.equal(tq.int4_matmul_s8(xq, xs, q4["w_q4"], q4["scale4"]),
+                       tq.int4_matmul_s8_reference(xq, xs, q4["w_q4"], q4["scale4"]))
+    q128 = tq.quantize_int4(w, group=128)
+    xq, xs = tq.quant_act_grouped(x, k // 128)
+    assert torch.equal(tq.int4_matmul_s8(xq, xs, q128["w_q4"], q128["scale4"]),
+                       tq.int4_matmul_s8_reference(xq, xs, q128["w_q4"], q128["scale4"]))

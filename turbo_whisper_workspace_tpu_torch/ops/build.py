@@ -42,7 +42,7 @@ SIGNATURES = {
     "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "s8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "s8g4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

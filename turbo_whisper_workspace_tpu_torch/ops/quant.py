@@ -276,33 +276,92 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> tor
     return out
 
 
-def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
-                   scale4: torch.Tensor) -> torch.Tensor:
-    """W4A8: xq (M, K) int8 with xs (M, K/G) f32 against w_q4 (K/2, N)
-    packed and scale4 (K/G, N) f32 → (M, N) bf16. Any M: rows go in
-    chunks of 8 across the grid.
+# int4_matmul_s8's plan mirrors csrc/int4_matmul_s8.cu: its column tile
+# (16-byte loads, or 4-byte) and its warps a block
+S8_BLOCK_N = (128, 32)
+S8_WARPS = 8
+S8_FILL_BLOCKS = 96         # column tiles that fill the card without a split of K
+S8_WHOLE_SMEM = 200 * 1024  # shared memory a block may take to hold every group
+S8_SPLIT_BLOCKS = 200       # blocks a split of K aims for (2 resident an SM fill 132)
 
-    CUDA: csrc/int4_matmul_s8.cu, with an (M, K/G, N) f32 scratch of the
-    per-group terms, summed in group order by its second pass. CPU: the
-    plain version."""
-    if xq.device.type == "cpu":
-        return int4_matmul_s8_reference(xq, xs, w_q4, scale4)
-    _check_cuda("int4_matmul_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4},
-                {"xq": torch.int8, "xs": torch.float32, "w_q4": torch.int8,
-                 "scale4": torch.float32}, align={"xq": 1, "xs": 4, "w_q4": 4, "scale4": 4})
+
+def s8_pairs_per_block(m: int, k: int, n: int, n_groups: int, wide: bool) -> int:
+    """int4_matmul_s8's plan: the group pairs each block takes. All of
+    them (n_groups / 2: no split, the fold stays in shared memory) when
+    the column tiles alone fill the card and the block's xq bytes and
+    terms fit; else K is split over blocks of 8, 4, 2 or 1 pairs, the
+    most that still give S8_SPLIT_BLOCKS blocks (a warp keeps a whole
+    pair where it can; else the block's warps share each pair)."""
+    half = n_groups // 2
+    bn = S8_BLOCK_N[0] if wide else S8_BLOCK_N[1]
+    blocks = -(-n // bn) * -(-m // 8)
+    mt = min(m, 8)
+    # xq bytes, xs, ws rows and the terms of every group (csrc Layout)
+    whole = mt * (k + 4 * n_groups * (bn + 1)) + 4 * n_groups * bn
+    if blocks >= S8_FILL_BLOCKS and whole <= S8_WHOLE_SMEM:
+        return half
+    pb = S8_WARPS
+    while pb > 1 and blocks * -(-half // pb) < S8_SPLIT_BLOCKS:
+        pb //= 2
+    return min(pb, half)
+
+
+_tickets: dict = {}        # device → zeroed int32 tickets of int4_matmul_s8's split fold
+
+
+def _s8_tickets(device: torch.device, count: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < count:
+        buf = _tickets[device] = torch.zeros(max(count, 4096), dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
+def _check_int4_s8(xq, xs, w_q4, scale4) -> tuple[int, int, int, int]:
+    """int4_matmul_s8's shape checks → (M, K, N, n_groups). The kernel
+    also needs G a multiple of 4: a lane's 4-row dp4a stays in one group."""
     m, k = xq.shape
     n = _check_int4("int4_matmul_s8", k, w_q4, scale4)
     n_groups = scale4.shape[0]
     if xs.shape != (m, n_groups):
         raise ValueError(f"int4_matmul_s8: xs must be (M, K/G) = {(m, n_groups)}, "
                          f"got {xs.shape}")
+    if (k // n_groups) % 4:
+        raise ValueError(f"int4_matmul_s8: the group size {k // n_groups} must be a "
+                         f"multiple of 4")
     if not 1 <= m <= 65535 or n_groups // 2 > 65535:
         raise ValueError(f"int4_matmul_s8: M={m} or {n_groups} groups out of range")
-    terms = torch.empty((m, n_groups, n), dtype=torch.float32, device=xq.device)
+    return m, k, n, n_groups
+
+
+def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
+                   scale4: torch.Tensor) -> torch.Tensor:
+    """W4A8: xq (M, K) int8 with xs (M, K/G) f32 against w_q4 (K/2, N)
+    packed and scale4 (K/G, N) f32 → (M, N) bf16. Any M: rows go in
+    chunks of 8 across the grid.
+
+    CUDA: csrc/int4_matmul_s8.cu, one launch; G a multiple of 4, xq
+    4-byte and scale4 16-byte aligned. Where `s8_pairs_per_block`
+    splits K, an (M, K/G, N) f32 scratch of the per-group terms and the
+    device's ticket buffer (which the kernel leaves zeroed; launches on
+    one stream only) go with it. CPU: the plain version."""
+    if xq.device.type == "cpu":
+        return int4_matmul_s8_reference(xq, xs, w_q4, scale4)
+    _check_cuda("int4_matmul_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4},
+                {"xq": torch.int8, "xs": torch.float32, "w_q4": torch.int8,
+                 "scale4": torch.float32}, align={"xq": 4, "xs": 4, "w_q4": 4, "scale4": 16})
+    m, k, n, n_groups = _check_int4_s8(xq, xs, w_q4, scale4)
+    wide = n % 16 == 0 and w_q4.data_ptr() % 16 == 0
+    pb = s8_pairs_per_block(m, k, n, n_groups, wide)
+    scratch = tickets = None
+    if pb < n_groups // 2:
+        scratch = torch.empty((m, n_groups, n), dtype=torch.float32, device=xq.device)
+        tickets = _s8_tickets(xq.device, -(-n // S8_BLOCK_N[1]) * -(-m // 8))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     build.launch("int4_matmul_s8", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
-                 scale4.data_ptr(), terms.data_ptr(), out.data_ptr(), m, k, n, n_groups,
-                 _stream(xq.device))
+                 scale4.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+                 tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
+                 m, k, n, n_groups, pb, _stream(xq.device))
     launch_counts["int4_matmul_s8"] += 1
     return out
 
