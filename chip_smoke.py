@@ -13,7 +13,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels against their plain PyTorch versions at large-v3-turbo shapes
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
    viewed as heads, as the encoder calls it; cross_attention_int8 B=8
-   H=20 Tq 1, 4 and 5 (the beam step), Tpad 1536; cross_attention_s8 on
+   H=20 Tq 1, 4, 5 (the beam step) and 35 (a prompted first step), Tpad
+   1536; cross_attention_s8 on
    the same K/V at Tq 1 and 5 and seq_len 1500 and 1536, also held
    within 3% mean relative of cross_attention_int8; self_attention_int8
    over the regathered int8 cache of B·K=40 beam rows and
@@ -27,10 +28,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (CUDA events, L2 flushed before each run) of the kernel, the plain
    version and, where one exists, the one PyTorch call computing the
    same function, beside the least time the card could take; for the
-   redesigned kernels (flash_attention here, int4_matmul_s8 in
-   phase 7) also a back-to-back time (20 launches in one CUDA graph over
-   input copies larger than the L2 cache, per launch) beside the
-   earlier design's single-launch time;
+   redesigned kernels (flash_attention and cross_attention_int8 at Tq 1
+   and 5 here, int4_matmul and int4_matmul_s8 in phase 7) also a
+   back-to-back time (20 launches in one CUDA graph over input copies
+   larger than the L2 cache, per launch) beside the earlier design's
+   single-launch time;
 4. the greedy main path at full large-v3-turbo width (random weights
    from seed 0, bf16, default TranscriptionConfig: greedy, int8
    cross-KV, language detection): first the model is held to its
@@ -64,7 +66,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    quantize_tree at quantize_bits=4: int4 body, int8 lm_head):
    int8_matmul, int4_matmul and int4_matmul_s8 against their plain
    versions at each of the path's shapes and one small ragged shape
-   each, max abs error within 2e-2 × max|ref| and relative L2 within
+   each (int4_matmul also at the longest stage prompt's 1748 rows, and
+   the ragged shape again at G = 16; beside it torch.matmul on the
+   pre-dequantized bf16 weight as a dense-GEMM yardstick), max abs
+   error within 2e-2 × max|ref| and relative L2 within
    5e-3, each wrong reading of the weight layout (nibble halves swapped,
    nibbles not sign-extended, the scale of the wrong group or column)
    read above that limit, timed as in phase 3; int4_matmul_s8 also
@@ -73,8 +78,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the model's prefill of a 512-token prompt and one decode step within
    5e-2 relative L2 of the same model with the plain versions, with the
    hidden state's error after each layer printed, and as a control the
-   plain twin against itself with TF32 sums; then, with the counts
-   zeroed, the stage end to end:
+   plain twin against itself with TF32 sums; a torch.profiler window
+   over one 1748-token prefill (device time by kernel); then, with the
+   counts zeroed, the stage end to end:
    TorchLlama injected with set_llm, and AudioProcessingPipeline's
    identify_speaker_names, generate_summary and extract_topics on a
    20-segment two-speaker conversation, timed (prefill ms, ms per decode
@@ -96,6 +102,12 @@ to 8; every one of the ten kernels must have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
+
+    python3 chip_smoke.py --prefill-profile
+
+builds the kernels and runs only phase 7's prefill profile (no result
+line): copied into an older tree of the port, it measures that tree's
+prefill the same way.
 """
 
 from __future__ import annotations
@@ -132,7 +144,8 @@ L2_BYTES = 50e6            # H100 L2: the back-to-back inputs exceed it
 # the redesigned kernels' single-launch times in their earlier design
 # (PERF.md's kernel table, "Before"; NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's
-BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339}
+BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
+             "cross_attention_int8": 0.0560, "int4_matmul": 0.8286}
 REPLACES = {
     "flash_attention": "turbo_whisper_workspace_tpu/ops/attention.py:55",
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
@@ -147,13 +160,17 @@ REPLACES = {
 }
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
+LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
 # phase 7's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
 # prefill rows or the decode step's M = 1 (and the route's largest, 8),
-# then one small ragged shape; the first is the kernels line's row
+# then one small ragged shape; the first is the kernels line's row.
+# int4_matmul also runs the gate/up shape at the longest prompt's rows,
+# and the ragged shape again at G = 16 (a fourth entry: the group size)
 QUANT_SHAPES = {
     "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
-    "int4_matmul": ((LLM_PROMPT, 4096, 14336), (LLM_PROMPT, 14336, 4096),
-                    (LLM_PROMPT, 4096, 4096), (LLM_PROMPT, 4096, 1024), (3, 256, 1000)),
+    "int4_matmul": ((LLM_PROMPT, 4096, 14336), (LLM_LONG_PROMPT, 4096, 14336),
+                    (LLM_PROMPT, 14336, 4096), (LLM_PROMPT, 4096, 4096),
+                    (LLM_PROMPT, 4096, 1024), (3, 256, 1000), (3, 256, 1000, 16)),
     "int4_matmul_s8": ((1, 4096, 14336), (1, 14336, 4096), (1, 4096, 4096), (1, 4096, 1024),
                        (8, 4096, 14336), (8, 14336, 4096), (3, 256, 1000)),
 }
@@ -323,7 +340,8 @@ def check_kernels(att, dev, card: str) -> dict:
         torch.randn(1, b, h, seq_len, d, generator=gen, device=dev).to(torch.bfloat16))
     kq, vq, ks, vs = kv["k_q"][0], kv["v_q"][0], kv["k_scale"][0], kv["v_scale"][0]
     rows, errs = {}, {}
-    for tq in (1, 4, BEAM):
+    # Tq 35: a prompted first step, five chunks of query rows
+    for tq in (1, 4, BEAM, 35):
         qc = torch.randn(b, h, tq, d, generator=gen, device=dev).to(torch.bfloat16)
         args = (qc, kq, vq, ks, vs)
         out = att.cross_attention_int8(*args, seq_len=seq_len)
@@ -338,6 +356,14 @@ def check_kernels(att, dev, card: str) -> dict:
                          lambda: att.cross_attention_int8_reference(*args, seq_len=seq_len),
                          nbytes(qc, ks, vs, out) + 2 * b * h * d * seq_len,
                          4 * b * h * tq * seq_len * d, flush)
+        if tq in (1, BEAM):
+            copies = input_copies(args, nbytes(*args))
+            print_redesigned(
+                "cross_attention_int8", f"cross_attention_int8 B={b} H={h} Tq={tq} "
+                f"(plan: ranks, slice, rows {att.cross_int8_plan(tq, kq.shape[-1])})",
+                rows[tq]["ms"], back_to_back_ms(
+                    lambda *a: att.cross_attention_int8(*a, seq_len=seq_len), copies, flush),
+                copies, card)
     # the greedy decode step's shape, Tq = 1, is the row in the kernels line
     stats["cross_attention_int8"] = kernel_row(rows[1], errs)
     stats["cross_attention_s8"] = check_cross_s8(att, dev, gen, flush, kv, seq_len)
@@ -671,27 +697,34 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
 
     # int4_matmul: the body prefill's four shapes (gate/up, down, q/out, k/v), ragged
     rows, errs = {}, {}
-    for m, k, n in QUANT_SHAPES["int4_matmul"]:
+    for m, k, n, *group in QUANT_SHAPES["int4_matmul"]:
         x = randn(m, k).to(torch.bfloat16)
-        q = weight(k, n, 4)
+        q = tq.quantize_int4(randn(k, n) * k ** -0.5, *group)
         wq, sc = q["w_q4"], q["scale4"]
+        label = f"int4_matmul M={m} K={k} N={n} G={k // sc.shape[0]}"
         out = tq.int4_matmul(x, wq, sc)
         torch.cuda.synchronize()
         ref = tq.int4_matmul_reference(x, wq, sc)
         dropped = {what: tq._int4_from_halves(x, lo, hi, sc)
                    for what, (lo, hi) in wrong_nibbles(tq, wq).items()}
         dropped["right group's scale"] = tq.int4_matmul_reference(x, wq, sc.roll(1, 0))
-        errs[(m, k, n)] = compare(f"int4_matmul M={m} K={k} N={n}", out, ref, dropped,
-                                  relative_max=True)
+        errs[(m, k, n, *group)] = compare(f"{label} (K split {tq.int4_plan(m, k, n)})", out,
+                                          ref, dropped, relative_max=True)
         del ref
-        rows[(m, k, n)] = timed(f"int4_matmul M={m} K={k} N={n}",
-                                lambda: tq.int4_matmul(x, wq, sc),
-                                lambda: tq.int4_matmul_reference(x, wq, sc),
-                                nbytes(x, wq, sc, out), 2 * m * k * n, flush)
+        rows[(m, k, n, *group)] = timed(label, lambda: tq.int4_matmul(x, wq, sc),
+                                        lambda: tq.int4_matmul_reference(x, wq, sc),
+                                        nbytes(x, wq, sc, out), 2 * m * k * n, flush)
+        if m >= LLM_PROMPT:
+            copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
+            print_redesigned("int4_matmul", label, rows[(m, k, n, *group)]["ms"],
+                             back_to_back_ms(tq.int4_matmul, copies, flush), copies, card)
+            del copies
         lo, hi = tq._dequant4_halves(wq, sc, k)
         w_deq = torch.cat([lo, hi])
-        print(f"int4_matmul M={m} K={k} N={n}: library none (no PyTorch call takes this "
-              f"packing); cuBLAS bf16 on the pre-dequantized weight (context only) "
+        # a dense-GEMM yardstick, not a library call of this function: it
+        # takes the weight already dequantized, which the port never holds
+        print(f"{label}: library none (no PyTorch call takes this packing); dense-GEMM "
+              f"yardstick, torch.matmul on the pre-dequantized bf16 weight "
               f"{time_ms(lambda: x @ w_deq, flush):.4f} ms")
         del x, q, wq, sc, out, lo, hi, w_deq
     stats["int4_matmul"] = kernel_row(rows[QUANT_SHAPES["int4_matmul"][0]], errs)
@@ -904,6 +937,53 @@ def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
               f"{e.key[:90]}")
 
 
+def profile_prefill(lm, params, dims, dev, card: str,
+                    prompt_len: int = LLM_LONG_PROMPT) -> None:
+    """Where a prefill's device time goes: one prompt_len-token prefill
+    (after one warm-up) under torch.profiler, its device busy time split
+    by kernel, beside its host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(dev).manual_seed(6)
+    prompt = torch.randint(0, dims.n_vocab, (1, prompt_len), generator=gen, device=dev)
+    cache = lm.init_kv_cache(dims, 1, prompt_len, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        lm.forward(params, dims, prompt, cache, pos=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lm.forward(params, dims, prompt, cache, pos=0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    kernels = sorted((e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")),
+                     key=device_us, reverse=True)
+    busy = sum(device_us(e) for e in kernels) / 1e3
+    print(f"prefill profile ({LLM}, {prompt_len} tokens): device busy {busy:.2f} ms, host "
+          f"wall {wall * 1e3:.1f} ms (profiled) [{card}]")
+    for e in kernels[:8]:
+        print(f"  {device_us(e) / 1e3:.3f} ms, {e.count} calls: {e.key[:90]}")
+
+
+def llm_model(tq, lm, dev):
+    """llama-3.1-8b at the Q4 point: random bf16 weights from seed 0
+    drawn on the card and quantized there."""
+    dims = lm.LLAMA_CONFIGS[LLM]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tq.quantize_tree(lm.init_params(dims, torch.Generator(dev).manual_seed(0),
+                                             torch.bfloat16, dev), bits=4)
+    torch.cuda.synchronize()
+    print(f"{LLM}: random bf16 weights (seed 0) drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params, dims
+
+
 def llm_phase(att, dev, card: str):
     """Phase 7. Returns the three kernels' stats and the launches of the
     stage's run (counts zeroed just before it)."""
@@ -925,17 +1005,9 @@ def llm_phase(att, dev, card: str):
 
     llm_cfg = LLMConfig()
     assert llm_cfg.model == LLM and llm_cfg.quantize_bits == 4, llm_cfg
-    dims = lm.LLAMA_CONFIGS[LLM]
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    params = tq.quantize_tree(lm.init_params(dims, torch.Generator(dev).manual_seed(0),
-                                             torch.bfloat16, dev),
-                              bits=llm_cfg.quantize_bits)
-    torch.cuda.synchronize()
-    print(f"{LLM}: random bf16 weights (seed 0) drawn and quantized on the card in "
-          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          f"allocated, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    params, dims = llm_model(tq, lm, dev)
     check_llm_model(tq, lm, params, dims, dev)
+    profile_prefill(lm, params, dims, dev, card)
 
     llm = llm_helper.TorchLlama(params, dims, device=dev)
     llm_helper.set_llm(llm)
@@ -1110,10 +1182,31 @@ def synth_clip(seconds: float, seed: int) -> np.ndarray:
     return (0.2 * voice * env + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
 
-def main() -> int:
+def prefill_profile_only() -> int:
+    """`chip_smoke.py --prefill-profile`: the build, then only
+    profile_prefill on the LLM at the Q4 point. It reads nothing newer
+    than the port's first LLM slice, so the same file measures an older
+    tree of the port beside this one."""
+    from turbo_whisper_workspace_tpu_torch.models import llama as lm
+    from turbo_whisper_workspace_tpu_torch.ops import build
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"kernels built in {build.build_all():.1f} s")
+    dev = torch.device("cuda")
+    params, dims = llm_model(tq, lm, dev)
+    profile_prefill(lm, params, dims, dev, card)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if "--prefill-profile" in (sys.argv[1:] if argv is None else argv):
+        return prefill_profile_only()
     from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
     from turbo_whisper_workspace_tpu_torch.config import PipelineConfig, TranscriptionConfig
     from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod

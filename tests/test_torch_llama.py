@@ -235,7 +235,7 @@ def test_params_from_hf_state_dict_matches_jax(dtype):
     torch.manual_seed(3)
     sd = transformers.LlamaForCausalLM(cfg).state_dict()
     ref = jlm.params_from_hf_state_dict(sd, DIMS, dtype=getattr(jnp, dtype))
-    got = convert.params_from_hf_state_dict(sd, TDIMS, dtype=getattr(torch, dtype))
+    got = tlm.params_from_hf_state_dict(sd, TDIMS, dtype=getattr(torch, dtype))
     for name in ("token_emb",):
         np.testing.assert_array_equal(got[name].float().numpy(),
                                       np.asarray(ref[name], np.float32))

@@ -111,6 +111,81 @@ def test_cross_reference_matches_jax(tq):
     np.testing.assert_allclose(got, xla, atol=2e-2, rtol=2e-2)
 
 
+# (Tq, Tpad) on the smoke run's paths (greedy 1, the prompt 3, 4, beam 5,
+# a longer prompt 35; Tpad 1536) and ragged ones
+CROSS_PLAN_CASES = [(tq, 1536) for tq in (1, 3, 4, 5, 35)] + [
+    (1, 16), (2, 128), (5, 256), (7, 384), (9, 1664), (1, 8192)]
+
+
+@pytest.mark.parametrize("tq,tpad", CROSS_PLAN_CASES)
+def test_cross_plan_covers_tpad(tq, tpad):
+    ranks, slice_keys, rows = tatt.cross_int8_plan(tq, tpad)
+    assert 1 <= ranks <= tatt.CROSS_MAX_RANKS
+    assert slice_keys % 16 == 0 and slice_keys <= tatt.CROSS_MAX_SLICE
+    assert ranks * slice_keys >= tpad > (ranks - 1) * slice_keys   # no rank wholly past Tpad
+    chunks = -(-tq // rows)                           # chunks of at most 8 rows,
+    assert 1 <= rows <= 8 and chunks == -(-tq // 8)   # as few as can be, even
+    assert chunks * rows - tq < chunks
+    if tpad == 1536:
+        assert (ranks, slice_keys) == (8, 192)      # 1280 blocks at B = 8, H = 20
+    if tpad <= 128:
+        assert ranks == 1
+
+
+def cluster_mirror(q, kq, vq, k_scale, v_scale, seq_len, ranks):
+    """cross_attention_int8's cluster arithmetic in its order, in torch:
+    per-slice scores of `ranks` 16-key-aligned slices, each slice's max
+    m_r and sum of exp2 against it, the global max M, Σ = Σ_r sum_r ·
+    exp2(m_r − M) in rank order, bf16 weights exp2(s − M) · (1/Σ), per-slice
+    partial P·V summed in rank order."""
+    b, h, tq, dh = q.shape
+    tpad = kq.shape[-1]
+    width = -(-(-(-tpad // ranks)) // 16) * 16
+    qs = (q.float() * (k_scale[:, :, None, None] * dh ** -0.5 * tatt.LOG2E)).to(
+        torch.bfloat16).float()
+    vh = vq.reshape(b, tpad, h, dh).float()
+    slices = [(r * width, min((r + 1) * width, seq_len)) for r in range(-(-tpad // width))]
+    slices = [(lo, hi) for lo, hi in slices if hi > lo]     # ranks past seq_len add nothing
+    scores = [torch.einsum("bhqd,bhdt->bhqt", qs, kq[..., lo:hi].float()) for lo, hi in slices]
+    maxes = [s.amax(-1, keepdim=True) for s in scores]
+    sums = [torch.exp2(s - m).sum(-1, keepdim=True) for s, m in zip(scores, maxes)]
+    m = maxes[0]
+    for mr in maxes[1:]:
+        m = torch.maximum(m, mr)
+    total = sums[0] * torch.exp2(maxes[0] - m)
+    for sr, mr in zip(sums[1:], maxes[1:]):
+        total = total + sr * torch.exp2(mr - m)
+    out = None
+    for (lo, hi), s in zip(slices, scores):
+        w = (torch.exp2(s - m) * (1.0 / total)).to(torch.bfloat16).float()
+        part = torch.einsum("bhqt,bthd->bhqd", w, vh[:, lo:hi])
+        out = part if out is None else out + part
+    return (out * v_scale[:, :, None, None]).to(q.dtype)
+
+
+_CROSS_JAX = {}
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 8])
+@pytest.mark.parametrize("tq", [1, 3, 5])
+def test_cross_cluster_order_matches_jax(ranks, tq):
+    """The cluster's order of operations, at seq_len 100 < Tpad 384 (the
+    ranks past key 100 hold no key), against the JAX Pallas kernel in
+    interpret mode, with test_cross_reference_matches_jax's tolerance."""
+    seq_len = 100
+    q, kv, _ = _cross_inputs(tq)
+    args = (kv["k_q"], kv["v_q"], kv["k_scale"], kv["v_scale"])
+    if tq not in _CROSS_JAX:
+        _CROSS_JAX[tq] = np.asarray(jatt.cross_attention_int8(
+            jnp.asarray(q), *map(jnp.asarray, args), seq_len=seq_len, interpret=True))
+    got = cluster_mirror(torch.from_numpy(q), *map(torch.from_numpy, args), seq_len, ranks)
+    assert got.shape == (2, 4, tq, 64)
+    np.testing.assert_allclose(got.numpy(), _CROSS_JAX[tq], atol=2e-2, rtol=2e-2)
+    plain = tatt.cross_attention_int8_reference(
+        torch.from_numpy(q), *map(torch.from_numpy, args), seq_len=seq_len)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-2, rtol=2e-2)
+
+
 def _self_inputs(seed=5, b=2, h=3, tq=1, t=16):
     """int8 (B, H, T, 64) cache with per-(head, position) scales."""
     rng = np.random.default_rng(seed)
@@ -340,3 +415,25 @@ def test_cuda_kernels_match_plain_versions(cuda_device, tq):
             tatt.self_attention_int8_lanes(*args, valid_len).float(),
             tatt.self_attention_int8_lanes_reference(*args, valid_len).float(),
             atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 4, 5, 35])
+@pytest.mark.parametrize("t,seq_len", [(1500, 1500), (1500, 100), (300, 300), (200, 100)])
+def test_cuda_cross_cluster_matches_plain_version(cuda_device, tq, t, seq_len):
+    """cross_attention_int8 at C > 1 ranks (Tpad 1536: 8; 384: 3; 256:
+    2), query rows in chunks (Tq 35: five chunks of 8), and slices wholly
+    past seq_len (100)."""
+    gen = torch.Generator(cuda_device).manual_seed(tq)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    kv = tatt.quantize_cross_kv_int8(randn(1, 2, 4, t, 64), randn(1, 2, 4, t, 64))
+    args = (randn(2, 4, tq, 64).to(torch.bfloat16), kv["k_q"][0], kv["v_q"][0],
+            kv["k_scale"][0], kv["v_scale"][0])
+    assert tatt.cross_int8_plan(tq, kv["k_q"].shape[-1])[0] > 1
+    out = tatt.cross_attention_int8(*args, seq_len=seq_len).float()
+    ref = tatt.cross_attention_int8_reference(*args, seq_len=seq_len).float()
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    assert (out - ref).norm() <= 5e-3 * ref.norm()

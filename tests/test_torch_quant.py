@@ -234,6 +234,31 @@ def test_s8_plan_splits_k_only_to_fill_the_card(m, k, n, wide, pairs):
         assert pb == n_groups // 2 or pb in (1, 2, 4, 8)
 
 
+def _int4_path_shapes():
+    """chip_smoke.py's int4_matmul shapes, and the prefill's at M = 1748
+    (the longest stage prompt)."""
+    import chip_smoke
+
+    shapes = sorted({s[:3] for s in chip_smoke.QUANT_SHAPES["int4_matmul"]})
+    return shapes + sorted({(chip_smoke.LLM_LONG_PROMPT, k, n) for _, k, n in shapes})
+
+
+@pytest.mark.parametrize("m,k,n", _int4_path_shapes() + [(1, 4096, 14336), (1, 16, 4)])
+def test_int4_plan_fills_the_card_or_splits(m, k, n):
+    """Every shape either has at least INT4_SMS blocks or splits K; a
+    split is a cluster of 2 or 4 blocks with at least one chunk of K
+    each, and only shapes short of INT4_SMS tiles split."""
+    split = tq.int4_plan(m, k, n)
+    tiles = -(-m // tq.INT4_BLOCK[0]) * -(-n // tq.INT4_BLOCK[1])
+    chunks = -(-(k // 2) // tq.INT4_CHUNK)
+    assert split in (1, 2, 4)
+    assert tiles * split >= tq.INT4_SMS or split > 1 or chunks < 2
+    if split > 1:
+        assert tiles < tq.INT4_SMS and chunks // split >= 1
+    if tiles >= tq.INT4_SMS:
+        assert split == 1
+
+
 def test_int4_s8_rejects_groups_the_kernel_cannot_split():
     """The kernel takes G a multiple of 4 (a lane's 4-row dp4a stays in
     one group): the wrapper's checks refuse other shapes before a launch;
@@ -354,3 +379,24 @@ def test_cuda_quant_kernels_match_plain_versions(cuda_device, m, k, n):
     xq, xs = tq.quant_act_grouped(x, k // 128)
     assert torch.equal(tq.int4_matmul_s8(xq, xs, q128["w_q4"], q128["scale4"]),
                        tq.int4_matmul_s8_reference(xq, xs, q128["w_q4"], q128["scale4"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("m,k,n", [(1748, 512, 1000), (3, 1024, 264), (512, 4096, 1024),
+                                   (130, 256, 4096)])
+def test_cuda_int4_matmul_matches_plain_version(cuda_device, m, k, n, group):
+    """int4_matmul's wgmma kernel: ragged M (not a multiple of 128) and N
+    (4-byte weight copies where N % 16 != 0), group sizes 32 to 128, and
+    K split over a cluster ((512, 4096, 1024): 4 blocks a tile)."""
+    gen = torch.Generator(cuda_device).manual_seed(group)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = tq.quantize_int4(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5,
+                         group=group)
+    got = tq.int4_matmul(x, q["w_q4"], q["scale4"]).float()
+    ref = tq.int4_matmul_reference(x, q["w_q4"], q["scale4"]).float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert (got - ref).norm() <= 5e-3 * ref.norm()
+    if (m, k, n) == (512, 4096, 1024):
+        assert tq.int4_plan(m, k, n) == 4

@@ -163,7 +163,6 @@ def get_llm(config: LLMConfig | None = None, device: torch.device | str = "cuda"
 
 
 def _load_llama_checkpoint(path: str, device: torch.device | str = "cpu"):
-    from ..models import convert
     from ..models import llama as lm
 
     cfg_path = os.path.join(path, "config.json")
@@ -185,8 +184,8 @@ def _load_llama_checkpoint(path: str, device: torch.device | str = "cpu"):
         sd = load_file(st)
     else:
         sd = torch.load(pt, map_location="cpu", weights_only=True)
-    params = convert.params_from_hf_state_dict(sd, dims, dtype=torch.bfloat16,
-                                               device=device)
+    params = lm.params_from_hf_state_dict(sd, dims, dtype=torch.bfloat16,
+                                          device=device)
     return params, dims
 
 

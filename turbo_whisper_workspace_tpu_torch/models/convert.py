@@ -1,7 +1,9 @@
-"""Weights from the JAX package's parameter tree and `.npz` checkpoints.
+"""Weights from the JAX package's parameter tree, `.npz` checkpoints and
+HF Whisper snapshots.
 
-Port of turbo_whisper_workspace_tpu/models/convert.py (load_params), plus
-`from_jax_params`, which maps the JAX tree onto models/whisper.Whisper:
+Port of turbo_whisper_workspace_tpu/models/convert.py (`load_params`,
+`dims_from_hf_config`, `params_from_hf_state_dict`, `load_hf_snapshot`),
+plus `from_jax_params`, which maps the JAX tree onto models/whisper.Whisper:
 
 * `blocks` leaves are stacked along a leading layer axis (L, ...) and
   are split into one module per layer;
@@ -10,18 +12,24 @@ Port of turbo_whisper_workspace_tpu/models/convert.py (load_params), plus
 * conv weights are OIH, which is torch's conv1d layout, and copy as is;
 * LayerNorm `scale`/`bias` become `weight`/`bias`.
 
-One checkpoint thus feeds both packages. The Whisper HF snapshot loader
-waits for a later slice.
+One checkpoint thus feeds both packages. A transformers
+WhisperForConditionalGeneration state dict goes through the JAX tree's
+layout too (`params_from_hf_state_dict`), so both packages round its
+weights alike; `load_hf_snapshot` reads a snapshot directory
+(`config.json` with `model.safetensors` or `pytorch_model.bin`).
 
-For the Llama LM (models/llama.py): `llama_from_jax_params` takes the JAX
-tree, dense or already quantized, and `params_from_hf_state_dict` (port
-of turbo_whisper_workspace_tpu/models/llama.py:params_from_hf_state_dict)
-a transformers LlamaForCausalLM state dict. Both keep the JAX layouts:
-(d_in, d_out) weights, (K, N) int8, (K/2, N) packed int4, (K/G, N) f32
-scales, one dict per layer.
+For the Llama LM: `llama_from_jax_params` takes the JAX tree, dense or
+already quantized, keeping the JAX layouts: (d_in, d_out) weights, (K, N)
+int8, (K/2, N) packed int4, (K/G, N) f32 scales, one dict per layer.
+The transformers LlamaForCausalLM loader is
+models/llama.py:params_from_hf_state_dict, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -95,6 +103,126 @@ def load_params(path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# HF Whisper snapshots
+
+# transformers.WhisperConfig's defaults, for keys a config.json leaves out
+_HF_DEFAULTS = {"num_mel_bins": 80, "max_source_positions": 1500, "d_model": 384,
+                "encoder_attention_heads": 6, "encoder_layers": 4, "vocab_size": 51865,
+                "max_target_positions": 448, "decoder_attention_heads": 6,
+                "decoder_layers": 4}
+
+
+def dims_from_hf_config(cfg: Mapping[str, Any]) -> WhisperDims:
+    """A WhisperConfig's `config.json` mapping → WhisperDims (read as a
+    plain mapping: transformers is not needed)."""
+    c = {**_HF_DEFAULTS, **cfg}
+    return WhisperDims(
+        n_mels=c["num_mel_bins"],
+        n_audio_ctx=c["max_source_positions"],
+        n_audio_state=c["d_model"],
+        n_audio_head=c["encoder_attention_heads"],
+        n_audio_layer=c["encoder_layers"],
+        n_vocab=c["vocab_size"],
+        n_text_ctx=c["max_target_positions"],
+        n_text_state=c["d_model"],
+        n_text_head=c["decoder_attention_heads"],
+        n_text_layer=c["decoder_layers"],
+    )
+
+
+def _np(x) -> np.ndarray:
+    """A tensor (bf16 too) → f32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(sd: Mapping[str, Any], prefix: str, bias: bool = True) -> dict:
+    p = {"w": _np(sd[f"{prefix}.weight"]).T}          # (out, in) → (in, out)
+    if bias and f"{prefix}.bias" in sd:
+        p["b"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _ln(sd: Mapping[str, Any], prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _attn(sd: Mapping[str, Any], prefix: str) -> dict:
+    return {"q": _linear(sd, f"{prefix}.q_proj"),
+            "k": _linear(sd, f"{prefix}.k_proj", bias=False),
+            "v": _linear(sd, f"{prefix}.v_proj"),
+            "out": _linear(sd, f"{prefix}.out_proj")}
+
+
+def _stack(blocks: list[dict]) -> dict:
+    """Per-layer trees → one tree of (L, ...) leaves."""
+    return {k: _stack([b[k] for b in blocks]) if isinstance(blocks[0][k], dict)
+            else np.stack([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def params_from_hf_state_dict(sd: Mapping[str, Any], dims: WhisperDims,
+                              dtype: torch.dtype = torch.float32,
+                              device: torch.device | str = "cpu") -> Whisper:
+    """A Whisper module from a transformers WhisperForConditionalGeneration
+    state dict ("model.encoder..." or "encoder..." keys): the JAX tree's
+    f32 leaves, then cast to `dtype` as the JAX loader casts them."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    def mlp(pre):
+        return {"fc1": _linear(sd, f"{pre}.fc1"), "fc2": _linear(sd, f"{pre}.fc2")}
+
+    enc_blocks = [{"attn_ln": _ln(sd, f"encoder.layers.{i}.self_attn_layer_norm"),
+                   "attn": _attn(sd, f"encoder.layers.{i}.self_attn"),
+                   "mlp_ln": _ln(sd, f"encoder.layers.{i}.final_layer_norm"),
+                   "mlp": mlp(f"encoder.layers.{i}")}
+                  for i in range(dims.n_audio_layer)]
+    dec_blocks = [{"attn_ln": _ln(sd, f"decoder.layers.{i}.self_attn_layer_norm"),
+                   "attn": _attn(sd, f"decoder.layers.{i}.self_attn"),
+                   "cross_ln": _ln(sd, f"decoder.layers.{i}.encoder_attn_layer_norm"),
+                   "cross": _attn(sd, f"decoder.layers.{i}.encoder_attn"),
+                   "mlp_ln": _ln(sd, f"decoder.layers.{i}.final_layer_norm"),
+                   "mlp": mlp(f"decoder.layers.{i}")}
+                  for i in range(dims.n_text_layer)]
+    params = {
+        "encoder": {
+            "conv1": {"w": _np(sd["encoder.conv1.weight"]), "b": _np(sd["encoder.conv1.bias"])},
+            "conv2": {"w": _np(sd["encoder.conv2.weight"]), "b": _np(sd["encoder.conv2.bias"])},
+            "pos_emb": _np(sd["encoder.embed_positions.weight"]),
+            "blocks": _stack(enc_blocks),
+            "ln_post": _ln(sd, "encoder.layer_norm"),
+        },
+        "decoder": {
+            "token_emb": _np(sd["decoder.embed_tokens.weight"]),
+            "pos_emb": _np(sd["decoder.embed_positions.weight"]),
+            "blocks": _stack(dec_blocks),
+            "ln": _ln(sd, "decoder.layer_norm"),
+        },
+    }
+    return from_jax_params(params, dims, dtype=dtype, device=device)
+
+
+def load_hf_snapshot(path: str, dtype: torch.dtype = torch.float32,
+                     device: torch.device | str = "cpu") -> tuple[Whisper, WhisperDims]:
+    """A local HF Whisper snapshot directory (`config.json` and
+    `model.safetensors` or `pytorch_model.bin`) → (model, dims)."""
+    with open(os.path.join(path, "config.json")) as f:
+        dims = dims_from_hf_config(json.load(f))
+    st_path = os.path.join(path, "model.safetensors")
+    pt_path = os.path.join(path, "pytorch_model.bin")
+    if os.path.exists(st_path):
+        from safetensors.torch import load_file
+
+        sd = load_file(st_path)
+    elif os.path.exists(pt_path):
+        sd = torch.load(pt_path, map_location="cpu", weights_only=True)
+    else:
+        raise FileNotFoundError(f"no weights found under {path}")
+    return params_from_hf_state_dict(sd, dims, dtype=dtype, device=device), dims
+
+
+# ---------------------------------------------------------------------------
 # Llama
 
 _QUANT_SCALES = ("scale", "scale4")
@@ -125,38 +253,3 @@ def llama_from_jax_params(params: dict, dims: LlamaDims,
         {name: {k: v[li] for k, v in proj.items()} for name, proj in stacked.items()}
         for li in range(dims.n_layer)]
     return tree
-
-
-def params_from_hf_state_dict(sd: dict, dims: LlamaDims,
-                              dtype: torch.dtype = torch.float32,
-                              device: torch.device | str = "cpu") -> dict:
-    """The port's Llama parameter dict from a transformers
-    LlamaForCausalLM state dict: weights to f32, (out, in) transposed to
-    (in, out), then cast to `dtype` (the same roundings as the JAX
-    loader). A tied head reads the embedding."""
-    def t(name, transpose=False):
-        x = sd[name].detach().to(torch.float32).cpu()
-        x = x.T if transpose else x
-        return x.contiguous().to(device=device, dtype=dtype)
-
-    blocks = []
-    for i in range(dims.n_layer):
-        p = f"model.layers.{i}"
-        blocks.append({
-            "attn_norm": {"scale": t(f"{p}.input_layernorm.weight")},
-            "q": {"w": t(f"{p}.self_attn.q_proj.weight", True)},
-            "k": {"w": t(f"{p}.self_attn.k_proj.weight", True)},
-            "v": {"w": t(f"{p}.self_attn.v_proj.weight", True)},
-            "out": {"w": t(f"{p}.self_attn.o_proj.weight", True)},
-            "mlp_norm": {"scale": t(f"{p}.post_attention_layernorm.weight")},
-            "gate": {"w": t(f"{p}.mlp.gate_proj.weight", True)},
-            "up": {"w": t(f"{p}.mlp.up_proj.weight", True)},
-            "down": {"w": t(f"{p}.mlp.down_proj.weight", True)},
-        })
-    head_key = "lm_head.weight" if "lm_head.weight" in sd else "model.embed_tokens.weight"
-    return {
-        "token_emb": t("model.embed_tokens.weight"),
-        "blocks": blocks,
-        "norm": {"scale": t("model.norm.weight")},
-        "lm_head": {"w": t(head_key, True)},
-    }

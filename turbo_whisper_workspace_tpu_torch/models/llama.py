@@ -8,6 +8,8 @@ along a leading layer axis; `models/convert.py:llama_from_jax_params`
 splits it). A projection is a dense {"w"} (d_in, d_out), int8 {"w_q",
 "scale"} or int4 {"w_q4", "scale4"} dict in the JAX package's layouts,
 and every projection goes through `ops/quant.matmul_any`.
+`params_from_hf_state_dict` loads a transformers LlamaForCausalLM state
+dict into that dict, as the JAX function of that name does.
 
 Unlike the JAX function, `forward` writes the KV cache in place: the
 returned cache is the same tensors as the one passed in.
@@ -184,3 +186,38 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
     else:
         logits = x.float() @ params["lm_head"]["w"].to(dtype).float()
     return logits, (kv_cache if use_cache else None)
+
+
+def params_from_hf_state_dict(sd: dict, dims: LlamaDims,
+                              dtype: torch.dtype = torch.float32,
+                              device: torch.device | str = "cpu") -> dict:
+    """The port's Llama parameter dict from a transformers
+    LlamaForCausalLM state dict: weights to f32, (out, in) transposed to
+    (in, out), then cast to `dtype` (the same roundings as the JAX
+    loader). A tied head reads the embedding."""
+    def t(name, transpose=False):
+        x = sd[name].detach().to(torch.float32).cpu()
+        x = x.T if transpose else x
+        return x.contiguous().to(device=device, dtype=dtype)
+
+    blocks = []
+    for i in range(dims.n_layer):
+        p = f"model.layers.{i}"
+        blocks.append({
+            "attn_norm": {"scale": t(f"{p}.input_layernorm.weight")},
+            "q": {"w": t(f"{p}.self_attn.q_proj.weight", True)},
+            "k": {"w": t(f"{p}.self_attn.k_proj.weight", True)},
+            "v": {"w": t(f"{p}.self_attn.v_proj.weight", True)},
+            "out": {"w": t(f"{p}.self_attn.o_proj.weight", True)},
+            "mlp_norm": {"scale": t(f"{p}.post_attention_layernorm.weight")},
+            "gate": {"w": t(f"{p}.mlp.gate_proj.weight", True)},
+            "up": {"w": t(f"{p}.mlp.up_proj.weight", True)},
+            "down": {"w": t(f"{p}.mlp.down_proj.weight", True)},
+        })
+    head_key = "lm_head.weight" if "lm_head.weight" in sd else "model.embed_tokens.weight"
+    return {
+        "token_emb": t("model.embed_tokens.weight"),
+        "blocks": blocks,
+        "norm": {"scale": t("model.norm.weight")},
+        "lm_head": {"w": t(head_key, True)},
+    }

@@ -167,15 +167,45 @@ def cross_attention_int8_reference(q, kq, vq, k_scale, v_scale,
     return (out * v_scale[:, :, None, None]).to(q.dtype)
 
 
+# cross_attention_int8's plan mirrors csrc/cross_attention_int8.cu:make_plan
+CROSS_MAX_RANKS = 8          # the portable thread-block cluster size
+CROSS_KEYS_PER_RANK = 128    # the slice the plan aims at before rounding
+CROSS_MAX_SLICE = 1024       # keys one block holds in shared memory
+
+
+def cross_int8_plan(tq: int, tpad: int) -> tuple[int, int, int]:
+    """cross_attention_int8's launch plan → (ranks C, slice S, query
+    chunk): one cluster of C ≤ 8 blocks per (b, h), rank r holding keys
+    [r·S, (r+1)·S), S a multiple of 16 with C·S ≥ Tpad and no rank wholly
+    past Tpad; query rows go in even chunks of at most 8. Only Tq and Tpad
+    enter: the (b, h) count only multiplies the clusters, and seq_len
+    only trims each slice's loads and sums (a rank past it still joins
+    its cluster's barriers)."""
+    ranks = min(CROSS_MAX_RANKS, max(1, -(-tpad // CROSS_KEYS_PER_RANK)))
+    slice_keys = -(-(-(-tpad // ranks)) // 16) * 16
+    ranks = -(-tpad // slice_keys)
+    chunks = -(-tq // 8)
+    return ranks, slice_keys, -(-tq // chunks)
+
+
 def cross_attention_int8(q, kq, vq, k_scale, v_scale,
                          seq_len: int | None = None) -> torch.Tensor:
     """Decode cross-attention over int8 K/V; returns (B, H, Tq, 64).
 
-    CUDA: csrc/cross_attention_int8.cu, bf16 q. CPU: the plain version."""
+    CUDA: csrc/cross_attention_int8.cu, one thread-block cluster per
+    (b, h) as `cross_int8_plan` says; bf16 q, Tpad a multiple of 16 and
+    at most 8 · CROSS_MAX_SLICE, K/V 16-byte aligned. CPU: the plain
+    version."""
     if q.device.type == "cpu":
         return cross_attention_int8_reference(q, kq, vq, k_scale, v_scale, seq_len)
     seq_len = _check_cross("cross_attention_int8", q, kq, vq, k_scale, v_scale, seq_len)
     b, h, tq, _ = q.shape
+    tpad = kq.shape[-1]
+    if (tpad % 16 or tpad > CROSS_MAX_RANKS * CROSS_MAX_SLICE
+            or kq.data_ptr() % 16 or vq.data_ptr() % 16):
+        raise ValueError(f"cross_attention_int8: Tpad={tpad} must be a multiple of 16 "
+                         f"and at most {CROSS_MAX_RANKS * CROSS_MAX_SLICE}, kq and vq "
+                         f"16-byte aligned")
     out = torch.empty_like(q)
     build.launch("cross_attention_int8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),

@@ -255,11 +255,33 @@ def _check_int4(name: str, k: int, w_q4: torch.Tensor, scale: torch.Tensor) -> i
     return n
 
 
+# int4_matmul's plan mirrors csrc/int4_matmul.cu:make_plan
+INT4_BLOCK = (256, 128)     # output rows × columns a block (or cluster) computes
+INT4_CHUNK = 32             # packed rows a pipeline stage holds
+INT4_SMS = 132              # the H100's SMs: fewer tiles than this split K
+INT4_MAX_SPLIT = 4
+
+
+def int4_plan(m: int, k: int, n: int) -> int:
+    """int4_matmul's K split: the size of the thread-block cluster that
+    shares one output tile. 1 when the tiles alone fill the card; else
+    doubled (to at most 4, and at most half the tile's chunks of
+    INT4_CHUNK packed rows) until tiles × split ≥ INT4_SMS."""
+    tiles = -(-m // INT4_BLOCK[0]) * -(-n // INT4_BLOCK[1])
+    chunks = -(-(k // 2) // INT4_CHUNK)
+    split = 1
+    while tiles * split < INT4_SMS and split < INT4_MAX_SPLIT and 2 * split <= chunks:
+        split *= 2
+    return split
+
+
 def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ dequant4(w_q4 (K/2, N) packed, scale (K/G, N) f32) →
     (M, N) in x's dtype.
 
-    CUDA: csrc/int4_matmul.cu; bf16 x. CPU: the plain version."""
+    CUDA: csrc/int4_matmul.cu (wgmma over dequantized tiles, K split
+    over a cluster where `int4_plan` says so); bf16 x, 16-byte aligned.
+    CPU: the plain version."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, w_q4, scale)
     _check_cuda("int4_matmul", {"x": x, "w_q4": w_q4, "scale": scale},
@@ -267,8 +289,8 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> tor
                 align={"x": 16, "w_q4": 4, "scale": 16})
     m, k = x.shape
     n = _check_int4("int4_matmul", k, w_q4, scale)
-    if m < 1 or -(-n // 64) > 65535:
-        raise ValueError(f"int4_matmul: M={m} out of range")
+    if m < 1 or -(-n // INT4_BLOCK[1]) > 65535:
+        raise ValueError(f"int4_matmul: M={m} or N={n} out of range")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.launch("int4_matmul", x.data_ptr(), w_q4.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, k, n, scale.shape[0], _stream(x.device))

@@ -9,8 +9,9 @@ Part of a port of turbo_whisper_workspace_tpu/pipeline/audio_pipeline.py:
 
 The model runs in bf16, as the JAX pipeline loads it. Weights come from
 `<models_dir>/whisper-<name>.npz` (the JAX package's checkpoint format)
-when present; otherwise from a random init seeded with 0, which is
-functional but untrained.
+or the HF snapshot directory `<models_dir>/whisper-<name>/` when present;
+otherwise from a random init seeded with 0, which is functional but
+untrained.
 """
 
 from __future__ import annotations
@@ -47,24 +48,34 @@ class AudioProcessingPipeline:
         self._transcriber = transcriber
 
     def load_transcription_model(self) -> Transcriber:
-        """Whisper weights from a local converted checkpoint when present,
-        random init otherwise."""
+        """Whisper weights from a local checkpoint when present, in the
+        JAX pipeline's order: `<models_dir>/whisper-<name>.npz`, then the
+        HF snapshot directory `<models_dir>/whisper-<name>/` (whose
+        `config.json` gives the dims, so its name need not be in
+        WHISPER_CONFIGS); random init otherwise."""
         if self._transcriber is not None:
             return self._transcriber
         name = self.config.transcription.model
         dims = wm.WHISPER_CONFIGS.get(name)
-        if dims is None:
-            raise ValueError(f"unknown whisper model {name!r}")
         model = None
-        path = os.path.join(self.config.models_dir, f"whisper-{name}.npz")
-        if os.path.exists(path):
+        npz = os.path.join(self.config.models_dir, f"whisper-{name}.npz")
+        snapshot = os.path.join(self.config.models_dir, f"whisper-{name}")
+        for cand in (npz, snapshot):
             try:
-                model = convert.from_jax_params(
-                    convert.load_params(path), dims, dtype=torch.bfloat16,
-                    device=self.device)
+                if cand == npz and dims is not None and os.path.exists(cand):
+                    model = convert.from_jax_params(
+                        convert.load_params(cand), dims, dtype=torch.bfloat16,
+                        device=self.device)
+                    break
+                if cand == snapshot and os.path.isdir(cand):
+                    model, dims = convert.load_hf_snapshot(
+                        cand, dtype=torch.bfloat16, device=self.device)
+                    break
             except (OSError, KeyError, RuntimeError, ValueError) as e:
-                logger.warning("checkpoint load failed from %s: %s", path, e)
+                logger.warning("checkpoint load failed from %s: %s", cand, e)
         if model is None:
+            if dims is None:
+                raise ValueError(f"unknown whisper model {name!r}")
             logger.warning("no local weights for %s — random init (untrained)", name)
             generator = torch.Generator(self.device).manual_seed(INIT_SEED)
             model = wm.init_params(dims, generator, dtype=torch.bfloat16,
