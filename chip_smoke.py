@@ -14,25 +14,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
    viewed as heads, as the encoder calls it; cross_attention_int8 B=8
    H=20 Tq 1, 4, 5 (the beam step) and 35 (a prompted first step), Tpad
-   1536; cross_attention_s8 on
-   the same K/V at Tq 1 and 5 and seq_len 1500 and 1536, also held
-   within 3% mean relative of cross_attention_int8; self_attention_int8
-   over the regathered int8 cache of B·K=40 beam rows and
-   self_attention_int8_lanes over the lane cache of B=8 items, K=5
-   beams and a random beam ancestry, both at H=20, T=P+224=227 and
-   valid_len 115 (mid-decode) and 227 (last step)): max abs error within
-   2e-2 and relative L2 error within 5e-3, and each mask the kernel must
-   apply (keys past the sequence, past valid_len, of lanes a beam does
-   not own) dropped from the plain version must read above that limit
-   (the script prints those readings), and the median of 25 timed runs
-   (CUDA events, L2 flushed before each run) of the kernel, the plain
-   version and, where one exists, the one PyTorch call computing the
-   same function, beside the least time the card could take; for the
-   redesigned kernels (flash_attention and cross_attention_int8 at Tq 1
-   and 5 here, int4_matmul and int4_matmul_s8 in phase 7) also a
-   back-to-back time (20 launches in one CUDA graph over input copies
-   larger than the L2 cache, per launch) beside the earlier design's
-   single-launch time;
+   1536; cross_attention_s8 on the same K/V at Tq 1, 5 and 35 and
+   seq_len 1500 and 1536, also held within 3% mean relative of
+   cross_attention_int8, its cluster plan printed and held to more than
+   one rank; self_attention_int8 over the regathered int8 cache of
+   B·K=40 beam rows and self_attention_int8_lanes over the lane cache of
+   B=8 items, K=5 beams and a random beam ancestry, both at H=20,
+   T=P+224=227 and valid_len 115 (mid-decode) and 227 (last step), the
+   lane kernel also at valid_len 3 (the prompt: lane 0 alone) and at
+   K=8, T=448, with the 32-byte sectors of the K panel its owned pairs
+   touch): max abs error within 2e-2 and relative L2 error within 5e-3,
+   and each mask the kernel must apply (keys past the sequence, past
+   valid_len, of lanes a beam does not own) dropped from the plain
+   version must read above that limit (the script prints those
+   readings), and the median of 25 timed runs (CUDA events, L2 flushed
+   before each run) of the kernel, the plain version and, where one
+   exists, the one PyTorch call computing the same function, beside the
+   least time the card could take; for the redesigned kernels
+   (flash_attention, cross_attention_int8 and cross_attention_s8 at Tq 1
+   and 5, self_attention_int8_lanes at valid_len 115 and 227 here,
+   int4_matmul and int4_matmul_s8 in phase 7) also a back-to-back time
+   (20 launches in one CUDA graph over input copies larger than the L2
+   cache, per launch) beside the earlier design's single-launch time;
 4. the greedy main path at full large-v3-turbo width (random weights
    from seed 0, bf16, default TranscriptionConfig: greedy, int8
    cross-KV, language detection): first the model is held to its
@@ -145,7 +148,11 @@ L2_BYTES = 50e6            # H100 L2: the back-to-back inputs exceed it
 # (PERF.md's kernel table, "Before"; NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's
 BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
-             "cross_attention_int8": 0.0560, "int4_matmul": 0.8286}
+             "cross_attention_int8": 0.0560, "int4_matmul": 0.8286,
+             "cross_attention_s8": 0.0448, "self_attention_int8_lanes": 0.0548}
+# cross_attention_s8's mean relative distance from cross_attention_int8
+# in its earlier design (same check, same card), printed beside this run's
+S8_VS_INT8_BEFORE = "2.72-2.73e-2"
 REPLACES = {
     "flash_attention": "turbo_whisper_workspace_tpu/ops/attention.py:55",
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
@@ -366,22 +373,26 @@ def check_kernels(att, dev, card: str) -> dict:
                 copies, card)
     # the greedy decode step's shape, Tq = 1, is the row in the kernels line
     stats["cross_attention_int8"] = kernel_row(rows[1], errs)
-    stats["cross_attention_s8"] = check_cross_s8(att, dev, gen, flush, kv, seq_len)
+    stats["cross_attention_s8"] = check_cross_s8(att, dev, gen, flush, kv, seq_len, card)
     del kv, kq, vq, ks, vs
-    stats.update(check_self_kernels(att, dev, gen, flush))
+    stats.update(check_self_kernels(att, dev, gen, flush, card))
     return stats
 
 
-def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int) -> dict:
+def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int, card: str) -> dict:
     """Phase 3, cross_attention_s8 on cross_attention_int8's K/V: the s8
-    route's decode step (Tq = 1, the row in the kernels line) and beam
-    step (Tq = 5), with the mask live (seq_len 1500) and off (1536);
-    also within 3% mean relative of cross_attention_int8 on the same
-    inputs (tests/test_attention_kernel.py:142-164)."""
+    route's decode step (Tq = 1, the row in the kernels line), beam step
+    (Tq = 5) and a prompted first step (Tq = 35), with the mask live
+    (seq_len 1500) and off (1536); also within 3% mean relative of
+    cross_attention_int8 on the same inputs
+    (tests/test_attention_kernel.py:142-164). The kernel launches one
+    cluster per (b, h) on cross_int8_plan: more than one rank here."""
     kq, vq, ks, vs = kv["k_q"][0], kv["v_q"][0], kv["k_scale"][0], kv["v_scale"][0]
     b, h, d, tpad = kq.shape
     rows, errs = {}, {}
-    for tq in (1, BEAM):
+    for tq in (1, BEAM, 35):
+        plan = att.cross_int8_plan(tq, tpad)
+        assert plan[0] > 1, plan
         qc = torch.randn(b, h, tq, d, generator=gen, device=dev).to(torch.bfloat16)
         args = (qc, kq, vq, ks, vs)
         for valid in (seq_len, tpad):
@@ -395,7 +406,7 @@ def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int) -> dict:
             int8 = att.cross_attention_int8(*args, seq_len=valid).float()
             mean_rel = ((out.float() - int8).abs().mean() / int8.abs().mean()).item()
             print(f"  against cross_attention_int8 on the same inputs: mean relative "
-                  f"{mean_rel:.3e} (limit 0.03)")
+                  f"{mean_rel:.3e} (limit 0.03; {S8_VS_INT8_BEFORE} in the earlier design)")
             assert mean_rel < 0.03, mean_rel
         # the kernel reads K and V only at t < seq_len, each once; s8 x s8 products
         rows[tq] = timed(f"cross_attention_s8 B={b} H={h} Tq={tq}",
@@ -403,6 +414,13 @@ def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int) -> dict:
                          lambda: att.cross_attention_s8_reference(*args, seq_len=seq_len),
                          nbytes(qc, ks, vs, out) + 2 * b * h * d * seq_len,
                          4 * b * h * tq * seq_len * d, flush, peak_ops=PEAK_INT8_OPS)
+        if tq in (1, BEAM):
+            copies = input_copies(args, nbytes(*args))
+            print_redesigned(
+                "cross_attention_s8", f"cross_attention_s8 B={b} H={h} Tq={tq} "
+                f"(plan: ranks, slice, rows {plan})", rows[tq]["ms"], back_to_back_ms(
+                    lambda *a: att.cross_attention_s8(*a, seq_len=seq_len), copies, flush),
+                copies, card)
     return kernel_row(rows[1], errs)
 
 
@@ -422,7 +440,7 @@ def kernel_row(row: dict, errs: dict) -> dict:
             "rel_l2_err": max(r for _, r in errs.values())}
 
 
-def check_self_kernels(att, dev, gen, flush) -> dict:
+def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     """Phase 3, the beam step's self-attention kernels at the beam
     phase's shapes: B=8 windows, K=5 beams, H=20, T=PROMPT+DECODE, the
     int8 payloads and bf16 scales made by the decoder's own quantizer
@@ -459,7 +477,44 @@ def check_self_kernels(att, dev, gen, flush) -> dict:
     stats["self_attention_int8"] = kernel_row(rows[MID_DECODE], errs)
     del kq, vq, ks, vs, args
 
-    # self_attention_int8_lanes: lane panels of B items, K lanes each
+    # self_attention_int8_lanes: lane panels of B items, K lanes each, at
+    # the beam phase's K = 5 (the row in the kernels line: mid-decode) and
+    # at K = 8 over Whisper's whole 448-position context
+    rows, errs = check_lanes(att, wm, dev, gen, flush, card, b, k, h, t,
+                             (PROMPT, MID_DECODE, t), redesigned=(MID_DECODE, t))
+    _, errs8 = check_lanes(att, wm, dev, gen, flush, card, b, 8, h, 448, (PROMPT, 224, 448))
+    errs.update({(8, valid): e for valid, e in errs8.items()})
+    stats["self_attention_int8_lanes"] = kernel_row(rows[MID_DECODE], errs)
+    return stats
+
+
+def k_panel_sectors(lane_map: torch.Tensor, valid: int, h: int) -> tuple[int, int]:
+    """(owned (lane, t) pairs, 32-byte sectors of the K panel (B, H·64,
+    K·T) their bytes lie in, over every head): a pair's 64 K bytes per
+    head sit in 64 rows K·T bytes apart, so the sectors, not the bytes,
+    are the HBM traffic of reading them."""
+    b, k, t = lane_map.shape
+    owned = torch.zeros((b, k, valid), dtype=torch.bool, device=lane_map.device)
+    owned.scatter_(1, lane_map[:, :, :valid].long(), True)
+    bi, li, ti = owned.nonzero(as_tuple=True)
+    rows = torch.arange(h * 64, device=lane_map.device)
+    addr = (bi[:, None] * h * 64 + rows[None]) * (k * t) + (li * t + ti)[:, None]
+    return int(bi.numel()), int(torch.unique(addr // 32).numel())
+
+
+def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: int,
+                valids: tuple, redesigned: tuple = ()) -> tuple[dict, dict]:
+    """self_attention_int8_lanes on lane panels of B items, K lanes each
+    (made by the decoder's own quantizer from random K/V) over a random
+    beam ancestry: at each valid_len against its plain version, with the
+    lane selection and the valid_len mask dropped, timed, and beside
+    the bound the K panel's sectors its owned pairs touch; at the
+    `redesigned` valid_lens also back to back."""
+    d = 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
     kq, ks = wm._quantize_kv_rows(randn(b, k * t, h * d), h)      # (B, H, K·T, 64)
     vq, vs = wm._quantize_kv_rows(randn(b, k * t, h * d), h)
     kp = kq.permute(0, 1, 3, 2).reshape(b, h * d, k * t).contiguous()
@@ -471,7 +526,7 @@ def check_self_kernels(att, dev, gen, flush) -> dict:
     q = randn(b, h, k, d).to(torch.bfloat16)
     args = (q, kp, ks, vp, vs, lane_map)
     rows, errs = {}, {}
-    for valid in (MID_DECODE, t):
+    for valid in valids:
         out = att.self_attention_int8_lanes(*args, valid)
         torch.cuda.synchronize()
         dropped = {"lane selection": att.self_attention_int8_lanes_reference(
@@ -479,21 +534,30 @@ def check_self_kernels(att, dev, gen, flush) -> dict:
         if valid < t:
             dropped["valid_len mask"] = att.self_attention_int8_lanes_reference(*args, t)
         errs[valid] = compare(
-            f"self_attention_int8_lanes B={b} K={k} H={h} T={t} valid_len={valid}", out,
+            f"self_attention_int8_lanes B={b} K={k} H={h} T={t} valid_len={valid} "
+            f"(plan: ranks, slice {att.lanes_plan(valid)})", out,
             att.self_attention_int8_lanes_reference(*args, valid), dropped)
         # the (lane, t) pairs some beam owns at t < valid_len: their K and V
         # bytes and bf16 scales in every head, and q, o, lane_map[..., :valid]
-        owned = torch.zeros((b, k, valid), dtype=torch.bool, device=dev)
-        owned.scatter_(1, lane_map[:, :, :valid].long(), True)
-        pairs = int(owned.sum().item())
+        pairs, sectors = k_panel_sectors(lane_map, valid, h)
         rows[valid] = timed(
-            f"self_attention_int8_lanes valid_len={valid}, {pairs} owned (lane, t) pairs "
-            f"of {b * k * valid}", lambda: att.self_attention_int8_lanes(*args, valid),
+            f"self_attention_int8_lanes K={k} T={t} valid_len={valid}, {pairs} owned "
+            f"(lane, t) pairs of {b * k * valid}",
+            lambda: att.self_attention_int8_lanes(*args, valid),
             lambda: att.self_attention_int8_lanes_reference(*args, valid),
             nbytes(q, out) + pairs * h * 2 * (d + 2) + b * k * valid * 4,
             4 * b * h * k * valid * d, flush)
-    stats["self_attention_int8_lanes"] = kernel_row(rows[MID_DECODE], errs)
-    return stats
+        print(f"  K panel: the owned pairs' bytes lie in {sectors} 32-byte sectors "
+              f"({sectors * 32 / 1e6:.2f} MB, {sectors * 32 / PEAK_BYTES * 1e3:.4f} ms at "
+              f"3.35 TB/s)")
+        if valid in redesigned:
+            copies = input_copies(args, nbytes(*args))
+            print_redesigned(
+                "self_attention_int8_lanes", f"self_attention_int8_lanes B={b} K={k} H={h} "
+                f"T={t} valid_len={valid}", rows[valid]["ms"], back_to_back_ms(
+                    lambda *a: att.self_attention_int8_lanes(*a, valid), copies, flush),
+                copies, card)
+    return rows, errs
 
 
 @contextlib.contextmanager

@@ -120,7 +120,7 @@ CROSS_PLAN_CASES = [(tq, 1536) for tq in (1, 3, 4, 5, 35)] + [
 @pytest.mark.parametrize("tq,tpad", CROSS_PLAN_CASES)
 def test_cross_plan_covers_tpad(tq, tpad):
     ranks, slice_keys, rows = tatt.cross_int8_plan(tq, tpad)
-    assert 1 <= ranks <= tatt.CROSS_MAX_RANKS
+    assert 1 <= ranks <= tatt.CLUSTER_MAX_RANKS
     assert slice_keys % 16 == 0 and slice_keys <= tatt.CROSS_MAX_SLICE
     assert ranks * slice_keys >= tpad > (ranks - 1) * slice_keys   # no rank wholly past Tpad
     chunks = -(-tq // rows)                           # chunks of at most 8 rows,
@@ -258,6 +258,104 @@ def test_lanes_reference_matches_jax(valid_len):
     got_bf16 = tatt.self_attention_int8_lanes_reference(
         *_to_torch_bf16(qb, kp, ksb, vp, vsb, lane_map), valid_len)
     np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
+
+
+def lanes_mirror(q, kp, ks, vp, vs, lane_map, valid_len, ranks):
+    """self_attention_int8_lanes's cluster arithmetic in its order, in
+    torch: positions [0, valid_len) split over `ranks` slices; in each,
+    the owned (lane, t) pairs, lane-major, with their owner masks; each
+    pair scored once for all its owners (f32, × ks·d^-1/2·log2 e, −inf for
+    the beams that do not own it); each rank's per-beam max m_r and sum of
+    exp2 against it; the global M and Σ = Σ_r sum_r · exp2(m_r − M) in
+    rank order; weights bf16(exp2(s − M) · (1/Σ) · vs) against the
+    global M; f32 partials of P·V summed in rank order."""
+    b, h, k, dh = q.shape
+    kt = kp.shape[-1]
+    t_len = kt // k
+    width = -(-valid_len // ranks)
+    scale = dh ** -0.5 * tatt.LOG2E
+    lanes = torch.arange(k)
+    out = torch.zeros((b, h, k, dh))
+    for bi in range(b):
+        kb = kp[bi].reshape(h, dh, kt).float()
+        vb = vp[bi].reshape(kt, h, dh).float()
+        parts = []
+        for lo in range(0, valid_len, width):
+            hi = min(lo + width, valid_len)
+            lm = lane_map[bi, :, lo:hi].long()                      # (K beams, nt)
+            owners = lm[None] == lanes[:, None, None]               # (K lanes, K beams, nt)
+            l_idx, t_idx = owners.any(1).nonzero(as_tuple=True)     # lane-major pairs
+            cols = l_idx * t_len + lo + t_idx
+            own = owners[l_idx, :, t_idx].T                          # (K beams, P)
+            s = torch.einsum("hkd,hdp->hkp", q[bi].float(), kb[:, :, cols])
+            s = (s * (ks[bi][:, cols].float() * scale)[:, None]).masked_fill(~own, -torch.inf)
+            m_r = s.amax(-1, keepdim=True)
+            parts.append((cols, s, m_r, torch.exp2(s - m_r).sum(-1, keepdim=True)))
+        m = parts[0][2]
+        for *_, m_r, _ in parts[1:]:
+            m = torch.maximum(m, m_r)
+        total = parts[0][3] * torch.exp2(parts[0][2] - m)
+        for *_, m_r, sum_r in parts[1:]:
+            total = total + sum_r * torch.exp2(m_r - m)
+        inv = 1.0 / total
+        for cols, s, _, _ in parts:
+            w = (torch.exp2(s - m) * inv * vs[bi][:, cols].float()[:, None]).to(q.dtype)
+            out[bi] += torch.einsum("hkp,phd->hkd", w.float(), vb[cols])
+    return out.to(q.dtype)
+
+
+# (lanes plan) valid_len on the smoke run's paths (the prompt 3, mid-decode
+# 115, the last step 227, K = 8's 448) and the split's edges
+@pytest.mark.parametrize("valid_len", [1, 3, 31, 32, 33, 115, 227, 448, 1000, 1024])
+def test_lanes_plan_covers_valid_len(valid_len):
+    ranks, slice_t = tatt.lanes_plan(valid_len)
+    assert 1 <= ranks <= tatt.CLUSTER_MAX_RANKS
+    assert ranks * slice_t >= valid_len > (ranks - 1) * slice_t   # no rank wholly past it
+    assert slice_t <= tatt.LANES_MAX_T // tatt.CLUSTER_MAX_RANKS     # fits shared memory
+    if valid_len <= tatt.LANES_T_PER_RANK:
+        assert ranks == 1
+    assert {115: (4, 29), 227: (8, 29)}.get(valid_len, (ranks, slice_t)) == (ranks, slice_t)
+
+
+def _lane_map_kind(kind, lane_map):
+    """The random lane_map of _lane_inputs, every lane owned (beam k reads
+    lane k), or fully coalesced (every beam reads one lane per t)."""
+    b, k, t = lane_map.shape
+    if kind == "all lanes owned":
+        return np.broadcast_to(np.arange(k, dtype=np.int32)[None, :, None], (b, k, t)).copy()
+    if kind == "coalesced":
+        return np.broadcast_to(lane_map[:, :1], (b, k, t)).copy()
+    return lane_map
+
+
+LANE_MIRROR_CASES = [(k, t, valid, "random") for k in (1, 4, 8) for t in (16, 17)
+                     for valid in (1, 11, t)] + [(4, 17, 17, "all lanes owned"),
+                                                 (4, 17, 17, "coalesced")]
+
+
+@pytest.mark.parametrize("k,t,valid_len,kind", LANE_MIRROR_CASES)
+def test_lanes_cluster_order_matches_jax(k, t, valid_len, kind):
+    """The lanes cluster's order of operations (at its plan and split over
+    2 and 3 ranks) against the JAX package: the XLA twin at f32 within
+    1e-5, and the Pallas kernel in interpret mode on bf16 inputs within
+    test_lanes_reference_matches_jax's 2e-2. K·T is odd at T = 17 and
+    K = 1."""
+    q, kp, kps, vp, vps, lane_map = _lane_inputs(k=k, t=t)
+    lane_map = _lane_map_kind(kind, lane_map)
+    xla = np.asarray(jatt.self_attention_int8_lanes_xla(
+        q, kp, kps, vp, vps, lane_map, valid_len))
+    qb, ksb, vsb = _bf16(q), _bf16(kps), _bf16(vps)
+    pallas = np.asarray(jatt.self_attention_int8_lanes(
+        jnp.asarray(qb, jnp.bfloat16), kp, jnp.asarray(ksb, jnp.bfloat16), vp,
+        jnp.asarray(vsb, jnp.bfloat16), lane_map, valid_len, interpret=True), np.float32)
+    for ranks in sorted({tatt.lanes_plan(valid_len)[0], min(2, valid_len), min(3, valid_len)}):
+        got = lanes_mirror(*map(torch.from_numpy, (q, kp, kps, vp, vps, lane_map)),
+                           valid_len, ranks)
+        np.testing.assert_allclose(got.numpy(), xla, atol=1e-5, rtol=1e-5)
+        got_bf16 = lanes_mirror(*_to_torch_bf16(qb, kp, ksb, vp, vsb, lane_map),
+                                valid_len, ranks)
+        assert got_bf16.dtype == torch.bfloat16
+        np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
 
 
 def test_self_int8_xla_prefill_matches_jax():
@@ -436,4 +534,41 @@ def test_cuda_cross_cluster_matches_plain_version(cuda_device, tq, t, seq_len):
     out = tatt.cross_attention_int8(*args, seq_len=seq_len).float()
     ref = tatt.cross_attention_int8_reference(*args, seq_len=seq_len).float()
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    assert (out - ref).norm() <= 5e-3 * ref.norm()
+
+
+def _ancestry(gen, b, k, t, dev, prompt=3):
+    """lane_map (B, K, T) of a beam search from a `prompt`-token prompt in
+    lane 0: at each step every beam continues a random beam and writes
+    its own lane (chip_smoke.py's random_ancestry)."""
+    lane_map = torch.zeros((b, k, t), dtype=torch.int32, device=dev)
+    own = torch.arange(k, dtype=torch.int32, device=dev).expand(b, k)
+    for pos in range(prompt, t):
+        src = torch.randint(0, k, (b, k), generator=gen, device=dev)
+        lane_map = lane_map.gather(1, src[:, :, None].expand(b, k, t))
+        lane_map[:, :, pos] = own
+    return lane_map
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t", [(5, 227), (8, 448)])
+@pytest.mark.parametrize("valid_len", [1, 3, 115, None])
+def test_cuda_lanes_cluster_matches_plain_version(cuda_device, k, t, valid_len):
+    """self_attention_int8_lanes on its cluster (valid_len 115: 4 ranks;
+    T: 8) over a beam ancestry, K·T odd at T = 227, K = 8 at T = 448;
+    valid_len 1 and 3 (the prompt: lane 0 alone) on one rank."""
+    valid_len = t if valid_len is None else valid_len
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    b, h = 2, 4
+    kq, ks = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+                                               device=cuda_device), h)
+    vq, vs = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+                                               device=cuda_device), h)
+    args = (torch.randn(b, h, k, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
+            kq.permute(0, 1, 3, 2).reshape(b, h * 64, k * t).contiguous(), ks,
+            vq.permute(0, 2, 1, 3).reshape(b, k * t, h * 64).contiguous(), vs,
+            _ancestry(gen, b, k, t, cuda_device))
+    out = tatt.self_attention_int8_lanes(*args, valid_len).float()
+    ref = tatt.self_attention_int8_lanes_reference(*args, valid_len).float()
+    assert (out - ref).abs().max().item() <= 2e-2
     assert (out - ref).norm() <= 5e-3 * ref.norm()

@@ -100,6 +100,75 @@ def test_cross_s8_reference_matches_jax(tq_, seq_len, dtype):
         assert rel_l2(unmasked, pallas) > 5e-3
 
 
+def s8_cluster_mirror(q, kq, vq, k_scale, v_scale, seq_len, ranks):
+    """cross_attention_s8's cluster arithmetic in its order, in torch:
+    the query quantized per row (the same on every rank); per-slice s32
+    scores of `ranks` 16-key-aligned slices; each slice's max m_r and sum
+    of exp2 against it (−inf and 0 for a slice wholly past seq_len); the
+    global M and Σ = Σ_r sum_r · exp2(m_r − M) in rank order; each slice's
+    weights w8 = rint(exp2(s − M) · (1/Σ) / ws) at ws = (1/Σ)/127 against
+    the global M; exact s32 partials of w8 · V summed over the ranks."""
+    b, h, tq, dh = q.shape
+    tpad = kq.shape[-1]
+    width = -(-(-(-tpad // ranks)) // 16) * 16
+    qf = (q.float() * (k_scale[:, :, None, None] * dh ** -0.5 * tatt.LOG2E)).to(
+        torch.bfloat16).float()
+    qs = tatt._div(qf.abs().amax(-1, keepdim=True).clamp_min(1e-30), 127.0)
+    q8 = torch.clamp(torch.round(qf / qs), -127, 127).double()
+    vh = vq.reshape(b, tpad, h, dh).double()
+    slices = [(r * width, min((r + 1) * width, seq_len)) for r in range(-(-tpad // width))]
+    scores, maxes, sums = [], [], []
+    for lo, hi in slices:
+        if hi <= lo:                          # a rank wholly past seq_len
+            scores.append(None)
+            maxes.append(torch.full((b, h, tq, 1), -torch.inf))
+            sums.append(torch.zeros((b, h, tq, 1)))
+            continue
+        s = torch.einsum("bhqd,bhdt->bhqt", q8, kq[..., lo:hi].double()).float() * qs
+        scores.append(s)
+        maxes.append(s.amax(-1, keepdim=True))
+        sums.append(torch.exp2(s - maxes[-1]).sum(-1, keepdim=True))
+    m = maxes[0]
+    for mr in maxes[1:]:
+        m = torch.maximum(m, mr)
+    total = sums[0] * torch.exp2(maxes[0] - m)
+    for sr, mr in zip(sums[1:], maxes[1:]):
+        total = total + sr * torch.exp2(mr - m)
+    inv = torch.reciprocal(total)
+    ws = tatt._div(inv.clamp_min(1e-30), 127.0)
+    acc = torch.zeros((b, h, tq, dh), dtype=torch.float64)
+    for (lo, hi), s in zip(slices, scores):
+        if s is not None:
+            w8 = torch.round(torch.exp2(s - m) * inv / ws)
+            acc = acc + torch.einsum("bhqt,bthd->bhqd", w8.double(), vh[:, lo:hi])
+    return (acc.float() * ws * v_scale[:, :, None, None]).to(q.dtype)
+
+
+_S8_JAX = {}
+
+
+@pytest.mark.parametrize("seq_len", [256, 100])
+@pytest.mark.parametrize("ranks", [1, 2, 3, 8])
+@pytest.mark.parametrize("tq_", [1, 5, 35])
+def test_cross_s8_cluster_order_matches_jax(tq_, ranks, seq_len):
+    """The s8 cluster's order of operations at Tpad 256 (at seq_len 100
+    every split has a rank wholly past the keys: from key 128, 192 and
+    128 on) against the JAX Pallas kernel in interpret mode with
+    test_cross_s8_reference_matches_jax's limit, against the plain
+    version, and within 3% mean relative of cross_attention_int8's."""
+    q, kq, vq, ks, vs = _cross_inputs(tq_)
+    if (tq_, seq_len) not in _S8_JAX:
+        _S8_JAX[(tq_, seq_len)] = np.asarray(jatt.cross_attention_s8(
+            jnp.asarray(q), kq, vq, ks, vs, seq_len=seq_len, interpret=True), np.float32)
+    args = (torch.from_numpy(q), *map(torch.from_numpy, (kq, vq, ks, vs)))
+    got = s8_cluster_mirror(*args, seq_len, ranks)
+    assert got.shape == (2, 4, tq_, 64)
+    assert rel_l2(_np(got), _S8_JAX[(tq_, seq_len)]) <= 2e-3
+    assert rel_l2(_np(got), _np(tatt.cross_attention_s8_reference(*args, seq_len=seq_len))) <= 2e-3
+    ref = _np(tatt.cross_attention_int8_reference(*args, seq_len=seq_len))
+    assert np.abs(_np(got) - ref).mean() / np.abs(ref).mean() < 0.03
+
+
 # ---------------------------------------------------------------------------
 # The s8 route of Whisper decoding
 
@@ -383,3 +452,37 @@ def test_cuda_s8_kernels_match_plain_versions(cuda_device, m, k, n):
     got = tatt.cross_attention_s8(*args, seq_len=1500).float()
     ref = tatt.cross_attention_s8_reference(*args, seq_len=1500).float()
     assert (got - ref).norm() <= 5e-3 * ref.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq_", [1, 4, 5, 35])
+@pytest.mark.parametrize("t,seq_len", [(1500, 1500), (1500, 100), (300, 300), (200, 100)])
+def test_cuda_cross_s8_cluster_matches_plain_version(cuda_device, tq_, t, seq_len):
+    """cross_attention_s8 on its cluster of C > 1 ranks (Tpad 1536: 8;
+    384: 3; 256: 2), query rows in chunks (Tq 35: five chunks of 7), and
+    slices wholly past seq_len (100)."""
+    gen = torch.Generator(cuda_device).manual_seed(tq_)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    kv = tatt.quantize_cross_kv_int8(randn(1, 2, 4, t, 64), randn(1, 2, 4, t, 64))
+    args = (randn(2, 4, tq_, 64).to(torch.bfloat16), kv["k_q"][0], kv["v_q"][0],
+            kv["k_scale"][0], kv["v_scale"][0])
+    assert tatt.cross_int8_plan(tq_, kv["k_q"].shape[-1])[0] > 1
+    out = tatt.cross_attention_s8(*args, seq_len=seq_len).float()
+    ref = tatt.cross_attention_s8_reference(*args, seq_len=seq_len).float()
+    assert (out - ref).abs().max().item() <= 2e-2
+    assert (out - ref).norm() <= 5e-3 * ref.norm()
+
+
+@pytest.mark.cuda
+def test_cuda_cross_s8_rejects_tpad_not_multiple_of_16(cuda_device):
+    """The cluster plan cuts Tpad in 16-key slices; the wrapper raises, it
+    does not fall back."""
+    q = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16, device=cuda_device)
+    kq = torch.zeros(1, 1, 64, 100, dtype=torch.int8, device=cuda_device)
+    vq = torch.zeros(1, 100, 64, dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(1, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tatt.cross_attention_s8(q, kq, vq, scale, scale, seq_len=100)

@@ -19,8 +19,9 @@
 //
 // Design: one thread-block cluster of C blocks per (b·h), launched with
 // cudaLaunchKernelEx; rank r owns keys [r·S, (r+1)·S). The plan (C ≤ 8,
-// S a multiple of 16, the query chunk) is make_plan below, mirrored by
-// ops/attention.py:cross_int8_plan; at Tpad 1536 it is C = 8, S = 192:
+// S a multiple of 16, the query chunk) is cross_plan in
+// cluster_attention.cuh, mirrored by ops/attention.py:cross_int8_plan
+// and shared with cross_attention_s8.cu; at Tpad 1536 it is C = 8, S = 192:
 // 1280 blocks of 128 threads for B = 8, H = 20.
 //   Loads: before any compute each block reads its first query rows (so
 // that they do not queue behind the slice) and issues its slice's 16-byte
@@ -46,8 +47,8 @@
 // a second barrier rank r sums output dims [64r/C, 64(r+1)/C) over the C
 // ranks in rank order and writes bf16(sum · v_scale).
 //   Bytes become floats through a byte permute into the exponent field
-// of 2^23 and one subtraction (the int→float converter runs at a quarter
-// of the FMA rate). Query rows go in even chunks of at most 8 (one kernel
+// of 2^23 and one subtraction (bytes_to_float). Query rows go in even
+// chunks of at most 8 (one kernel
 // instance per chunk size), so no chunk computes absent rows but the last.
 
 #include <cooperative_groups.h>
@@ -57,6 +58,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "cluster_attention.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -64,66 +67,13 @@ namespace {
 constexpr int D = 64;                 // head dim
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_RANKS = 8;          // the portable cluster size
-constexpr int KEYS_PER_RANK = 128;    // the plan's target slice before rounding
-constexpr int MAX_SLICE = 1024;       // keys a block holds (Tpad ≤ 8192)
 constexpr int QT_W = 8;               // q' columns kept per head dim
 constexpr float SCALE_LOG2 = 0.125f * 1.4426950408889634f;
-constexpr float MAGIC = 8388608.0f + 128.0f;   // 2^23 + the byte's offset
-
-struct Plan {
-    int ranks, slice, rows;
-};
-
-// mirrored by ops/attention.py:cross_int8_plan
-Plan make_plan(int tq, int tpad) {
-    int ranks = (tpad + KEYS_PER_RANK - 1) / KEYS_PER_RANK;
-    ranks = ranks < 1 ? 1 : (ranks > MAX_RANKS ? MAX_RANKS : ranks);
-    const int slice = ((tpad + ranks - 1) / ranks + 15) / 16 * 16;
-    ranks = (tpad + slice - 1) / slice;
-    const int chunks = (tq + 7) / 8;   // query rows in even chunks of at most 8
-    return {ranks, slice, (tq + chunks - 1) / chunks};
-}
 
 // bytes between K rows in shared memory: the slice, padded so that the
 // row stride in words is 8 (mod 16)
 __host__ __device__ __forceinline__ int k_row_bytes(int slice) {
     return slice + 4 * ((24 - (slice / 4) % 16) % 16);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// the four signed bytes of w as exact floats: each byte, offset by 128,
-// is placed under the exponent of 2^23 and the offset subtracted
-__device__ __forceinline__ void bytes_to_float(uint32_t w, float (&f)[4]) {
-    const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-        f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - MAGIC;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
 }
 
 template <int ROWS>
@@ -358,36 +308,18 @@ cross_attention_int8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H, Tq, 
 }
 
 template <int ROWS>
-cudaError_t launch(const Plan& p, const void* q, const void* kq, const void* vq,
+cudaError_t launch(const CrossPlan& p, const void* q, const void* kq, const void* vq,
                    const void* k_scale, const void* v_scale, void* o, int batch,
                    int n_head, int tq, int tpad, int seq_len, cudaStream_t stream) {
     const size_t smem = (size_t)D * (k_row_bytes(p.slice) + p.slice) +
                         sizeof(float) * ((size_t)ROWS * p.slice + D * QT_W + 2 * ROWS +
                                          (size_t)(1 + WARPS) * ROWS * D);
-    auto kernel = cross_attention_int8_kernel<ROWS>;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(batch * n_head * p.ranks);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = p.ranks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(q),
-                              static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq),
-                              static_cast<const float*>(k_scale),
-                              static_cast<const float*>(v_scale),
-                              static_cast<__nv_bfloat16*>(o), n_head, tq, tpad, seq_len,
-                              p.slice);
+    return launch_clusters(cross_attention_int8_kernel<ROWS>, batch * n_head * p.ranks,
+                           THREADS, p.ranks, smem, 0, stream,
+                           static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+                           static_cast<const int8_t*>(vq), static_cast<const float*>(k_scale),
+                           static_cast<const float*>(v_scale), static_cast<__nv_bfloat16*>(o),
+                           n_head, tq, tpad, seq_len, p.slice);
 }
 
 }  // namespace
@@ -401,11 +333,12 @@ extern "C" int tww_cross_attention_int8(const void* q, const void* kq, const voi
                                         const void* k_scale, const void* v_scale,
                                         void* o, int batch, int n_head, int tq,
                                         int tpad, int seq_len, void* stream) {
-    if (tpad % 16 || tpad > MAX_RANKS * MAX_SLICE || seq_len < 1 || seq_len > tpad || tq < 1)
+    if (tpad % 16 || tpad > MAX_RANKS * CROSS_MAX_SLICE || seq_len < 1 || seq_len > tpad ||
+        tq < 1)
         return (int)cudaErrorInvalidValue;
-    const Plan p = make_plan(tq, tpad);
+    const CrossPlan p = cross_plan(tq, tpad);
     const cudaStream_t s = (cudaStream_t)stream;
-    using Launch = cudaError_t (*)(const Plan&, const void*, const void*, const void*,
+    using Launch = cudaError_t (*)(const CrossPlan&, const void*, const void*, const void*,
                                    const void*, const void*, void*, int, int, int, int, int,
                                    cudaStream_t);
     static const Launch by_rows[8] = {launch<1>, launch<2>, launch<3>, launch<4>,

@@ -24,7 +24,8 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIM = 64     # the kernels' head dim (every Whisper size)
-MAX_BEAMS = 8     # self_attention_int8_lanes: one warp per beam in the softmax
+MAX_BEAMS = 8     # self_attention_int8_lanes: 8-bit owner masks of (lane, t) pairs
+CLUSTER_MAX_RANKS = 8   # blocks a cluster holds in the plans below (the portable size)
 LOG2E = math.log2(math.e)
 
 # kernel name → launches since the last reset_launch_counts()
@@ -167,21 +168,21 @@ def cross_attention_int8_reference(q, kq, vq, k_scale, v_scale,
     return (out * v_scale[:, :, None, None]).to(q.dtype)
 
 
-# cross_attention_int8's plan mirrors csrc/cross_attention_int8.cu:make_plan
-CROSS_MAX_RANKS = 8          # the portable thread-block cluster size
+# the plan of both cross-attention kernels mirrors cross_plan in
+# csrc/cluster_attention.cuh
 CROSS_KEYS_PER_RANK = 128    # the slice the plan aims at before rounding
 CROSS_MAX_SLICE = 1024       # keys one block holds in shared memory
 
 
 def cross_int8_plan(tq: int, tpad: int) -> tuple[int, int, int]:
-    """cross_attention_int8's launch plan → (ranks C, slice S, query
-    chunk): one cluster of C ≤ 8 blocks per (b, h), rank r holding keys
-    [r·S, (r+1)·S), S a multiple of 16 with C·S ≥ Tpad and no rank wholly
-    past Tpad; query rows go in even chunks of at most 8. Only Tq and Tpad
-    enter: the (b, h) count only multiplies the clusters, and seq_len
-    only trims each slice's loads and sums (a rank past it still joins
-    its cluster's barriers)."""
-    ranks = min(CROSS_MAX_RANKS, max(1, -(-tpad // CROSS_KEYS_PER_RANK)))
+    """The launch plan of cross_attention_int8 and cross_attention_s8 →
+    (ranks C, slice S, query chunk): one cluster of C ≤ 8 blocks per
+    (b, h), rank r holding keys [r·S, (r+1)·S), S a multiple of 16 with
+    C·S ≥ Tpad and no rank wholly past Tpad; query rows go in even
+    chunks of at most 8. Only Tq and Tpad enter: the (b, h) count only
+    multiplies the clusters, and seq_len only trims each slice's loads
+    and sums (a rank past it still joins its cluster's barriers)."""
+    ranks = min(CLUSTER_MAX_RANKS, max(1, -(-tpad // CROSS_KEYS_PER_RANK)))
     slice_keys = -(-(-(-tpad // ranks)) // 16) * 16
     ranks = -(-tpad // slice_keys)
     chunks = -(-tq // 8)
@@ -200,12 +201,6 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
         return cross_attention_int8_reference(q, kq, vq, k_scale, v_scale, seq_len)
     seq_len = _check_cross("cross_attention_int8", q, kq, vq, k_scale, v_scale, seq_len)
     b, h, tq, _ = q.shape
-    tpad = kq.shape[-1]
-    if (tpad % 16 or tpad > CROSS_MAX_RANKS * CROSS_MAX_SLICE
-            or kq.data_ptr() % 16 or vq.data_ptr() % 16):
-        raise ValueError(f"cross_attention_int8: Tpad={tpad} must be a multiple of 16 "
-                         f"and at most {CROSS_MAX_RANKS * CROSS_MAX_SLICE}, kq and vq "
-                         f"16-byte aligned")
     out = torch.empty_like(q)
     build.launch("cross_attention_int8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
@@ -215,10 +210,12 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
 
 
 def _check_cross(name: str, q, kq, vq, k_scale, v_scale, seq_len: int | None) -> int:
-    """The CUDA cross-attention kernels' checks; returns seq_len."""
+    """The CUDA cross-attention kernels' checks (both launch on
+    `cross_int8_plan`, with 16-byte copies of K and V); returns seq_len."""
     _check_cuda(name, {"q": q, "kq": kq, "vq": vq, "k_scale": k_scale, "v_scale": v_scale},
                 {"q": torch.bfloat16, "kq": torch.int8, "vq": torch.int8,
-                 "k_scale": torch.float32, "v_scale": torch.float32}, align=4)
+                 "k_scale": torch.float32, "v_scale": torch.float32},
+                align={"q": 2, "kq": 16, "vq": 16, "k_scale": 4, "v_scale": 4})
     b, h, tq, dh = q.shape
     tpad = kq.shape[-1]
     seq_len = tpad if seq_len is None else seq_len
@@ -229,9 +226,11 @@ def _check_cross(name: str, q, kq, vq, k_scale, v_scale, seq_len: int | None) ->
             f"{name}: expected q (B, H, Tq, 64), kq (B, H, 64, Tpad), "
             f"vq (B, Tpad, H·64), scales (B, H); got {q.shape}, {kq.shape}, "
             f"{vq.shape}, {k_scale.shape}, {v_scale.shape}")
-    if tpad % 4 or not 1 <= seq_len <= tpad or tq < 1:
-        raise ValueError(f"{name}: Tpad={tpad} (multiple of 4), "
-                         f"seq_len={seq_len}, Tq={tq} out of range")
+    if (tpad % 16 or tpad > CLUSTER_MAX_RANKS * CROSS_MAX_SLICE
+            or not 1 <= seq_len <= tpad or tq < 1):
+        raise ValueError(f"{name}: Tpad={tpad} (a multiple of 16, at most "
+                         f"{CLUSTER_MAX_RANKS * CROSS_MAX_SLICE}), seq_len={seq_len}, "
+                         f"Tq={tq} out of range")
     return seq_len
 
 
@@ -273,7 +272,10 @@ def cross_attention_s8(q, kq, vq, k_scale, v_scale,
     s32; returns (B, H, Tq, 64). The opt-in twin of cross_attention_int8
     (TranscriptionConfig.cross_attention_s8).
 
-    CUDA: csrc/cross_attention_s8.cu, bf16 q. CPU: the plain version."""
+    CUDA: csrc/cross_attention_s8.cu, one thread-block cluster per
+    (b, h) on `cross_int8_plan`, as cross_attention_int8; bf16 q, Tpad a
+    multiple of 16 and at most 8 · CROSS_MAX_SLICE, K/V 16-byte aligned.
+    CPU: the plain version."""
     if q.device.type == "cpu":
         return cross_attention_s8_reference(q, kq, vq, k_scale, v_scale, seq_len)
     seq_len = _check_cross("cross_attention_s8", q, kq, vq, k_scale, v_scale, seq_len)
@@ -383,6 +385,21 @@ def self_attention_int8_lanes_reference(q, kq, ks, vq, vs, lane_map: torch.Tenso
     return torch.einsum("bhkj,bjhd->bhkd", w.float(), vh.float()).to(q.dtype)
 
 
+# self_attention_int8_lanes's plan mirrors csrc/self_attention_int8_lanes.cu:make_plan
+LANES_T_PER_RANK = 32        # positions a rank aims at before rounding
+LANES_MAX_T = 1024           # positions one cluster holds in shared memory
+
+
+def lanes_plan(valid_len: int) -> tuple[int, int]:
+    """self_attention_int8_lanes's launch plan → (ranks C, slice S): one
+    cluster of C ≤ 8 blocks per (b, h), rank r holding positions
+    [r·S, (r+1)·S) of [0, valid_len), C·S ≥ valid_len and no rank wholly
+    past it. Only valid_len enters."""
+    ranks = min(CLUSTER_MAX_RANKS, max(1, -(-valid_len // LANES_T_PER_RANK)))
+    slice_t = -(-valid_len // ranks)
+    return -(-valid_len // slice_t), slice_t
+
+
 def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
                               valid_len: int) -> torch.Tensor:
     """Beam-decode self-attention over the un-reordered lane cache;
@@ -390,15 +407,17 @@ def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
     wrapper's additive (B, K, K·T) bias is not built. `valid_len` is a
     host int.
 
-    CUDA: csrc/self_attention_int8_lanes.cu, bf16 q and scales, int32
-    lane_map, K ≤ 8 beams. CPU: the plain version."""
+    CUDA: csrc/self_attention_int8_lanes.cu, one thread-block cluster
+    per (b, h) as `lanes_plan` says; bf16 q and scales, int32 lane_map,
+    K ≤ 8 beams, T ≤ LANES_MAX_T, the V panel 16-byte aligned. CPU: the
+    plain version."""
     if q.device.type == "cpu":
         return self_attention_int8_lanes_reference(q, kq, ks, vq, vs, lane_map, valid_len)
     _check_cuda("self_attention_int8_lanes",
                 {"q": q, "kq": kq, "ks": ks, "vq": vq, "vs": vs, "lane_map": lane_map},
                 {"q": torch.bfloat16, "kq": torch.int8, "ks": torch.bfloat16,
                  "vq": torch.int8, "vs": torch.bfloat16, "lane_map": torch.int32},
-                align={"q": 2, "kq": 1, "ks": 2, "vq": 4, "vs": 2, "lane_map": 4})
+                align={"q": 2, "kq": 1, "ks": 2, "vq": 16, "vs": 2, "lane_map": 4})
     b, h, k, dh = q.shape
     kt = kq.shape[-1]
     t = kt // k
@@ -409,9 +428,11 @@ def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
             "self_attention_int8_lanes: expected q (B, H, K, 64), kq (B, H·64, K·T), "
             "vq (B, K·T, H·64), ks and vs (B, H, K·T), lane_map (B, K, T); got "
             f"{q.shape}, {kq.shape}, {vq.shape}, {ks.shape}, {vs.shape}, {lane_map.shape}")
-    if not 1 <= k <= MAX_BEAMS or not 1 <= valid_len <= t or b * h < 1:
+    if (not 1 <= k <= MAX_BEAMS or not 1 <= valid_len <= t <= LANES_MAX_T
+            or b * h < 1):
         raise ValueError(f"self_attention_int8_lanes: K={k} (at most {MAX_BEAMS}), "
-                         f"valid_len={valid_len}, T={t}, B·H={b * h} out of range")
+                         f"valid_len={valid_len}, T={t} (at most {LANES_MAX_T}), "
+                         f"B·H={b * h} out of range")
     out = torch.empty_like(q)
     build.launch("self_attention_int8_lanes", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                  vq.data_ptr(), vs.data_ptr(), lane_map.data_ptr(), out.data_ptr(),
