@@ -111,6 +111,14 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 builds the kernels and runs only phase 7's prefill profile (no result
 line): copied into an older tree of the port, it measures that tree's
 prefill the same way.
+
+    python3 chip_smoke.py --before TREE
+
+times the kernels whose earlier design BEFORE_MS holds shape by shape
+(int8_matmul, s8_matmul) built from TREE, an unpacked earlier commit
+(`git archive <rev> | tar -x -C build/parent`), against this checkout's,
+in turns at each shape (no result line): the source of those "before"
+times.
 """
 
 from __future__ import annotations
@@ -146,10 +154,20 @@ BACK_TO_BACK = 20          # launches in a row for the back-to-back time
 L2_BYTES = 50e6            # H100 L2: the back-to-back inputs exceed it
 # the redesigned kernels' single-launch times in their earlier design
 # (PERF.md's kernel table, "Before"; NVIDIA H100 80GB HBM3, 700.00 W),
-# printed beside this run's
+# printed beside this run's: one time, or one a shape (M, K, N) where the
+# kernel is timed at several (a shape not listed: not measured)
 BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
              "cross_attention_int8": 0.0560, "int4_matmul": 0.8286,
-             "cross_attention_s8": 0.0448, "self_attention_int8_lanes": 0.0548}
+             "cross_attention_s8": 0.0448, "self_attention_int8_lanes": 0.0548,
+             # (512, 4096, 128256) and (1, 3072, 8192) from the table; the
+             # rest the earlier sources timed by `chip_smoke.py --before`
+             "int8_matmul": {(512, 4096, 128256): 7.6014, (1748, 4096, 128256): 23.1491,
+                             (1, 4096, 128256): 0.9393, (1, 3072, 8192): 0.2119,
+                             (1, 3072, 3072): 0.2052, (1, 3072, 1024): 0.2008,
+                             (1, 8192, 3072): 0.5362, (1, 3072, 128256): 0.7040},
+             "s8_matmul": {(1, 3072, 8192): 0.0270, (1, 3072, 3072): 0.0164,
+                           (1, 3072, 1024): 0.0155, (1, 8192, 3072): 0.0360,
+                           (1, 3072, 128256): 0.1811}}
 # cross_attention_s8's mean relative distance from cross_attention_int8
 # in its earlier design (same check, same card), printed beside this run's
 S8_VS_INT8_BEFORE = "2.72-2.73e-2"
@@ -171,10 +189,13 @@ LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
 # phase 7's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
 # prefill rows or the decode step's M = 1 (and the route's largest, 8),
 # then one small ragged shape; the first is the kernels line's row.
+# int8_matmul also runs the head at the longest prompt's rows and at the
+# decode step's M = 1 (its GEMV regime, the m <= 8 route on the card).
 # int4_matmul also runs the gate/up shape at the longest prompt's rows,
 # and the ragged shape again at G = 16 (a fourth entry: the group size)
 QUANT_SHAPES = {
-    "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
+    "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_LONG_PROMPT, 4096, 128256),
+                    (1, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
     "int4_matmul": ((LLM_PROMPT, 4096, 14336), (LLM_LONG_PROMPT, 4096, 14336),
                     (LLM_PROMPT, 14336, 4096), (LLM_PROMPT, 4096, 4096),
                     (LLM_PROMPT, 4096, 1024), (3, 256, 1000), (3, 256, 1000, 16)),
@@ -197,13 +218,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
-    """Median ms of RUNS calls after 3 warm-up calls; the L2 cache is
+def time_ms(fn, flush: torch.Tensor, runs: int = RUNS) -> float:
+    """Median ms of `runs` calls after 3 warm-up calls; the L2 cache is
     flushed (a 256 MB write) before each timed call."""
     for _ in range(3):
         fn()
     events = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -249,9 +270,11 @@ def input_copies(args: tuple, n_bytes: int) -> list:
 
 
 def print_redesigned(name: str, label: str, single: float, b2b: float, copies: list,
-                     card: str) -> None:
+                     card: str, shape: tuple | None = None) -> None:
+    before = BEFORE_MS[name] if shape is None else BEFORE_MS[name].get(shape)
+    was = "not measured" if before is None else f"{before:.4f} ms"
     total = sum(nbytes(*args) for args in copies)
-    print(f"{label}: single launch {single:.4f} ms (before the redesign: {BEFORE_MS[name]:.4f} ms), "
+    print(f"{label}: single launch {single:.4f} ms (before the redesign: {was}), "
           f"back-to-back {b2b:.4f} ms per launch ({BACK_TO_BACK} in a row over "
           f"{len(copies)} copies, {total / 1e6:.0f} MB) [{card}]")
 
@@ -700,15 +723,20 @@ def wrong_nibbles(tq, w_q4: torch.Tensor) -> dict:
 def library_int8(x, w_q, scale, flush):
     """torch._weight_int8pack_mm (x @ (int8 W · per-column scale), W as
     (N, K)) where this torch has a CUDA kernel for it: (ms, None), else
-    (None, the reason)."""
+    (None, the reason). A call slower than 100 ms (M = 512 takes about
+    0.6 s) is timed over 3 runs instead of RUNS."""
     try:
         w_nk = w_q.t().contiguous()
         s = scale.to(x.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         torch._weight_int8pack_mm(x, w_nk, s)
         torch.cuda.synchronize()
+        first = time.perf_counter() - t0
     except (RuntimeError, NotImplementedError, AttributeError) as e:
         return None, f"torch._weight_int8pack_mm: {str(e).splitlines()[0][:120]}"
-    ms = time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s), flush)
+    ms = time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s), flush,
+                 runs=3 if first > 0.1 else RUNS)
     del w_nk
     return ms, None
 
@@ -729,30 +757,45 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
         w = randn(k, n) * k ** -0.5
         return tq.quantize_int8(w) if bits == 8 else tq.quantize_int4(w)
 
-    # int8_matmul: the lm_head prefill, the body at quantize_bits=8, ragged
+    # int8_matmul: the lm_head at the prefill (512 and 1748 rows, the wgmma
+    # ring) and at a decode step (M = 1, the GEMV), the body at
+    # quantize_bits=8, ragged
     rows, errs, notes = {}, {}, {}
     for m, k, n in QUANT_SHAPES["int8_matmul"]:
         x = randn(m, k).to(torch.bfloat16)
         q = weight(k, n, 8)
         wq, sc = q["w_q"], q["scale"]
+        label = f"int8_matmul M={m} K={k} N={n}"
         out = tq.int8_matmul(x, wq, sc)
         torch.cuda.synchronize()
         ref = tq.int8_matmul_reference(x, wq, sc)
         errs[(m, k, n)] = compare(
-            f"int8_matmul M={m} K={k} N={n}", out, ref,
+            f"{label} (plan {tq.int8_plan(m, k, n)})", out, ref,
             {"right column's scale": tq.int8_matmul_reference(x, wq, sc.roll(1))},
             relative_max=True)
         del ref
-        row = timed(f"int8_matmul M={m} K={k} N={n}", lambda: tq.int8_matmul(x, wq, sc),
+        row = timed(label, lambda: tq.int8_matmul(x, wq, sc),
                     lambda: tq.int8_matmul_reference(x, wq, sc),
                     nbytes(x, wq, sc, out), 2 * m * k * n, flush)
+        if (m, k, n) in BEFORE_MS["int8_matmul"]:
+            copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
+            print_redesigned("int8_matmul", label, row["ms"],
+                             back_to_back_ms(tq.int8_matmul, copies, flush), copies, card,
+                             (m, k, n))
+            del copies
         lib, why = library_int8(x, wq, sc, flush)
         row["library_ms"], notes[(m, k, n)] = lib, why
         w_deq = (wq.to(torch.bfloat16) * sc.to(torch.bfloat16))
-        print(f"int8_matmul M={m} K={k} N={n}: library "
+        print(f"{label}: library "
               f"{'%.4f ms' % lib if lib is not None else 'none (' + why + ')'}; cuBLAS bf16 "
               f"on the pre-dequantized weight (context only) "
               f"{time_ms(lambda: x @ w_deq, flush):.4f} ms")
+        if m <= 8:
+            # the m <= 8 route the CPU keeps: the dequant matmul, which
+            # writes and reads a bf16 copy of W every call
+            print(f"{label}: the dequant route (_int8_matmul_xla) "
+                  f"{time_ms(lambda: tq._int8_matmul_xla(x, wq, sc), flush):.4f} ms, the kernel "
+                  f"{row['ms']:.4f} ms [{card}]")
         rows[(m, k, n)] = row
         del x, q, wq, sc, out, w_deq
     first = QUANT_SHAPES["int8_matmul"][0]
@@ -866,7 +909,8 @@ def layer_errors(got: list, ref: list) -> str:
 def check_llm_model(tq, lm, params, dims, dev) -> None:
     """The full-width model with its kernels against the same model with
     the plain versions: the prefill of a LLM_PROMPT-token prompt
-    (int4_matmul, int8_matmul) and one decode step (int4_matmul_s8),
+    (int4_matmul, int8_matmul) and one decode step (int4_matmul_s8 and
+    int8_matmul's GEMV regime for the head),
     with the hidden state after each layer held to the plain twin's, and
     beside them the plain twin against itself with its f32 sums in
     another order."""
@@ -917,7 +961,8 @@ def check_llm_model(tq, lm, params, dims, dev) -> None:
           f"err {e_tf32:.3e}; after each layer: {e_tf32_layers}")
     n_proj = 7 * dims.n_layer
     assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0}
-    assert launched_step == {"int8_matmul": 0, "int4_matmul": 0, "int4_matmul_s8": n_proj}
+    # the decode step's head: int8_matmul's GEMV regime on the card
+    assert launched_step == {"int8_matmul": 1, "int4_matmul": 0, "int4_matmul_s8": n_proj}
     assert e_prefill <= MODEL_TOL and e_step <= MODEL_TOL
 
 
@@ -1130,12 +1175,13 @@ def library_s8(prof, xq, xs, w_q, scale, flush) -> None:
     assert same
 
 
-def check_s8_kernels(tq, prof, dev) -> dict:
+def check_s8_kernels(tq, prof, dev, card: str) -> dict:
     """Phase 8: s8_matmul and s8g4_matmul against their plain versions at
     S8_SHAPES in the profiler's formats (int8 weights with per-column
     scales; grouped int4 with G = 128), with the wrong layout readings
-    shown to matter, timed. The row in the kernels line is the first
-    shape of each kernel."""
+    shown to matter, timed (s8_matmul also back to back, and int8_matmul's
+    GEMV on the same weights at every M = 1 shape). The row in the kernels
+    line is the first shape of each kernel."""
     gen = torch.Generator(dev).manual_seed(5)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     stats = {}
@@ -1156,15 +1202,42 @@ def check_s8_kernels(tq, prof, dev) -> dict:
             dropped["right row's scale"] = prof.s8_matmul_reference(xq, xs.roll(1, 0), wq, sc)
         errs[(m, k, n)] = compare(f"s8_matmul M={m} K={k} N={n}", out, ref, dropped,
                                   relative_max=True)
+        same = torch.equal(out, ref)
+        print(f"  bit-equal to its plain version: {same} (plan {prof.s8_plan(m, k, n)})")
+        assert same
         # the int8 weight and its scales, xq, xs and the bf16 output
-        rows[(m, k, n)] = timed(f"s8_matmul M={m} K={k} N={n}",
-                                lambda: prof.s8_matmul(xq, xs, wq, sc),
+        label = f"s8_matmul M={m} K={k} N={n}"
+        rows[(m, k, n)] = timed(label, lambda: prof.s8_matmul(xq, xs, wq, sc),
                                 lambda: prof.s8_matmul_reference(xq, xs, wq, sc),
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
+        if (m, k, n) in BEFORE_MS["s8_matmul"]:
+            copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
+            print_redesigned("s8_matmul", label, rows[(m, k, n)]["ms"],
+                             back_to_back_ms(prof.s8_matmul, copies, flush), copies, card,
+                             (m, k, n))
+            del copies
         if (m, k, n) == S8_SHAPES[0]:
             xq, xs = prof.quant_act(randn(LIBRARY_M, k))
             library_s8(prof, xq, xs, wq, sc, flush)
+        if m == 1:
+            # int8_matmul's GEMV at the same widths, the profiler's int8 rows
+            x = randn(m, k).to(torch.bfloat16)
+            label = f"int8_matmul M={m} K={k} N={n} (profiler)"
+            got = tq.int8_matmul(x, wq, sc)
+            torch.cuda.synchronize()
+            compare(f"{label} (plan {tq.int8_plan(m, k, n)})", got,
+                    tq.int8_matmul_reference(x, wq, sc),
+                    {"right column's scale": tq.int8_matmul_reference(x, wq, sc.roll(1))},
+                    relative_max=True)
+            single = timed(label, lambda: tq.int8_matmul(x, wq, sc),
+                           lambda: tq.int8_matmul_reference(x, wq, sc),
+                           nbytes(x, wq, sc, got), 2 * m * k * n, flush)["ms"]
+            copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
+            print_redesigned("int8_matmul", label, single,
+                             back_to_back_ms(tq.int8_matmul, copies, flush), copies, card,
+                             (m, k, n))
+            del x, got, copies
         del q, wq, sc, xq, xs, out, ref, dropped
     stats["s8_matmul"] = kernel_row(rows[S8_SHAPES[0]], errs)
     stats["s8_matmul"]["library_note"] = (
@@ -1204,7 +1277,7 @@ def profiler_phase(dev, card: str):
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
 
-    stats = check_s8_kernels(tq, prof, dev)
+    stats = check_s8_kernels(tq, prof, dev, card)
     for name, s in stats.items():
         print(f"{name}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
               f"none ({s.pop('library_note')}), bound {s['bound_ms']:.4f} ms "
@@ -1265,12 +1338,74 @@ def prefill_profile_only() -> int:
     return 0
 
 
+def before_only(tree: str) -> int:
+    """`chip_smoke.py --before TREE`: every kernel that BEFORE_MS times
+    shape by shape, built from the sources of TREE (an earlier commit of
+    the repo, unpacked) beside this checkout's, and timed single launch at
+    each of its shapes in turns (before, this, this, before; each checked
+    against its plain version). Prints the medians; no result line."""
+    from turbo_whisper_workspace_tpu_torch.ops import build
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+    from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
+
+    card = card_line()
+    print(card)
+    print(f"kernels built in {build.build_all():.1f} s")
+    names = [name for name, ms in BEFORE_MS.items() if isinstance(ms, dict)]
+    src = os.path.join(tree, "turbo_whisper_workspace_tpu_torch", "csrc")
+    out = os.path.join(REPO, "build", "torch_cuda", "before")
+    os.makedirs(out, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{name}.so"),
+         os.path.join(src, f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in names}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"nvcc failed on the earlier {name}:\n{log}"
+    libs = {name: {"before": build.load(os.path.join(out, f"lib{name}.so"), name),
+                   "this": build.library(name)} for name in names}
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def inputs(name, m, k, n):
+        """(the kernel's call, a check of its output)"""
+        q = tq.quantize_int8(torch.randn(k, n, generator=gen, device=dev) * k ** -0.5)
+        wq, sc = q["w_q"], q["scale"]
+        if name == "int8_matmul":
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            ref = tq.int8_matmul_reference(x, wq, sc)
+            return (lambda: tq.int8_matmul(x, wq, sc),
+                    lambda got: rel_err(got, ref) <= KERNEL_REL_TOL)
+        xq, xs = prof.quant_act(torch.randn(m, k, generator=gen, device=dev))
+        ref = prof.s8_matmul_reference(xq, xs, wq, sc)
+        return lambda: prof.s8_matmul(xq, xs, wq, sc), lambda got: torch.equal(got, ref)
+
+    for name in names:
+        for m, k, n in BEFORE_MS[name]:
+            call, check = inputs(name, m, k, n)
+            times = {"before": [], "this": []}
+            for tree_name in ("before", "this", "this", "before"):
+                build._LIBS[name] = libs[name][tree_name]
+                assert check(call()), (name, tree_name, (m, k, n))
+                times[tree_name].append(time_ms(call, flush))
+            build._LIBS[name] = libs[name]["this"]
+            print(f"{name} M={m} K={k} N={n}: single launch, the earlier tree "
+                  f"{statistics.median(times['before']):.4f} ms, this tree "
+                  f"{statistics.median(times['this']):.4f} ms [{card}]")
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    if "--prefill-profile" in (sys.argv[1:] if argv is None else argv):
+    args = sys.argv[1:] if argv is None else argv
+    if "--prefill-profile" in args:
         return prefill_profile_only()
+    if "--before" in args:
+        return before_only(args[args.index("--before") + 1])
     from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
     from turbo_whisper_workspace_tpu_torch.config import PipelineConfig, TranscriptionConfig
     from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod

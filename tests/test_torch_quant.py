@@ -400,3 +400,139 @@ def test_cuda_int4_matmul_matches_plain_version(cuda_device, m, k, n, group):
     assert (got - ref).norm() <= 5e-3 * ref.norm()
     if (m, k, n) == (512, 4096, 1024):
         assert tq.int4_plan(m, k, n) == 4
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul's plan and its split-K folds (csrc/int8_matmul.cu)
+
+
+@pytest.mark.parametrize("m,k,n,regime", [
+    (1, 4096, 128256, "gemv"),       # the 8B head at a decode step
+    (1, 3072, 1024, "gemv"),         # llama-3.2-3b's k/v projection: 8 column tiles
+    (8, 4096, 14336, "gemv"),        # the m ≤ 8 route's largest M
+    (9, 4096, 14336, "wgmma"),
+    (512, 4096, 128256, "wgmma"),    # the prefill head
+    (1748, 4096, 128256, "wgmma"),   # the longest stage prompt's
+    (3, 256, 1000, "gemv"), (70, 512, 264, "wgmma"), (1, 8, 4, "gemv")])   # ragged
+def test_int8_plan_regimes_and_splits(m, k, n, regime):
+    """The regime follows M; a split covers K's steps (or chunks) exactly
+    once, rank by rank in order; the GEMV splits only while the column
+    tiles leave the card short of blocks and every warp keeps a step;
+    the ring splits as int4_matmul's does."""
+    got, split = tq.int8_plan(m, k, n)
+    assert got == regime
+    if regime == "gemv":
+        steps = -(-k // tq.INT8_GEMV_STEP)
+        tiles = -(-n // tq.GEMV_COLS)
+        assert split in (1, 2, 4, 8)
+        assert tiles * split <= tq.GEMV_BLOCKS or split == 1
+        assert split == 1 or steps >= split * tq.GEMV_WARPS
+    else:
+        steps = -(-k // tq.INT8_CHUNK)
+        assert split == tq._ring_split(m, n, steps) and split in (1, 2, 4)
+    ranges = tq.split_ranges(steps, split)
+    assert [i for r in ranges for i in r] == list(range(steps))
+    assert all(len(r) >= 1 for r in ranges)
+    if (m, k, n) == (1, 3072, 1024):
+        assert split == 8                # 8 tiles × 8 ranks
+    if n == 128256:
+        assert split == 1                # 1002 tiles (2004 at M = 512) fill the card
+
+
+def int8_split_mirror(x, w_q, scale):
+    """int8_matmul's sums in the kernel's order, in torch on the CPU: W
+    rounded to bf16 per element as the kernel dequantizes it; f32
+    partials of each K step (GEMV: 16 rows, a warp taking every 8th step
+    of its rank's slice, the warps folded in order) or chunk (ring: 64
+    rows); each rank's partial folded over the ranks in rank order; one
+    rounding to bf16."""
+    m, k = x.shape
+    regime, split = tq.int8_plan(m, k, w_q.shape[1])
+    w = (w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)).float()
+    xb = x.to(torch.bfloat16).float()
+    rows = tq.INT8_GEMV_STEP if regime == "gemv" else tq.INT8_CHUNK
+    steps = -(-k // rows)
+
+    def part(s):
+        return xb[:, s * rows:(s + 1) * rows] @ w[s * rows:(s + 1) * rows]
+
+    ranks = []
+    for r in tq.split_ranges(steps, split):
+        if regime == "gemv":
+            warps = [sum((part(s) for s in r[wi::tq.GEMV_WARPS]), torch.zeros(m, w.shape[1]))
+                     for wi in range(tq.GEMV_WARPS)]
+            ranks.append(sum(warps[1:], warps[0]))
+        else:
+            ranks.append(sum((part(s) for s in r), torch.zeros(m, w.shape[1])))
+    return sum(ranks[1:], ranks[0]).to(torch.bfloat16), split
+
+
+@pytest.mark.parametrize("m,k,n,split", [
+    (1, 2048, 256, 8), (3, 512, 200, 4), (8, 1024, 1000, 8),      # the GEMV
+    (1, 264, 100, 2), (70, 512, 264, 4), (12, 256, 200, 4)])     # ragged K; the ring
+def test_int8_split_fold_matches_reference_and_jax(m, k, n, split):
+    """The split-K fold of both regimes against int8_matmul_reference
+    and the JAX Pallas kernel in interpret mode, on the same bf16 inputs
+    (bf16 outputs: relative L2 within 5e-3, max abs within 2e-2 ×
+    max|ref|, chip_smoke.py's limits)."""
+    x, q = _inputs(m, k, n, 8, dtype="bfloat16")
+    xj, xt = _x_pair(x, "bfloat16")
+    wq, s = torch.from_numpy(q["w_q"]), torch.from_numpy(q["scale"])
+    got, got_split = int8_split_mirror(xt, wq, s)
+    assert got_split == split
+    ref = tq.int8_matmul_reference(xt, wq, s).float().numpy()
+    pallas = np.asarray(jq.int8_matmul(xj, q["w_q"], q["scale"], block_n=128, interpret=True),
+                        np.float32)
+    for other in (ref, pallas):
+        assert rel_l2(got.float().numpy(), other) <= 5e-3
+        assert np.abs(got.float().numpy() - other).max() <= 2e-2 * np.abs(other).max()
+    # a wrong column's scale reads above the limit
+    wrong = tq.int8_matmul_reference(xt, wq, s.roll(1)).float().numpy()
+    assert rel_l2(wrong, ref) > 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 17, 64, 512])
+@pytest.mark.parametrize("k,n", [(1000, 4104), (3072, 1024), (264, 1000)])
+def test_cuda_int8_matmul_both_regimes_match_plain_version(cuda_device, m, k, n):
+    """int8_matmul's GEMV (M ≤ 8) and wgmma ring (M > 8) regimes: ragged
+    K (not a multiple of 16 or 64) and N (4-byte loads at N % 16 != 0),
+    K split over a cluster ((3072, 1024): 8 ranks at M ≤ 8, 4 at M ≤
+    256), the same bytes from run to run, and a wrong column's scale
+    read above the limit."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = tq.quantize_int8(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5)
+    got = tq.int8_matmul(x, q["w_q"], q["scale"])
+    assert torch.equal(got, tq.int8_matmul(x, q["w_q"], q["scale"]))
+    got = got.float()
+    ref = tq.int8_matmul_reference(x, q["w_q"], q["scale"]).float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert (got - ref).norm() <= 5e-3 * ref.norm()
+    wrong = tq.int8_matmul_reference(x, q["w_q"], q["scale"].roll(1)).float()
+    assert (wrong - ref).norm() > 5e-3 * ref.norm()
+    if (k, n) == (3072, 1024):
+        assert tq.int8_plan(m, k, n)[1] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(1,), (2, 4), (3, 3)])   # m = 1, 8, 9
+def test_cuda_matmul_any_int8_routes_to_the_kernel(cuda_device, rows, monkeypatch):
+    """On the card every int8 projection goes to int8_matmul (the GEMV
+    regime at m ≤ 8, in place of the dequant matmul the CPU route keeps),
+    within the kernel limits of the dequant route's result."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    x = torch.randn(*rows, 4096, generator=gen, device=cuda_device).to(torch.bfloat16)
+    wp = tq.quantize_int8(torch.randn(4096, 1000, generator=gen, device=cuda_device) * 0.02)
+    calls = []
+    for name in ("int8_matmul", "_int8_matmul_xla"):
+        fn = getattr(tq, name)
+        monkeypatch.setattr(tq, name, lambda *a, _fn=fn, _name=name:
+                            calls.append(_name) or _fn(*a))
+    got = tq.matmul_any(x, wp).float()
+    assert calls == ["int8_matmul"] and got.shape == rows + (1000,)
+    ref = tq._int8_matmul_xla(x.reshape(-1, 4096), wp["w_q"], wp["scale"]).float()
+    ref = ref.reshape(got.shape)
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert (got - ref).norm() <= 5e-3 * ref.norm()

@@ -374,6 +374,74 @@ def test_s8g4_matmul_reference_matches_jax(jprof, m, k, n):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("m,k,n,regime", [
+    (1, 3072, 8192, "gemv"), (1, 3072, 1024, "gemv"), (1, 3072, 128256, "gemv"),
+    (1, 8192, 3072, "gemv"), (8, 3072, 8192, "gemv"), (16, 3072, 8192, "gemv"),
+    (17, 3072, 8192, "mma"), (32, 3072, 8192, "mma"), (3, 256, 1000, "gemv"),
+    (1, 4, 4, "gemv")])
+def test_s8_plan_regimes_and_splits(m, k, n, regime):
+    """s8_matmul's plan: the GEMV at M ≤ 16 (the profiler's M = 1), its
+    K split covering the K steps exactly once and only where the column
+    tiles leave the card short of blocks; the 16-row mma tiles above."""
+    got, split = tprof.s8_plan(m, k, n)
+    assert got == regime
+    steps = -(-k // tprof.S8_GEMV_STEP)
+    if regime == "mma":
+        assert split == 1
+        return
+    assert split == tq.gemv_split(steps, n) and split in (1, 2, 4, 8)
+    ranges = tq.split_ranges(steps, split)
+    assert [i for r in ranges for i in r] == list(range(steps))
+    assert split == 1 or min(len(r) for r in ranges) >= tq.GEMV_WARPS
+    if n == 128256:
+        assert split == 1
+    if (k, n) == (3072, 1024):
+        assert split == 8
+
+
+def s8_split_mirror(xq, xs, w_q, scale):
+    """s8_matmul's GEMV sums in the kernel's order: exact s32 partials
+    of each K step of 32 rows, a warp taking every 8th step of its rank's
+    slice, the warps then the ranks folded in order, then × xs and × ws
+    in f32 and one rounding to bf16."""
+    m, k = xq.shape
+    _, split = tprof.s8_plan(m, k, w_q.shape[1])
+    rows = tprof.S8_GEMV_STEP
+    x, w = xq.long(), w_q.long()
+
+    def part(s):
+        return x[:, s * rows:(s + 1) * rows] @ w[s * rows:(s + 1) * rows]
+
+    total = torch.zeros(m, w.shape[1], dtype=torch.long)
+    for r in tq.split_ranges(-(-k // rows), split):
+        for wi in range(tq.GEMV_WARPS):
+            for s in r[wi::tq.GEMV_WARPS]:
+                total += part(s)
+    assert total.abs().max() < 2 ** 31          # the kernel's s32 sums do not wrap
+    acc = total.to(torch.int32).float()
+    return (acc * xs * scale).to(torch.bfloat16), split
+
+
+@pytest.mark.parametrize("m,k,n,split", [(1, 2048, 256, 8), (3, 1000, 200, 4),
+                                         (16, 512, 1000, 2), (8, 512, 200, 2)])
+def test_s8_split_fold_bit_equal_to_reference_and_jax(jprof, m, k, n, split):
+    """The s32 fold over the plan's K slices is exact in any order: the
+    mirror is bit-equal to s8_matmul_reference and to the JAX script's
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(20 + m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    scale = rng.uniform(0.005, 0.02, n).astype(np.float32)
+    xq, xs = tprof.quant_act(torch.from_numpy(x))
+    got, got_split = s8_split_mirror(xq, xs, torch.from_numpy(w_q), torch.from_numpy(scale))
+    assert got_split == split
+    ref = tprof.s8_matmul_reference(xq, xs, torch.from_numpy(w_q), torch.from_numpy(scale))
+    assert torch.equal(got, ref)
+    pallas = np.asarray(jprof.s8_matmul(jnp.asarray(xq.numpy()), jnp.asarray(xs.numpy()),
+                                        w_q, scale), np.float32)
+    np.testing.assert_array_equal(_np(got), pallas)
+
+
 def test_s8_wrappers_run_plain_versions_on_cpu():
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
@@ -452,6 +520,23 @@ def test_cuda_s8_kernels_match_plain_versions(cuda_device, m, k, n):
     got = tatt.cross_attention_s8(*args, seq_len=1500).float()
     ref = tatt.cross_attention_s8_reference(*args, seq_len=1500).float()
     assert (got - ref).norm() <= 5e-3 * ref.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 64, 512])
+@pytest.mark.parametrize("k,n", [(1000, 4104), (3072, 1024), (260, 1000)])
+def test_cuda_s8_matmul_both_regimes_bit_equal(cuda_device, m, k, n):
+    """s8_matmul's GEMV (M ≤ 16: one or two n8 tiles of x) and mma tiles
+    (M > 16), bit-equal to the plain version: ragged K (not a multiple of
+    32) and N (4-byte loads at N % 16 != 0), K split over a cluster
+    ((3072, 1024): 8 ranks)."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    q = tq.quantize_int8(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5)
+    xq, xs = tprof.quant_act(torch.randn(m, k, generator=gen, device=cuda_device))
+    got = tprof.s8_matmul(xq, xs, q["w_q"], q["scale"])
+    assert torch.equal(got, tprof.s8_matmul_reference(xq, xs, q["w_q"], q["scale"]))
+    if (k, n) == (3072, 1024) and m <= 16:
+        assert tprof.s8_plan(m, k, n) == ("gemv", 8)
 
 
 @pytest.mark.cuda

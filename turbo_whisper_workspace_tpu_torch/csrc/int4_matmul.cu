@@ -55,137 +55,35 @@
 // without a split), so the output is written by coalesced 8-byte stores;
 // ragged M and N are masked there.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-namespace cg = cooperative_groups;
+#include "wgmma_ring.cuh"
 
 namespace {
 
-constexpr int MT = 2;                    // m64 tiles per consumer warpgroup
-constexpr int BM = 2 * 64 * MT;          // output rows per block (2 consumer warpgroups)
-constexpr int BN = 128;                  // output columns per block
+constexpr int PRODUCERS = 128;
+constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int BKP = 32;                  // packed rows per chunk: a product of depth 64
 constexpr int STAGES = 4;
 // chunks whose copies are in flight ahead of the one being dequantized;
 // the producer may run STAGES − AHEAD − 1 chunks ahead of the consumers
 constexpr int AHEAD = 1;
-constexpr int CONSUMERS = 256;
-constexpr int PRODUCERS = 128;           // registers: a consumer holds 64·MT accumulators
-constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int RPT = BKP * 16 / PRODUCERS;   // packed rows a producer thread dequantizes
-constexpr int A_BYTES = BM * 128;
-constexpr int B_BYTES = 64 * BN * 2;     // 64 rows × BN bf16
 constexpr int W_BYTES = BKP * BN;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES + W_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;   // + 1024-byte alignment
-constexpr int PART_LD = BN + 8;          // f32 partial tile row, padded
-constexpr int SMS = 132;
-constexpr int MAX_SPLIT = 4;
 
 static_assert(STAGES - AHEAD - 1 >= 1, "the producer runs a chunk ahead of the consumers");
 static_assert(BM * PART_LD * 4 <= STAGES * STAGE_BYTES, "the partial tile reuses the ring");
 static_assert(STAGE_BYTES % 1024 == 0, "swizzled tiles are 1024-byte aligned");
-static_assert(SMEM_BYTES + 1024 <= 232448, "the ring fits one block's shared memory");
+static_assert(SMEM_BYTES + 1024 <= MAX_BLOCK_SMEM, "the ring fits one block's shared memory");
 
 // mirrored by ops/quant.py:int4_plan: the K split (cluster size)
 int make_plan(int m, int k, int n) {
-    const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
-    const int chunks = (k / 2 + BKP - 1) / BKP;
-    int split = 1;
-    while (tiles * split < SMS && split < MAX_SPLIT && 2 * split <= chunks) split *= 2;
-    return split;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-                 :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n.reg .pred P1;\nLAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 in bits
-// 62-63. Tiles are 1024-byte aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-           (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define TWW_ACC16(d, o)                                                                    \
-    "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),        \
-        "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]), "+f"(d[o + 8]), "+f"(d[o + 9]),    \
-        "+f"(d[o + 10]), "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), \
-        "+f"(d[o + 15])
-
-// d (64x128 f32) += A (64x16 bf16, K-major in shared memory) ·
-// B (16x128 bf16, MN-major in shared memory: the transpose bit)
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
-        : TWW_ACC16(d, 0), TWW_ACC16(d, 16), TWW_ACC16(d, 32), TWW_ACC16(d, 48)
-        : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
+    return ring_split(m, n, (k / 2 + BKP - 1) / BKP);
 }
 
 // byte j of u (a nibble offset by 8, so 0..15) under the exponent of
@@ -242,14 +140,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     const int n_local = (rank + 1) * chunks / split - c_begin;
     const int tid = threadIdx.x;
 
-    if (tid == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init((uint32_t)__cvta_generic_to_shared(&full_bar[s]), PRODUCERS);
-            mbar_init((uint32_t)__cvta_generic_to_shared(&empty_bar[s]), CONSUMERS);
-        }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
+    ring_init<STAGES>(full_bar, empty_bar, PRODUCERS);
 
     if (tid >= CONSUMERS) {
         // ---- producer threads: copies, then dequantization ----
@@ -358,80 +249,9 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
         }
         cp_async_wait<0>();
     } else {
-        // ---- consumer warpgroups: 64·MT rows each, all BN columns ----
-        const int wg = tid / 128;
-        float acc[MT][64];
-#pragma unroll
-        for (int h = 0; h < MT; ++h)
-#pragma unroll
-            for (int i = 0; i < 64; ++i) acc[h][i] = 0.0f;
-        for (int j = 0; j < n_local; ++j) {
-            const int s = j % STAGES;
-            mbar_wait((uint32_t)__cvta_generic_to_shared(&full_bar[s]), (j / STAGES) & 1);
-            const uint32_t a_s = base + s * STAGE_BYTES + wg * MT * (64 * 128);
-            const uint32_t b_s = base + s * STAGE_BYTES + A_BYTES;
-#pragma unroll
-            for (int h = 0; h < MT; ++h) fence_regs(acc[h]);
-            wgmma_fence();
-            // k16 steps: 32 bytes apart in A's swizzled rows; 16 B rows (2048
-            // bytes) apart in B, whose two 64-column panels lie 8192 bytes apart
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-                for (int h = 0; h < MT; ++h)
-                    wgmma_n128(acc[h], smem_desc(a_s + h * (64 * 128) + 32 * kk, 16, 1024),
-                               smem_desc(b_s + 2048 * kk, 64 * 128, 1024));
-            wgmma_commit();
-            wgmma_wait<1>();                         // chunk j − 1's products are done
-#pragma unroll
-            for (int h = 0; h < MT; ++h) fence_regs(acc[h]);
-            if (j > 0)
-                mbar_arrive((uint32_t)__cvta_generic_to_shared(&empty_bar[(j - 1) % STAGES]));
-        }
-        wgmma_wait<0>();
-#pragma unroll
-        for (int h = 0; h < MT; ++h) fence_regs(acc[h]);
-        // both warpgroups' products are done: the ring is no longer read,
-        // and the f32 tile goes over it
-        asm volatile("bar.sync 2, %0;\n" :: "n"(CONSUMERS) : "memory");
-        const int lane = tid % 32;
-        const int row0 = wg * MT * 64 + 16 * ((tid % 128) / 32) + lane / 4;
-#pragma unroll
-        for (int h = 0; h < MT; ++h)
-#pragma unroll
-            for (int c = 0; c < BN / 8; ++c)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    *reinterpret_cast<float2*>(part + (row0 + 64 * h + 8 * e) * PART_LD + 8 * c +
-                                               2 * (lane % 4)) =
-                        make_float2(acc[h][4 * c + 2 * e], acc[h][4 * c + 2 * e + 1]);
+        ring_consume<STAGES, STAGE_BYTES>(base, full_bar, empty_bar, n_local, part);
     }
-
-    // ---- epilogue: the f32 tile reduced over the cluster ----
-    cluster.sync();
-    const int rows = BM / split;
-    for (int i = tid; i < rows * (BN / 4); i += THREADS) {
-        const int r = rank * rows + i / (BN / 4);
-        const int c = 4 * (i % (BN / 4));
-        if (m0 + r >= m || n0 + c >= n) continue;
-        float4 v[MAX_SPLIT];
-#pragma unroll
-        for (int q = 0; q < MAX_SPLIT; ++q)      // the remote reads in parallel
-            v[q] = q < split ? *reinterpret_cast<const float4*>(
-                                   cluster.map_shared_rank(part + r * PART_LD + c, q))
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        float4 sum = v[0];
-#pragma unroll
-        for (int q = 1; q < MAX_SPLIT; ++q) {
-            sum.x += v[q].x;
-            sum.y += v[q].y;
-            sum.z += v[q].z;
-            sum.w += v[q].w;
-        }
-        *reinterpret_cast<uint2*>(out + (size_t)(m0 + r) * n + n0 + c) =
-            make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
-    }
-    cluster.sync();      // no block leaves while another still reads its shared memory
+    ring_fold_store(part, out, m0, n0, m, n);
 }
 
 }  // namespace
@@ -443,30 +263,13 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
 extern "C" int tww_int4_matmul(const void* x, const void* w, const void* scale, void* out,
                                int m, int k, int n, int n_groups, void* stream) {
     static bool raised = false;      // the shared-memory attribute, once
-    if (!raised) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            int4_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-        if (err != cudaSuccess) return (int)err;
-        raised = true;
-    }
     const int split = make_plan(m, k, n);
     const int wide = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(((m + BM - 1) / BM) * split, (n + BN - 1) / BN);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM_BYTES;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, int4_matmul_kernel, static_cast<const __nv_bfloat16*>(x),
-        static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), m, k, n, k / n_groups, wide);
+    const cudaError_t err = ring_launch(
+        int4_matmul_kernel, raised, THREADS, SMEM_BYTES, m, n, split, (cudaStream_t)stream,
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, k, n,
+        k / n_groups, wide);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

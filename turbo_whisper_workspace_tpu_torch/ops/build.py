@@ -91,6 +91,19 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def load(path: str, name: str) -> ctypes.CDLL:
+    """The library at `path` holding kernel `name`'s C entry points, with
+    their argument and result types set."""
+    lib = ctypes.CDLL(path)
+    entry = getattr(lib, f"tww_{name}")
+    entry.argtypes = SIGNATURES[name]
+    entry.restype = ctypes.c_int
+    err = getattr(lib, f"tww_{name}_error")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
     lib = _LIBS.get(name)
@@ -99,14 +112,7 @@ def library(name: str) -> ctypes.CDLL:
     build_all()
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(os.path.join(_BUILD_DIR, f"lib{name}.so"))
-            entry = getattr(lib, f"tww_{name}")
-            entry.argtypes = SIGNATURES[name]
-            entry.restype = ctypes.c_int
-            err = getattr(lib, f"tww_{name}_error")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            _LIBS[name] = load(os.path.join(_BUILD_DIR, f"lib{name}.so"), name)
         return _LIBS[name]
 
 

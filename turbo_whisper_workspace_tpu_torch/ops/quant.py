@@ -10,7 +10,8 @@ routes a projection by its weight format and its row count.
 
 Three kernels, each with a wrapper and a plain PyTorch version beside it:
 
-* `int8_matmul`    x @ (int8 W · bf16 scale), csrc/int8_matmul.cu;
+* `int8_matmul`    x @ (int8 W · bf16 scale), csrc/int8_matmul.cu (a
+  split-K GEMV at decode rows, wgmma on dequantized tiles above);
 * `int4_matmul`    x @ dequant4(W), csrc/int4_matmul.cu;
 * `int4_matmul_s8` W4A8: int8 activations × int4 weights, exact s32 sums
   per group, csrc/int4_matmul_s8.cu.
@@ -216,13 +217,61 @@ def int4_matmul_s8_reference(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Ten
 # Kernel wrappers
 
 
+# the wgmma ring's tile and K split (csrc/wgmma_ring.cuh), int4_matmul's
+# plan (csrc/int4_matmul.cu:make_plan) and int8_matmul's above its GEMV rows
+INT4_BLOCK = (256, 128)     # output rows × columns a block (or cluster) computes
+INT4_CHUNK = 32             # packed rows a pipeline stage holds
+INT4_SMS = 132              # the H100's SMs: fewer tiles than this split K
+INT4_MAX_SPLIT = 4
+
+
+# int8_matmul's plan mirrors csrc/int8_matmul.cu:make_plan: the split-K
+# GEMV of csrc/gemv_mma.cuh at decode rows, the wgmma ring of
+# csrc/wgmma_ring.cuh (int4_matmul's tile and K split) above
+INT8_GEMV_MAX_M = 8         # rows the GEMV takes: one n8 tile of x
+INT8_GEMV_STEP = 16         # K rows a GEMV step (the mma's depth)
+INT8_CHUNK = 64             # K rows a ring chunk
+GEMV_COLS = 128             # columns a GEMV block owns
+GEMV_WARPS = 8              # warps of a GEMV block, each taking every 8th step
+GEMV_MAX_SPLIT = 8          # the portable cluster size
+GEMV_BLOCKS = 264           # blocks a GEMV split aims for: two an SM on 132
+
+
+def gemv_split(steps: int, n: int) -> int:
+    """The GEMV's K split (csrc/gemv_mma.cuh:gemv_split): the cluster
+    size, doubled (to at most 8) while tiles × split stays within
+    GEMV_BLOCKS and every warp of every rank keeps a step of K."""
+    tiles = -(-n // GEMV_COLS)
+    split = 1
+    while (split < GEMV_MAX_SPLIT and 2 * tiles * split <= GEMV_BLOCKS
+           and 2 * split * GEMV_WARPS <= steps):
+        split *= 2
+    return split
+
+
+def split_ranges(steps: int, split: int) -> list[range]:
+    """The K steps (or chunks) each rank of a split takes: rank r holds
+    [r·steps/split, (r+1)·steps/split), as the kernels cut them."""
+    return [range(r * steps // split, (r + 1) * steps // split) for r in range(split)]
+
+
+def int8_plan(m: int, k: int, n: int) -> tuple[str, int]:
+    """int8_matmul's regime and K split: ("gemv", split) for M ≤
+    INT8_GEMV_MAX_M (split over K steps of INT8_GEMV_STEP rows),
+    ("wgmma", split) above (int4_matmul's split over chunks of
+    INT8_CHUNK rows)."""
+    if m <= INT8_GEMV_MAX_M:
+        return "gemv", gemv_split(-(-k // INT8_GEMV_STEP), n)
+    return "wgmma", _ring_split(m, n, -(-k // INT8_CHUNK))
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ dequant(w_q (K, N) int8, scale (N,) f32) → (M, N) in
     x's dtype.
 
-    CUDA: csrc/int8_matmul.cu; bf16 x, K a multiple of 8, N of 4; ragged
-    M and N are masked in the kernel (no padded copy of W). CPU: the
-    plain version."""
+    CUDA: csrc/int8_matmul.cu, the regime `int8_plan` names; bf16 x,
+    16-byte aligned, K a multiple of 8, N of 4; ragged M, N and K are
+    masked in the kernel (no padded copy of W). CPU: the plain version."""
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scale)
     _check_cuda("int8_matmul", {"x": x, "w_q": w_q, "scale": scale},
@@ -233,9 +282,9 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     if w_q.shape != (k, n) or scale.shape != (n,):
         raise ValueError(f"int8_matmul: expected x (M, K), w_q (K, N), scale (N,); "
                          f"got {x.shape}, {w_q.shape}, {scale.shape}")
-    if m < 1 or k < 8 or k % 8 or n < 4 or n % 4 or -(-n // 64) > 65535:
+    if m < 1 or k < 8 or k % 8 or n < 4 or n % 4 or -(-n // INT4_BLOCK[1]) > 65535:
         raise ValueError(f"int8_matmul: M={m}, K={k} (multiple of 8) and N={n} "
-                         f"(multiple of 4, at most 4194240) out of range")
+                         f"(multiple of 4, at most 8388480) out of range")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.launch("int8_matmul", x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, k, n, _stream(x.device))
@@ -255,24 +304,22 @@ def _check_int4(name: str, k: int, w_q4: torch.Tensor, scale: torch.Tensor) -> i
     return n
 
 
-# int4_matmul's plan mirrors csrc/int4_matmul.cu:make_plan
-INT4_BLOCK = (256, 128)     # output rows × columns a block (or cluster) computes
-INT4_CHUNK = 32             # packed rows a pipeline stage holds
-INT4_SMS = 132              # the H100's SMs: fewer tiles than this split K
-INT4_MAX_SPLIT = 4
-
-
-def int4_plan(m: int, k: int, n: int) -> int:
-    """int4_matmul's K split: the size of the thread-block cluster that
-    shares one output tile. 1 when the tiles alone fill the card; else
-    doubled (to at most 4, and at most half the tile's chunks of
-    INT4_CHUNK packed rows) until tiles × split ≥ INT4_SMS."""
+def _ring_split(m: int, n: int, chunks: int) -> int:
+    """The wgmma ring's K split (csrc/wgmma_ring.cuh:ring_split): the
+    size of the thread-block cluster that shares one output tile. 1 when
+    the tiles alone fill the card; else doubled (to at most 4, and at most
+    half the chunks) until tiles × split ≥ INT4_SMS."""
     tiles = -(-m // INT4_BLOCK[0]) * -(-n // INT4_BLOCK[1])
-    chunks = -(-(k // 2) // INT4_CHUNK)
     split = 1
     while tiles * split < INT4_SMS and split < INT4_MAX_SPLIT and 2 * split <= chunks:
         split *= 2
     return split
+
+
+def int4_plan(m: int, k: int, n: int) -> int:
+    """int4_matmul's K split over chunks of INT4_CHUNK packed rows, see
+    _ring_split."""
+    return _ring_split(m, n, -(-(k // 2) // INT4_CHUNK))
 
 
 def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -399,12 +446,15 @@ def matmul_any(x: torch.Tensor, wp: dict) -> torch.Tensor:
 
     * int4: m ≤ 8 → quant_act_grouped + int4_matmul_s8; m > 8 → int4_matmul;
     * int8: m ≤ 8 → the dequant matmul (plain torch, as XLA computes it
-      in the JAX package); m > 8 → int8_matmul;
+      in the JAX package) on the CPU, and on the card int8_matmul, whose
+      GEMV regime computes the same function (W rounded to bf16 per
+      element, f32 sums, bf16 out) without the dequantized copy of W;
+      m > 8 → int8_matmul;
     * dense: x @ w.
 
-    The route is the same on every device; on the CPU each kernel's
-    plain version takes its place. The wrappers are looked up as module
-    attributes at call time, so a caller may swap them."""
+    On the CPU each kernel's plain version takes its place. The wrappers
+    are looked up as module attributes at call time, so a caller may
+    swap them."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     xf = x.reshape(-1, k).contiguous()      # the kernels take dense rows
@@ -418,8 +468,10 @@ def matmul_any(x: torch.Tensor, wp: dict) -> torch.Tensor:
         return out.reshape(*lead, -1)
     if "w_q" not in wp:
         return x @ wp["w"].to(x.dtype)
-    if m <= 8:
-        out = _int8_matmul_xla(xf, wp["w_q"], wp["scale"])
-    else:
+    if m > 8:
         out = int8_matmul(xf, wp["w_q"], wp["scale"])
+    elif xf.device.type == "cuda":
+        out = int8_matmul(xf.to(torch.bfloat16), wp["w_q"], wp["scale"]).to(x.dtype)
+    else:
+        out = _int8_matmul_xla(xf, wp["w_q"], wp["scale"])
     return out.reshape(*lead, -1)

@@ -33,7 +33,8 @@ printed JSON are the JAX script's, so that the two outputs line up:
 replaces and "MXU" the s8×s8 route.
 
 Two kernels live here, each with a wrapper and a plain PyTorch version
-beside it: `s8_matmul` (csrc/s8_matmul.cu) and `s8g4_matmul`
+beside it: `s8_matmul` (csrc/s8_matmul.cu: a split-K GEMV at M ≤ 16,
+mma.sync tiles above; its plan is `s8_plan`) and `s8g4_matmul`
 (csrc/s8g4_matmul.cu). For CUDA tensors a wrapper checks them, allocates
 the output, launches its kernel on the current stream and counts the
 launch in `launch_counts`; for CPU tensors it runs the plain version;
@@ -57,6 +58,8 @@ from ..pipeline.transcriber import resolve_device
 
 GROUP = 128
 BLOCK_M = 16          # the kernels' rows of M per block (the int8 mma's M)
+S8_GEMV_MAX_M = 16    # s8_matmul's GEMV rows: two n8 tiles of x
+S8_GEMV_STEP = 32     # K rows a GEMV step (the int8 mma's depth)
 MAX_SMEM = 227 * 1024  # shared memory a block may use on Hopper
 
 # kernel name → launches since the last reset_launch_counts()
@@ -90,14 +93,25 @@ def s8_matmul_reference(xq: torch.Tensor, xs: torch.Tensor, w_q: torch.Tensor,
     return (acc * xs * scale).to(torch.bfloat16)
 
 
+def s8_plan(m: int, k: int, n: int) -> tuple[str, int]:
+    """s8_matmul's regime and K split, mirroring csrc/s8_matmul.cu:
+    make_plan: ("gemv", split) for M ≤ S8_GEMV_MAX_M (the split-K GEMV
+    of csrc/gemv_mma.cuh over K steps of S8_GEMV_STEP rows, split as
+    ops.quant.gemv_split says), ("mma", 1) above (16-row mma tiles, K
+    split over a block's warps only)."""
+    if m <= S8_GEMV_MAX_M:
+        return "gemv", quant.gemv_split(-(-k // S8_GEMV_STEP), n)
+    return "mma", 1
+
+
 def s8_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """xq (M, K) int8 with xs (M, 1) f32 @ w_q (K, N) int8 with scale
     (N,) f32 → (M, N) bf16.
 
-    CUDA: csrc/s8_matmul.cu; K and N multiples of 4; ragged M, N and K
-    are masked in the kernel (no padded copy of W). CPU: the plain
-    version."""
+    CUDA: csrc/s8_matmul.cu, the regime `s8_plan` names; K and N
+    multiples of 4; ragged M, N and K are masked in the kernel (no padded
+    copy of W). CPU: the plain version."""
     if xq.device.type == "cpu":
         return s8_matmul_reference(xq, xs, w_q, scale)
     _check_cuda("s8_matmul", {"xq": xq, "xs": xs, "w_q": w_q, "scale": scale},
