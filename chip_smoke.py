@@ -23,7 +23,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    T=P+224=227 and valid_len 115 (mid-decode) and 227 (last step), the
    lane kernel also at valid_len 3 (the prompt: lane 0 alone) and at
    K=8, T=448, with the 32-byte sectors of the K panel its owned pairs
-   touch): max abs error within 2e-2 and relative L2 error within 5e-3,
+   touch; self_attention_int8 also at Tq=2 and over a T=448 cache at
+   valid_len 224 and 448): max abs error within 2e-2 and relative L2 error within 5e-3,
    and each mask the kernel must apply (keys past the sequence, past
    valid_len, of lanes a beam does not own) dropped from the plain
    version must read above that limit (the script prints those
@@ -32,8 +33,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    exists, the one PyTorch call computing the same function, beside the
    least time the card could take; for the redesigned kernels
    (flash_attention, cross_attention_int8 and cross_attention_s8 at Tq 1
-   and 5, self_attention_int8_lanes at valid_len 115 and 227 here,
-   int4_matmul and int4_matmul_s8 in phase 7) also a back-to-back time
+   and 5, self_attention_int8_lanes and self_attention_int8 at valid_len
+   115 and 227 here, int4_matmul and int4_matmul_s8 in phase 7,
+   s8_matmul and s8g4_matmul in phase 8) also a back-to-back time
    (20 launches in one CUDA graph over input copies larger than the L2
    cache, per launch) beside the earlier design's single-launch time;
 4. the greedy main path at full large-v3-turbo width (random weights
@@ -94,9 +96,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    s8g4_matmul against their plain versions at the profiler's m = 1
    shapes (3072→3072, →1024, →8192, 8192→3072, the head 3072→128256), at
    M = 8 and one ragged shape, with the limits and wrong readings of
-   phase 7 (s8g4_matmul also equal to int4_matmul_s8 on the same
-   inputs), timed, with torch._int_mm plus the rescale timed at M = 32
-   as the library context (it takes no M ≤ 16); then, with the counts
+   phase 7 (both bit-equal to their plain versions, s8g4_matmul also
+   equal to int4_matmul_s8 on the same inputs), timed single launch and
+   back to back, with torch._int_mm plus the rescale timed at M = 32 as
+   the library context (it takes no M ≤ 16); s8g4_matmul also at
+   llama-3.1-8b's decode shapes (4096→14336, 14336→4096), equal to and
+   timed beside int4_matmul_s8 on the same inputs; then, with the counts
    zeroed, profile_llm_ops.main --steps 8 --iters 2, whose JSON of ms
    per step is printed; both kernels must have been launched there.
 
@@ -115,7 +120,8 @@ prefill the same way.
     python3 chip_smoke.py --before TREE
 
 times the kernels whose earlier design BEFORE_MS holds shape by shape
-(int8_matmul, s8_matmul) built from TREE, an unpacked earlier commit
+(int8_matmul, s8_matmul, self_attention_int8 by valid_len, s8g4_matmul)
+built from TREE, an unpacked earlier commit
 (`git archive <rev> | tar -x -C build/parent`), against this checkout's,
 in turns at each shape (no result line): the source of those "before"
 times.
@@ -167,7 +173,13 @@ BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
                              (1, 8192, 3072): 0.5362, (1, 3072, 128256): 0.7040},
              "s8_matmul": {(1, 3072, 8192): 0.0270, (1, 3072, 3072): 0.0164,
                            (1, 3072, 1024): 0.0155, (1, 8192, 3072): 0.0360,
-                           (1, 3072, 128256): 0.1811}}
+                           (1, 3072, 128256): 0.1811},
+             # the earlier designs' times: valid_len → ms, and (M, K, N) → ms
+             "self_attention_int8": {MID_DECODE: 0.0272, PROMPT + DECODE: 0.0337},
+             "s8g4_matmul": {(1, 3072, 8192): 0.0189, (1, 3072, 3072): 0.0162,
+                             (1, 3072, 1024): 0.0154, (1, 8192, 3072): 0.0278,
+                             (1, 3072, 128256): 0.1457, (8, 3072, 8192): 0.0194,
+                             (3, 256, 1000): 0.0097}}
 # cross_attention_s8's mean relative distance from cross_attention_int8
 # in its earlier design (same check, same card), printed beside this run's
 S8_VS_INT8_BEFORE = "2.72-2.73e-2"
@@ -208,6 +220,9 @@ PROFILER = "llama-3.2-3b"
 # largest M of the W4A8 route and one small ragged shape
 S8_SHAPES = ((1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
              (1, 3072, 128256), (8, 3072, 8192), (3, 256, 1000))
+# s8g4_matmul at llama-3.1-8b's decode shapes (M = 1, G = 128), beside
+# int4_matmul_s8, the route the LLM path takes there, on the same inputs
+S8G4_8B_SHAPES = ((1, 4096, 14336), (1, 14336, 4096))
 LIBRARY_M = 32             # torch._int_mm takes M > 16 only
 
 
@@ -492,11 +507,35 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
             f"self_attention_int8 B·K={b * k} H={h} T={t} valid_len={valid}", out,
             att.self_attention_int8_reference(*args, valid), dropped)
         # K and V rows and their bf16 scales at t < valid_len, q and o
-        rows[valid] = timed(f"self_attention_int8 valid_len={valid}",
-                            lambda: att.self_attention_int8(*args, valid),
+        label = f"self_attention_int8 valid_len={valid}"
+        rows[valid] = timed(label, lambda: att.self_attention_int8(*args, valid),
                             lambda: att.self_attention_int8_reference(*args, valid),
                             nbytes(q, out) + 2 * b * k * h * valid * (d + 2),
                             4 * b * k * h * valid * d, flush)
+        copies = input_copies(args, nbytes(*args))
+        print_redesigned("self_attention_int8", label, rows[valid]["ms"], back_to_back_ms(
+            lambda *a: att.self_attention_int8(*a, valid), copies, flush), copies, card, valid)
+        del copies
+    # two query rows sharing the copied K/V (not on the path: the prefill
+    # takes self_attention_int8_xla), and Whisper's whole 448-position
+    # context (the kernel's blocks then run in two waves)
+    q2 = randn(b * k, h, 2, d).to(torch.bfloat16)
+    errs["Tq=2"] = compare(
+        f"self_attention_int8 B·K={b * k} H={h} T={t} Tq=2 valid_len={MID_DECODE}",
+        att.self_attention_int8(q2, *args[1:], MID_DECODE),
+        att.self_attention_int8_reference(q2, *args[1:], MID_DECODE),
+        {"valid_len mask": att.self_attention_int8_reference(q2, *args[1:], t)})
+    del kq, vq, ks, vs, args, q2
+    kq, ks = wm._quantize_kv_rows(randn(b * k, 448, h * d), h)
+    vq, vs = wm._quantize_kv_rows(randn(b * k, 448, h * d), h)
+    args = (q, kq, ks, vq, vs)
+    for valid in (224, 448):
+        errs[(448, valid)] = compare(
+            f"self_attention_int8 B·K={b * k} H={h} T=448 valid_len={valid}",
+            att.self_attention_int8(*args, valid),
+            att.self_attention_int8_reference(*args, valid),
+            {"valid_len mask": att.self_attention_int8_reference(*args, 448)}
+            if valid < 448 else {})
     stats["self_attention_int8"] = kernel_row(rows[MID_DECODE], errs)
     del kq, vq, ks, vs, args
 
@@ -1256,15 +1295,45 @@ def check_s8_kernels(tq, prof, dev, card: str) -> dict:
         dropped["right group's scale"] = prof.s8g4_matmul_reference(xq, xs, wq, sc.roll(1, 0))
         errs[(m, k, n)] = compare(f"s8g4_matmul M={m} K={k} N={n}", out, ref, dropped,
                                   relative_max=True)
+        same = torch.equal(out, ref)
+        print(f"  bit-equal to its plain version: {same} (plan {prof.s8g4_plan(m, k, n)})")
+        assert same
         same = torch.equal(out, tq.int4_matmul_s8(xq, xs, wq, sc))
         print(f"  equal to the int4_matmul_s8 kernel on the same inputs: {same}")
         assert same
-        rows[(m, k, n)] = timed(f"s8g4_matmul M={m} K={k} N={n}",
-                                lambda: prof.s8g4_matmul(xq, xs, wq, sc),
+        label = f"s8g4_matmul M={m} K={k} N={n}"
+        rows[(m, k, n)] = timed(label, lambda: prof.s8g4_matmul(xq, xs, wq, sc),
                                 lambda: prof.s8g4_matmul_reference(xq, xs, wq, sc),
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
-        del q, wq, sc, xq, xs, out, ref, dropped
+        copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
+        print_redesigned("s8g4_matmul", label, rows[(m, k, n)]["ms"],
+                         back_to_back_ms(prof.s8g4_matmul, copies, flush), copies, card,
+                         (m, k, n))
+        del q, wq, sc, xq, xs, out, ref, dropped, copies
+    for m, k, n in S8G4_8B_SHAPES:
+        # context for the LLM path's decode body, whose route stays
+        # int4_matmul_s8: both kernels on the same inputs, equal outputs
+        q = tq.quantize_int4(randn(k, n) * k ** -0.5)
+        wq, sc = q["w_q4"], q["scale4"]
+        xq, xs = tq.quant_act_grouped(randn(m, k), sc.shape[0])
+        out = prof.s8g4_matmul(xq, xs, wq, sc)
+        same = torch.equal(out, tq.int4_matmul_s8(xq, xs, wq, sc))
+        print(f"s8g4_matmul M={m} K={k} N={n} (llama-3.1-8b, plan {prof.s8g4_plan(m, k, n)}):"
+              f" bit-equal to its plain version "
+              f"{torch.equal(out, prof.s8g4_matmul_reference(xq, xs, wq, sc))}, equal to the "
+              f"int4_matmul_s8 kernel on the same inputs {same}")
+        assert same and torch.equal(out, prof.s8g4_matmul_reference(xq, xs, wq, sc))
+        copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
+        times = {name: (time_ms(lambda: fn(xq, xs, wq, sc), flush),
+                        back_to_back_ms(fn, copies, flush))
+                 for name, fn in (("s8g4_matmul", prof.s8g4_matmul),
+                                  ("int4_matmul_s8", tq.int4_matmul_s8))}
+        bms, _ = bound_ms(nbytes(xq, xs, wq, sc, out), 2 * m * k * n, PEAK_INT8_OPS)
+        print("  " + "; ".join(f"{name} single launch {a:.4f} ms, back-to-back {b2b:.4f} ms"
+                               for name, (a, b2b) in times.items())
+              + f"; bound {bms:.4f} ms [{card}]")
+        del q, wq, sc, xq, xs, out, copies
     stats["s8g4_matmul"] = kernel_row(rows[S8_SHAPES[0]], errs)
     stats["s8g4_matmul"]["library_note"] = (
         "no PyTorch call takes int4 weights packed in halves with grouped int8 activations")
@@ -1368,31 +1437,57 @@ def before_only(tree: str) -> int:
     gen = torch.Generator(dev).manual_seed(7)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def inputs(name, m, k, n):
-        """(the kernel's call, a check of its output)"""
-        q = tq.quantize_int8(torch.randn(k, n, generator=gen, device=dev) * k ** -0.5)
+    def inputs(name, shape):
+        """(the kernel's call, a check of its output) at `shape`: (M, K,
+        N) of a matmul, valid_len of self_attention_int8 (the beam
+        phase's cache)"""
+        def randn(*size):
+            return torch.randn(*size, generator=gen, device=dev)
+
+        if name == "self_attention_int8":
+            from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+            from turbo_whisper_workspace_tpu_torch.ops import attention as att
+
+            bk, h = 8 * BEAM, 20
+            kq, ks = wm._quantize_kv_rows(randn(bk, PROMPT + DECODE, h * 64), h)
+            vq, vs = wm._quantize_kv_rows(randn(bk, PROMPT + DECODE, h * 64), h)
+            args = (randn(bk, h, 1, 64).to(torch.bfloat16), kq, ks, vq, vs, shape)
+            ref = att.self_attention_int8_reference(*args)
+            return (lambda: att.self_attention_int8(*args),
+                    lambda got: rel_err(got, ref) <= KERNEL_REL_TOL)
+        m, k, n = shape
+        if name == "s8g4_matmul":
+            q = tq.quantize_int4(randn(k, n) * k ** -0.5)
+            xq, xs = tq.quant_act_grouped(randn(m, k), q["scale4"].shape[0])
+            args = (xq, xs, q["w_q4"], q["scale4"])
+            ref = prof.s8g4_matmul_reference(*args)
+            return lambda: prof.s8g4_matmul(*args), lambda got: torch.equal(got, ref)
+        q = tq.quantize_int8(randn(k, n) * k ** -0.5)
         wq, sc = q["w_q"], q["scale"]
         if name == "int8_matmul":
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            x = randn(m, k).to(torch.bfloat16)
             ref = tq.int8_matmul_reference(x, wq, sc)
             return (lambda: tq.int8_matmul(x, wq, sc),
                     lambda got: rel_err(got, ref) <= KERNEL_REL_TOL)
-        xq, xs = prof.quant_act(torch.randn(m, k, generator=gen, device=dev))
+        xq, xs = prof.quant_act(randn(m, k))
         ref = prof.s8_matmul_reference(xq, xs, wq, sc)
         return lambda: prof.s8_matmul(xq, xs, wq, sc), lambda got: torch.equal(got, ref)
 
     for name in names:
-        for m, k, n in BEFORE_MS[name]:
-            call, check = inputs(name, m, k, n)
+        for shape in BEFORE_MS[name]:
+            call, check = inputs(name, shape)
             times = {"before": [], "this": []}
             for tree_name in ("before", "this", "this", "before"):
                 build._LIBS[name] = libs[name][tree_name]
-                assert check(call()), (name, tree_name, (m, k, n))
+                assert check(call()), (name, tree_name, shape)
                 times[tree_name].append(time_ms(call, flush))
             build._LIBS[name] = libs[name]["this"]
-            print(f"{name} M={m} K={k} N={n}: single launch, the earlier tree "
+            label = (f"valid_len={shape}" if name == "self_attention_int8"
+                     else "M={} K={} N={}".format(*shape))
+            print(f"{name} {label}: single launch, the earlier tree "
                   f"{statistics.median(times['before']):.4f} ms, this tree "
                   f"{statistics.median(times['this']):.4f} ms [{card}]")
+            del call, check
             torch.cuda.empty_cache()
     return 0
 

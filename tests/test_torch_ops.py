@@ -242,6 +242,109 @@ def test_self_int8_reference_matches_jax(valid_len):
     np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
 
 
+def self_int8_scale_split(offset: int, n: int):
+    """csrc/self_attention_int8.cu's copy of a row of n bf16 scales that
+    starts `offset` bytes past a 16-byte boundary: (the byte offsets, from
+    that boundary, of the 16-byte cp.async chunks of its aligned interior;
+    the elements at its edges, taken by plain loads)."""
+    lo = -(-offset // 16) * 16
+    hi = (offset + 2 * n) // 16 * 16
+    if lo >= hi:
+        return [], list(range(n))
+    return list(range(lo, hi, 16)), [*range((lo - offset) // 2), *range((hi - offset) // 2, n)]
+
+
+def _butterfly(v: torch.Tensor, offsets) -> torch.Tensor:
+    """v[..., lane] after `v += shfl_xor(v, off)` for each offset, lanes
+    in the last dimension."""
+    lanes = torch.arange(v.shape[-1])
+    for off in offsets:
+        v = v + v[..., lanes ^ off]
+    return v
+
+
+def self_int8_tile_mirror(q, kq, ks, vq, vs, valid_len: int):
+    """csrc/self_attention_int8.cu's arithmetic in its order, in f32, for
+    contiguous (B, H, ...) inputs whose scale rows start at b·h·T·2 bytes
+    from a 16-byte boundary: each scale row split into its aligned
+    interior and edges (held to cover the row once); scores in passes of
+    32 keys, four lanes a key each summing 16 dims, then two shuffles;
+    the max; exp2 and the sum, a thread a key (t mod 128), a warp's
+    butterfly and the 4 warps in order; weights bf16(p · (1/Σ) · vs);
+    P·V four lanes a key (t mod 32) over 16 dims each, the warp's 8 keys
+    by butterfly, the 4 warps in order; bf16 out."""
+    b, h, tq, d = q.shape
+    t_len = kq.shape[2]
+    out = torch.empty(b, h, tq, d, dtype=torch.bfloat16)
+    for bh in range(b * h):
+        bi, hi = divmod(bh, h)
+        offset = bh * t_len * 2 % 16
+        chunks, edges = self_int8_scale_split(offset, valid_len)
+        from_chunks = [i for c in chunks for i in range((c - offset) // 2, (c - offset) // 2 + 8)]
+        assert sorted(from_chunks + edges) == list(range(valid_len))
+        assert len(edges) <= 15 and (not chunks or len(edges) <= 14)
+        k_rows = kq[bi, hi, :valid_len].float()          # the keys a block copies
+        v_rows = vq[bi, hi, :valid_len].float()
+        ks_row = ks[bi, hi, :valid_len].float()
+        vs_row = vs[bi, hi, :valid_len].float()
+        for r in range(tq):
+            qv = q[bi, hi, r].float()
+            part = (k_rows * qv).reshape(valid_len, 4, 16).sum(-1)      # lane sums
+            s = (part[:, 0] + part[:, 1]) + (part[:, 2] + part[:, 3])
+            s = s * (ks_row * tatt.LOG2E / 8.0)
+            p = torch.exp2(s - s.max())
+            per_thread = torch.zeros(128)                 # thread t mod 128
+            for t0 in range(0, valid_len, 128):
+                chunk = p[t0:t0 + 128]
+                per_thread[:len(chunk)] += chunk
+            warps = _butterfly(per_thread.reshape(4, 32), (16, 8, 4, 2, 1))[:, 0]
+            total = ((warps[0] + warps[1]) + warps[2]) + warps[3]
+            w = (p * (1.0 / total) * vs_row).to(torch.bfloat16).float()
+            acc = torch.zeros(32, d)
+            for t0 in range(0, valid_len, 32):
+                rows = slice(t0, min(t0 + 32, valid_len))
+                acc[:rows.stop - t0] += w[rows, None] * v_rows[rows]
+            # lane 4·(key % 8) + sub of warp key // 8 holds dims 16·sub ..
+            lanes = acc.reshape(4, 8, 4, 16).permute(0, 3, 1, 2).reshape(4, 16, 32)
+            warps = _butterfly(lanes, (4, 8, 16))[:, :, :4]              # (warp, i, sub)
+            o = ((warps[0] + warps[1]) + warps[2]) + warps[3]
+            out[bi, hi, r] = o.transpose(0, 1).reshape(d).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("valid_len,tq", [(1, 1), (101, 1), (227, 1), (115, 2)])
+def test_self_int8_tile_mirror_matches_jax(valid_len, tq):
+    """The kernel's tiling at the beam path's T = 227 (scale rows that
+    start 6 bytes apart from one (b, h) to the next: interiors and edges
+    of every offset) against the JAX Pallas kernel in interpret mode and
+    the plain version; the same bf16 rounding points, sums in another
+    order."""
+    q, kq, ks, vq, vs = _self_inputs(seed=9, b=2, h=3, tq=tq, t=227)
+    qb, ksb, vsb = _bf16(q), _bf16(ks), _bf16(vs)
+    args = _to_torch_bf16(qb, kq, ksb, vq, vsb)
+    got = self_int8_tile_mirror(*args, valid_len).float()
+    pallas = np.asarray(jatt.self_attention_int8(
+        jnp.asarray(qb, jnp.bfloat16), kq, jnp.asarray(ksb, jnp.bfloat16), vq,
+        jnp.asarray(vsb, jnp.bfloat16), valid_len, interpret=True), np.float32)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=2e-2, rtol=2e-2)
+    ref = tatt.self_attention_int8_reference(*args, valid_len).float()
+    assert (got - ref).abs().max() <= 2e-2
+    assert (got - ref).norm() <= 5e-3 * ref.norm()
+    if valid_len < 227:       # the keys past valid_len matter
+        unmasked = tatt.self_attention_int8_reference(*args, 227).float()
+        assert (unmasked - ref).norm() > 5e-3 * ref.norm()
+
+
+@pytest.mark.parametrize("offset,n", [(0, 1), (6, 1), (14, 7), (2, 115), (10, 227),
+                                      (0, 448), (8, 8)])
+def test_self_int8_scale_split_covers_the_row(offset, n):
+    chunks, edges = self_int8_scale_split(offset, n)
+    from_chunks = [i for c in chunks for i in range((c - offset) // 2, (c - offset) // 2 + 8)]
+    assert sorted(from_chunks + edges) == list(range(n))
+    assert all(c % 16 == 0 and offset <= c and c + 16 <= offset + 2 * n for c in chunks)
+    assert len(edges) <= 15
+
+
 @pytest.mark.parametrize("valid_len", [11, 16])
 def test_lanes_reference_matches_jax(valid_len):
     q, kp, kps, vp, vps, lane_map = _lane_inputs()
@@ -513,6 +616,41 @@ def test_cuda_kernels_match_plain_versions(cuda_device, tq):
             tatt.self_attention_int8_lanes(*args, valid_len).float(),
             tatt.self_attention_int8_lanes_reference(*args, valid_len).float(),
             atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid_len,tq,misaligned", [
+    (227, 1, 1, False), (227, 115, 1, False), (227, 227, 1, False), (448, 448, 1, False),
+    (227, 115, 2, False), (229, 101, 1, True), (229, 229, 3, True)])
+def test_cuda_self_attention_int8_bulk_copies(cuda_device, t, valid_len, tq, misaligned):
+    """The redesigned self_attention_int8 at the beam path's B·K = 40,
+    H = 20: K and V slabs as bulk copies, scale rows at every offset
+    modulo 16 (T = 229: rows 458 bytes apart; `misaligned`: the scale
+    tensors themselves start 2 bytes past a boundary), Whisper's whole
+    448-position context (two waves of blocks) and Tq > 1. Within 2e-2
+    max abs and 5e-3 relative L2 of the plain version; the keys past
+    valid_len, dropped from the mask, read above it."""
+    gen = torch.Generator(cuda_device).manual_seed(t + valid_len)
+    kq, ks = twm._quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
+                                               device=cuda_device), 20)
+    vq, vs = twm._quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
+                                               device=cuda_device), 20)
+    if misaligned:
+        def shift(x):
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            flat[1:] = x.reshape(-1)
+            return flat[1:].view(x.shape)
+        ks, vs = shift(ks), shift(vs)
+        assert ks.data_ptr() % 16 and vs.data_ptr() % 16
+    q = torch.randn(40, 20, tq, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = tatt.self_attention_int8(q, kq, ks, vq, vs, valid_len).float()
+    torch.cuda.synchronize()
+    ref = tatt.self_attention_int8_reference(q, kq, ks, vq, vs, valid_len).float()
+    assert (got - ref).abs().max() <= 2e-2
+    assert (got - ref).norm() <= 5e-3 * ref.norm()
+    if valid_len < t:
+        unmasked = tatt.self_attention_int8_reference(q, kq, ks, vq, vs, t).float()
+        assert (unmasked - ref).norm() > 5e-3 * ref.norm()
 
 
 @pytest.mark.cuda

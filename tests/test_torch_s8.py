@@ -442,6 +442,116 @@ def test_s8_split_fold_bit_equal_to_reference_and_jax(jprof, m, k, n, split):
     np.testing.assert_array_equal(_np(got), pallas)
 
 
+S8G4_PLAN_CASES = [
+    (1, 3072, 8192, 128, "gemv", 2), (1, 3072, 3072, 128, "gemv", 4),
+    (1, 3072, 1024, 128, "gemv", 4), (1, 8192, 3072, 128, "gemv", 8),
+    (1, 3072, 128256, 128, "gemv", 1), (1, 4096, 14336, 128, "gemv", 2),
+    (1, 14336, 4096, 128, "gemv", 4), (8, 3072, 8192, 128, "mma", 1),
+    (16, 3072, 1000, 128, "mma", 1), (9, 3072, 1024, 128, "gemv", 8),
+    (16, 8192, 4104, 128, "mma", 1),
+    (17, 3072, 1024, 128, "mma", 1), (3, 256, 1000, 128, "gemv", 1),
+    (3, 256, 200, 32, "gemv", 1), (2, 2048, 200, 128, "gemv", 4),
+    (1, 768, 8, 128, "gemv", 1), (9, 2048, 1000, 64, "gemv", 4)]
+
+
+@pytest.mark.parametrize("m,k,n,group,regime,split", S8G4_PLAN_CASES)
+def test_s8g4_plan_regimes_and_splits(m, k, n, group, regime, split):
+    """s8g4_matmul's plan: the GEMV at M ≤ 16 (the profiler's M = 1),
+    its cluster a power of two that splits the n_groups/2 group pairs
+    into runs of at least one, keeps two blocks an SM and the grid within
+    the blocks the card holds at once in clusters of 4 or 8 (3072→8192:
+    64 column tiles × 4 would run a second wave, so 2); the 16-row mma
+    tiles above, or where no split holds a rank's dots at two blocks an
+    SM (M = 8 at 3072→8192, M = 16 at K = 3072 and 8192)."""
+    got = tprof.s8g4_plan(m, k, n, group)
+    assert got == (regime, split)
+    if regime == "mma":
+        return
+    n_groups, tiles = k // group, -(-n // tq.GEMV_COLS)
+    half = n_groups // 2
+    assert split in (1, 2, 4, 8) and split <= half
+    assert tiles * split <= tprof.S8G4_CLUSTER_BLOCKS.get(split, tiles * split)
+    assert tprof.s8g4_gemv_smem(m, n_groups, group, split) <= tprof.S8G4_GEMV_SMEM
+    ranges = tq.split_ranges(half, split)
+    assert [p for r in ranges for p in r] == list(range(half))
+    assert min(len(r) for r in ranges) >= 1
+
+
+def s8g4_gemv_mirror(xq, xs, w_q4, scale4, split=None):
+    """s8g4_matmul's GEMV in the kernel's order: rank r of the plan's
+    split takes group pairs [r·P/split, (r+1)·P/split); each of its K
+    steps (32 packed rows) is an item, warp w taking items w, w + 8, ...;
+    a step's two planes, 16 × the signed nibbles ((b << 4) & 0xF0 and
+    b & 0xF0 as int8), give exact s32 dots shifted back by 4, the low
+    plane against x's group-p columns and the high plane against group
+    p + P's; a group's dot is the sum of its steps'; its term f32(d) ·
+    (xs · ws) in f32; the output adds the n_groups terms in group order
+    in f32, rounded once to bf16."""
+    m, k = xq.shape
+    n = w_q4.shape[1]
+    n_groups = scale4.shape[0]
+    group, half = k // n_groups, n_groups // 2
+    spp = group // tprof.S8_GEMV_STEP
+    split = split or tprof.s8g4_plan(m, k, n, group)[1]
+    b = w_q4.view(torch.uint8).long()
+    planes = [((b << 4) & 0xF0).to(torch.uint8).view(torch.int8).long(),
+              (b & 0xF0).to(torch.uint8).view(torch.int8).long()]
+    x = xq.long()
+    dots = torch.zeros(n_groups, m, n, dtype=torch.long)
+    for rank in tq.split_ranges(half, split):
+        items = len(rank) * spp
+        for w in range(tq.GEMV_WARPS):
+            for it in range(w, items, tq.GEMV_WARPS):
+                p = rank[0] + it // spp
+                r0 = (rank[0] * spp + it) * tprof.S8_GEMV_STEP
+                rows = slice(r0, r0 + tprof.S8_GEMV_STEP)
+                for plane, gi in ((0, p), (1, p + half)):
+                    d16 = x[:, rows.start + plane * (k // 2):rows.stop + plane * (k // 2)] \
+                        @ planes[plane][rows]
+                    assert (d16 % 16 == 0).all() and d16.abs().max() < 2 ** 31
+                    dots[gi] += d16 >> 4
+    assert dots.abs().max() < 2 ** 31
+    acc = torch.zeros(m, n, dtype=torch.float32)
+    for gi in range(n_groups):
+        acc = acc + dots[gi].to(torch.int32).float() * (xs[:, gi:gi + 1] * scale4[gi:gi + 1])
+    return acc.to(torch.bfloat16), split
+
+
+@pytest.mark.parametrize("m,k,n,group,split", [
+    (1, 256, 200, 32, None), (3, 256, 1000, 32, None), (9, 256, 136, 32, None),
+    (3, 2048, 200, 128, None), (1, 2048, 1000, 64, 4), (16, 2048, 200, 128, 8)])
+def test_s8g4_split_fold_bit_equal_to_reference_and_jax(jprof, m, k, n, group, split):
+    """The GEMV's group-pair split, per-step s32 dots and group-order fold
+    (at the plan's split, or another one: the bits do not depend on it)
+    are bit-equal to s8g4_matmul_reference, and at K = 256, G = 32 to the
+    JAX script's Pallas kernel in interpret mode, at N not a multiple of
+    128. At K = 2048 XLA now and then contracts the JAX kernel's acc +
+    dot·(xs·ws) into a fused multiply-add (as for int4_matmul_s8's kernel,
+    tests/test_torch_quant.py), which the TPU kernel's math does not
+    have: there an output may sit one bf16 step from the JAX one, in at
+    most 0.1% of them."""
+    rng = np.random.default_rng(30 + m)
+    n_groups = k // group
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_q4 = rng.integers(-128, 128, (k // 2, n)).astype(np.int8)
+    scale4 = rng.uniform(0.005, 0.02, (n_groups, n)).astype(np.float32)
+    xq, xs = tprof.quant_act_grouped(torch.from_numpy(x), n_groups)
+    got, used = s8g4_gemv_mirror(xq, xs, torch.from_numpy(w_q4), torch.from_numpy(scale4),
+                                 split)
+    assert used == (split or tprof.s8g4_plan(m, k, n, group)[1])
+    ref = tprof.s8g4_matmul_reference(xq, xs, torch.from_numpy(w_q4), torch.from_numpy(scale4))
+    assert torch.equal(got, ref)
+    pallas = np.asarray(jprof.s8g4_matmul(jnp.asarray(xq.numpy()), jnp.asarray(xs.numpy()),
+                                          w_q4, scale4), np.float32)
+    if k == 256:
+        np.testing.assert_array_equal(_np(got), pallas)
+        return
+    off = _np(got) != pallas
+    assert off.mean() <= 1e-3
+    step = np.abs(pallas[off]) * 2.0 ** -7          # one bf16 step at |value| < 2^e
+    assert (np.abs(_np(got)[off] - pallas[off]) <= step).all()
+
+
 def test_s8_wrappers_run_plain_versions_on_cpu():
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
@@ -537,6 +647,24 @@ def test_cuda_s8_matmul_both_regimes_bit_equal(cuda_device, m, k, n):
     assert torch.equal(got, tprof.s8_matmul_reference(xq, xs, q["w_q"], q["scale"]))
     if (k, n) == (3072, 1024) and m <= 16:
         assert tprof.s8_plan(m, k, n) == ("gemv", 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17])
+@pytest.mark.parametrize("k,n", [(3072, 1000), (3072, 1024), (8192, 3072), (256, 136)])
+def test_cuda_s8g4_matmul_both_regimes_bit_equal(cuda_device, m, k, n):
+    """s8g4_matmul's GEMV (M ≤ 16) and mma tiles (M > 16, or where the
+    GEMV's shared memory does not fit), bit-equal to the plain version and
+    equal to int4_matmul_s8 on the same inputs: ragged N (1000: 4-byte
+    loads; 136: a ragged column tile), K split over a cluster (3072→1024
+    at M = 1: 4 ranks; 8192→3072: 8)."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    q = tq.quantize_int4(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5)
+    xq, xs = tq.quant_act_grouped(torch.randn(m, k, generator=gen, device=cuda_device),
+                                  q["scale4"].shape[0])
+    got = tprof.s8g4_matmul(xq, xs, q["w_q4"], q["scale4"])
+    assert torch.equal(got, tprof.s8g4_matmul_reference(xq, xs, q["w_q4"], q["scale4"]))
+    assert torch.equal(got, tq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"]))
 
 
 @pytest.mark.cuda

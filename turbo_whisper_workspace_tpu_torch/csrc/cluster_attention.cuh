@@ -2,7 +2,8 @@
 // cluster per (batch, head) (cross_attention_int8.cu,
 // cross_attention_s8.cu, self_attention_int8_lanes.cu): the
 // cross-attention plan, 16-byte cp.async, warp reductions, int8 bytes as
-// exact floats, and the cluster launch.
+// exact floats, and the cluster launch. self_attention_int8.cu (one
+// block per (batch, head)) takes the cp.async, reductions and bytes.
 #pragma once
 
 #include <cuda_runtime.h>

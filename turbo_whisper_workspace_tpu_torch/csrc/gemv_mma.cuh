@@ -1,6 +1,7 @@
 // The split-K GEMV skeleton shared by int8_matmul.cu (its decode regime,
-// M ≤ 8) and s8_matmul.cu (M ≤ 16): a (K, N) row-major int8 weight
-// streamed once at a few rows of x, HBM-bound.
+// M ≤ 8), s8_matmul.cu and s8g4_matmul.cu (M ≤ 16): a (K, N) row-major
+// int8 weight (or (K/2, N) packed int4) streamed once at a few rows of x,
+// HBM-bound.
 //
 // Layout. A block of GEMV_WARPS warps owns GEMV_COLS = 128 columns; lane
 // (g, t) = (lane / 4, lane % 4) owns the 16 columns 16g .. 16g + 15 and,
@@ -22,13 +23,16 @@
 // GEMV_BLOCKS blocks. The partial sums meet in a fixed order, so results
 // are the same from run to run: the warps' in shared memory in warp
 // order, then the ranks' through distributed shared memory in rank
-// order (gemv_fold). No atomics.
+// order (gemv_fold). No atomics. s8g4_matmul.cu splits K by group pairs
+// instead and folds its f32 group terms in group order (its own fold).
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "int8_blocks.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -78,6 +82,33 @@ __device__ __forceinline__ uint4 gemv_row16(const int8_t* w, int row, int col, i
 
 __device__ __forceinline__ unsigned gemv_word(const uint4& v, int q) {
     return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// The A fragments of the 8 int8 products of one K step of 32 rows:
+// lane (g, t)'s rows r0 + 8t + i (wv[i], i < 8) of its 16 columns, each
+// 4 × 4 byte block transposed (int8_blocks.cuh). Product j = 2q + h takes
+// columns 4q + 2h (A row g) and 4q + 2h + 1 (A row g + 8); its depth
+// 4t .. 4t + 3 stands for rows i = 0..3 and 16 + 4t .. for rows 4..7, so
+// x's B fragment is the 8 bytes of one x row at the lane's 8 rows.
+__device__ __forceinline__ void gemv_fragments(const uint4 (&wv)[8], unsigned (&a)[8][4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {                // columns 4q .. 4q + 3
+        unsigned lo[4], hi[4], tl[4], th[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            lo[i] = gemv_word(wv[i], q);
+            hi[i] = gemv_word(wv[4 + i], q);
+        }
+        transpose4x4(lo, tl);                    // tl[c]: column 4q + c at rows 0..3
+        transpose4x4(hi, th);                    // th[c]: at rows 4..7
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            a[2 * q + h][0] = tl[2 * h];
+            a[2 * q + h][1] = tl[2 * h + 1];
+            a[2 * q + h][2] = th[2 * h];
+            a[2 * q + h][3] = th[2 * h + 1];
+        }
+    }
 }
 
 // This block's column tile and its K steps [begin, end), from the

@@ -150,23 +150,12 @@ s8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
             b[nt][0] = load4(p, row < m && r0 < k);
             b[nt][1] = load4(p + 4, row < m && r0 + 4 < k);
         }
+        unsigned a[8][4];
+        gemv_fragments(wv, a);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {            // columns 4q .. 4q + 3
-            unsigned lo[4], hi[4], tl[4], th[4];
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                lo[i] = gemv_word(wv[i], q);
-                hi[i] = gemv_word(wv[4 + i], q);
-            }
-            transpose4x4(lo, tl);                // tl[c]: column 4q + c at rows 0..3
-            transpose4x4(hi, th);                // th[c]: at rows 4..7
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {        // product j = 2q + h: columns 4q + 2h, + 1
-                const unsigned a[4] = {tl[2 * h], tl[2 * h + 1], th[2 * h], th[2 * h + 1]};
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt) mma_s8(acc[nt][2 * q + h], a, b[nt][0], b[nt][1]);
-            }
-        }
+            for (int nt = 0; nt < NT; ++nt) mma_s8(acc[nt][j], a[j], b[nt][0], b[nt][1]);
     }
     gemv_fold<NT>(acc, red, m, slice.n0, n, [&](int row, int c, int sum) {
         out[(size_t)row * n + c] =

@@ -326,20 +326,24 @@ def self_attention_int8_reference(q, kq, ks, vq, vs, valid_len: int) -> torch.Te
     return torch.einsum("bhqk,bhkd->bhqd", w.float(), vq.float()).to(q.dtype)
 
 
+SELF_MAX_KEYS = 1536         # valid_len whose K/V slabs one block holds in shared memory
+
+
 def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
     """One decode step of self-attention over the int8 cache; returns
     (B, H, Tq, 64). `valid_len` is a host int (keys t < valid_len count),
     passed to the kernel as an argument.
 
-    CUDA: csrc/self_attention_int8.cu, bf16 q and scales. CPU: the plain
-    version."""
+    CUDA: csrc/self_attention_int8.cu, bf16 q and scales; kq and vq
+    16-byte aligned (each (b, h)'s first valid_len rows are one bulk
+    copy); valid_len ≤ SELF_MAX_KEYS. CPU: the plain version."""
     if q.device.type == "cpu":
         return self_attention_int8_reference(q, kq, ks, vq, vs, valid_len)
     _check_cuda("self_attention_int8",
                 {"q": q, "kq": kq, "ks": ks, "vq": vq, "vs": vs},
                 {"q": torch.bfloat16, "kq": torch.int8, "ks": torch.bfloat16,
                  "vq": torch.int8, "vs": torch.bfloat16},
-                align={"q": 2, "kq": 16, "ks": 2, "vq": 4, "vs": 2})
+                align={"q": 2, "kq": 16, "ks": 2, "vq": 16, "vs": 2})
     b, h, tq, dh = q.shape
     t = kq.shape[2]
     if (dh != HEAD_DIM or kq.shape != (b, h, t, dh) or vq.shape != kq.shape
@@ -348,7 +352,7 @@ def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
             "self_attention_int8: expected q (B, H, Tq, 64), kq and vq (B, H, T, 64), "
             f"ks and vs (B, H, T); got {q.shape}, {kq.shape}, {vq.shape}, "
             f"{ks.shape}, {vs.shape}")
-    if not 1 <= valid_len <= t or not 1 <= tq <= 65535 or b * h < 1:
+    if not 1 <= valid_len <= min(t, SELF_MAX_KEYS) or tq < 1 or b * h < 1:
         raise ValueError(f"self_attention_int8: valid_len={valid_len}, T={t}, "
                          f"Tq={tq}, B·H={b * h} out of range")
     out = torch.empty_like(q)

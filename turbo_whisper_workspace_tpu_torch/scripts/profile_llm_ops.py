@@ -35,10 +35,12 @@ replaces and "MXU" the s8×s8 route.
 Two kernels live here, each with a wrapper and a plain PyTorch version
 beside it: `s8_matmul` (csrc/s8_matmul.cu: a split-K GEMV at M ≤ 16,
 mma.sync tiles above; its plan is `s8_plan`) and `s8g4_matmul`
-(csrc/s8g4_matmul.cu). For CUDA tensors a wrapper checks them, allocates
-the output, launches its kernel on the current stream and counts the
-launch in `launch_counts`; for CPU tensors it runs the plain version;
-anything else raises.
+(csrc/s8g4_matmul.cu: the same GEMV on the nibble planes, K split by
+group pairs and the f32 terms folded in group order, at M ≤ 16; the
+first design's mma tiles above; its plan is `s8g4_plan`). For CUDA
+tensors a wrapper checks them, allocates the output, launches its kernel
+on the current stream and counts the launch in `launch_counts`; for CPU
+tensors it runs the plain version; anything else raises.
 """
 
 from __future__ import annotations
@@ -58,8 +60,14 @@ from ..pipeline.transcriber import resolve_device
 
 GROUP = 128
 BLOCK_M = 16          # the kernels' rows of M per block (the int8 mma's M)
-S8_GEMV_MAX_M = 16    # s8_matmul's GEMV rows: two n8 tiles of x
-S8_GEMV_STEP = 32     # K rows a GEMV step (the int8 mma's depth)
+S8_GEMV_MAX_M = 16    # the GEMV rows of s8_matmul and s8g4_matmul: two n8 tiles of x
+S8_GEMV_STEP = 32     # K (s8g4: packed) rows a GEMV step (the int8 mma's depth)
+# s8g4_matmul's GEMV blocks the H100 holds at once in clusters of 4 and 8
+# (cudaOccupancyMaxActiveClusters: 62 and 30, two blocks an SM), and the
+# shared memory a block may use with two an SM (228 KB less the 1 KB
+# reserved a block, halved)
+S8G4_CLUSTER_BLOCKS = {4: 248, 8: 240}
+S8G4_GEMV_SMEM = (228 * 1024 - 2 * 1024) // 2
 MAX_SMEM = 227 * 1024  # shared memory a block may use on Hopper
 
 # kernel name → launches since the last reset_launch_counts()
@@ -146,13 +154,58 @@ def s8g4_matmul_reference(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor
     return quant.int4_matmul_s8_reference(xq, xs, w_q4, scale4)
 
 
+def s8g4_gemv_smem(m: int, n_groups: int, group: int, split: int) -> int:
+    """Bytes of shared memory s8g4_matmul's GEMV block takes
+    (csrc/s8g4_matmul.cu:gemv_layout): the s32 dots of its rank's steps
+    (G/S8_GEMV_STEP a group pair, the most pairs a rank of `split`
+    holds) in two nibble planes of m rows × quant.GEMV_COLS; the ws tile
+    of the rank's groups; the terms of the GEMV_COLS/split columns the
+    rank folds, m rows, every group; the xs tile."""
+    pairs = -(-(n_groups // 2) // split)
+    spp = group // S8_GEMV_STEP
+    return 4 * (pairs * spp * 2 * m * quant.GEMV_COLS + 2 * pairs * quant.GEMV_COLS
+                + n_groups * m * (quant.GEMV_COLS // split) + 2 * pairs * m)
+
+
+def s8g4_plan(m: int, k: int, n: int, group: int = GROUP) -> tuple[str, int]:
+    """s8g4_matmul's regime and K split, mirroring
+    csrc/s8g4_matmul.cu:make_plan. ("gemv", split) at M ≤
+    S8_GEMV_MAX_M: the split (cluster size, a power of two; rank r
+    takes group pairs [r·P/split, (r+1)·P/split) of the P = n_groups/2)
+    is ops.quant.gemv_split over K steps of S8_GEMV_STEP packed rows,
+    halved while it exceeds P or the grid exceeds the blocks the card
+    holds at once in clusters of 4 or 8 (S8G4_CLUSTER_BLOCKS), then
+    doubled (to at most 8 and P, within that bound) while the block's
+    shared memory exceeds S8G4_GEMV_SMEM (two blocks an SM). ("mma", 1)
+    above, or where no such split exists."""
+    n_groups = k // group
+    half = n_groups // 2
+    tiles = -(-n // quant.GEMV_COLS)
+
+    def fits(split):
+        return tiles * split <= S8G4_CLUSTER_BLOCKS.get(split, tiles * split)
+
+    if m > S8_GEMV_MAX_M:
+        return "mma", 1
+    split = quant.gemv_split(k // 2 // S8_GEMV_STEP, n)
+    while split > half or not fits(split):
+        split //= 2
+    while (s8g4_gemv_smem(m, n_groups, group, split) > S8G4_GEMV_SMEM
+           and 2 * split <= min(quant.GEMV_MAX_SPLIT, half) and fits(2 * split)):
+        split *= 2
+    if s8g4_gemv_smem(m, n_groups, group, split) > S8G4_GEMV_SMEM:
+        return "mma", 1
+    return "gemv", split
+
+
 def s8g4_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
                 scale4: torch.Tensor) -> torch.Tensor:
     """W4A8 on the tensor cores: xq (M, K) int8 with xs (M, K/G) f32
     against w_q4 (K/2, N) packed and scale4 (K/G, N) f32 → (M, N) bf16.
 
-    CUDA: csrc/s8g4_matmul.cu; G a multiple of 32; ragged M and N are
-    masked in the kernel. CPU: the plain version."""
+    CUDA: csrc/s8g4_matmul.cu, the regime `s8g4_plan` names; G a
+    multiple of 32; ragged M and N are masked in the kernel. CPU: the
+    plain version."""
     if xq.device.type == "cpu":
         return s8g4_matmul_reference(xq, xs, w_q4, scale4)
     _check_cuda("s8g4_matmul", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4},
@@ -164,10 +217,12 @@ def s8g4_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
     if xs.shape != (m, n_groups):
         raise ValueError(f"s8g4_matmul: xs must be (M, K/G) = {(m, n_groups)}, "
                          f"got {xs.shape}")
-    # the kernel keeps the high groups' terms and one chunk of 8 low
-    # groups' terms of its (≤ 16, 32) tile in shared memory
+    # the mma tiles keep the high groups' terms and one chunk of 8 low
+    # groups' terms of their (≤ 16, 32) tile in shared memory; the GEMV's
+    # plan fits its own
     smem = (n_groups // 2 + 8) * min(m, BLOCK_M) * 32 * 4
-    if (k // n_groups) % 32 or not 1 <= m <= 65535 * BLOCK_M or smem > MAX_SMEM:
+    if (k // n_groups) % 32 or not 1 <= m <= 65535 * BLOCK_M or (
+            smem > MAX_SMEM and s8g4_plan(m, k, n, k // n_groups)[0] == "mma"):
         raise ValueError(f"s8g4_matmul: group {k // n_groups} (a multiple of 32), "
                          f"M={m} or {n_groups} groups out of range")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
