@@ -34,8 +34,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    least time the card could take; for the redesigned kernels
    (flash_attention, cross_attention_int8 and cross_attention_s8 at Tq 1
    and 5, self_attention_int8_lanes and self_attention_int8 at valid_len
-   115 and 227 here, int4_matmul and int4_matmul_s8 in phase 7,
-   s8_matmul and s8g4_matmul in phase 8) also a back-to-back time
+   115 and 227 here, int4_matmul and int4_matmul_s8 in phase 8,
+   s8_matmul and s8g4_matmul in phase 9) also a back-to-back time
    (20 launches in one CUDA graph over input copies larger than the L2
    cache, per launch) beside the earlier design's single-launch time;
 4. the greedy main path at full large-v3-turbo width (random weights
@@ -66,7 +66,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    zeroed before and read after each, one batch call of
    Transcriber.transcribe on the same 8 windows greedy and one at beam 5;
    each must launch cross_attention_s8 and not cross_attention_int8;
-7. the LLM enrichment path (llama-3.1-8b at full width, random bf16
+7. the master flow (transcribe → diarize → merge → enrich), same
+   model: random segmentation and embedding nets at the default dims
+   (SegmentationDims(): d_model 256 × 4 layers; EmbeddingDims(): 256
+   channels × 4 blocks, 192-d; seed 0) written as `.npz` checkpoints with
+   their dims under the default model names in a temporary models
+   directory, loaded by name through AudioProcessingPipeline.load_diarizer
+   (bf16 on the card), their segmentation logits and embeddings held
+   within 5e-2 relative L2 of the f32 nets of the same weights on the
+   CPU; then, with the counts zeroed, process_batch on the golden clip
+   and a synthesized 75 s two-speaker dialogue (num_speakers=2) on the
+   neural tier (twice: the first call is a warm-up) and on the
+   weight-free tier, and one process_audio(num_speakers=0, enrich=True)
+   on the dialogue with DummyLLM injected; each result's keys against the
+   JAX package's, its turns inside the file; the weight-free tier's
+   golden timeline within 0.5 s of examples/golden/expected.json and its
+   DER on the dialogue under 0.25; each stage's wall from
+   processing_times and the diarization's audio-s/s printed;
+   flash_attention and cross_attention_int8 must have been launched;
+8. the LLM enrichment path (llama-3.1-8b at full width, random bf16
    weights from seed 0 drawn on the card, then quantized there by
    quantize_tree at quantize_bits=4: int4 body, int8 lm_head):
    int8_matmul, int4_matmul and int4_matmul_s8 against their plain
@@ -92,11 +110,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step, tokens/s); all three kernels must have been launched. Last, a
    torch.profiler window over three decode steps: host wall against
    device busy time per step, launches per step, the heaviest kernels;
-8. the LLM-ops profiler path at full llama-3.2-3b width: s8_matmul and
+9. the LLM-ops profiler path at full llama-3.2-3b width: s8_matmul and
    s8g4_matmul against their plain versions at the profiler's m = 1
    shapes (3072→3072, →1024, →8192, 8192→3072, the head 3072→128256), at
    M = 8 and one ragged shape, with the limits and wrong readings of
-   phase 7 (both bit-equal to their plain versions, s8g4_matmul also
+   phase 8 (both bit-equal to their plain versions, s8g4_matmul also
    equal to int4_matmul_s8 on the same inputs), timed single launch and
    back to back, with torch._int_mm plus the rescale timed at M = 32 as
    the library context (it takes no M ≤ 16); s8g4_matmul also at
@@ -106,14 +124,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per step is printed; both kernels must have been launched there.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 8; every one of the ten kernels must have been launched), then as
+to 9; every one of the ten kernels must have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
 
     python3 chip_smoke.py --prefill-profile
 
-builds the kernels and runs only phase 7's prefill profile (no result
+builds the kernels and runs only phase 8's prefill profile (no result
 line): copied into an older tree of the port, it measures that tree's
 prefill the same way.
 
@@ -198,7 +216,7 @@ REPLACES = {
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
 LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
-# phase 7's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
+# phase 8's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
 # prefill rows or the decode step's M = 1 (and the route's largest, 8),
 # then one small ragged shape; the first is the kernels line's row.
 # int8_matmul also runs the head at the longest prompt's rows and at the
@@ -215,7 +233,7 @@ QUANT_SHAPES = {
                        (8, 4096, 14336), (8, 14336, 4096), (3, 256, 1000)),
 }
 PROFILER = "llama-3.2-3b"
-# phase 8's (M, K, N) for both profiler kernels: llama-3.2-3b's m = 1
+# phase 9's (M, K, N) for both profiler kernels: llama-3.2-3b's m = 1
 # projections (gate/up first: the kernels line's row), its lm_head, the
 # largest M of the W4A8 route and one small ragged shape
 S8_SHAPES = ((1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
@@ -747,7 +765,176 @@ def check_s8_step(att, transcriber, audio: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the LLM enrichment path
+# Phase 7: the master flow (transcribe → diarize → merge → enrich)
+
+# the JAX package's result keys (examples/golden/expected.json), and the
+# enrichment's when the LLM stage runs
+RESULT_KEYS = ["audio_path", "chunks", "diarization_segments", "duration", "language",
+               "merged_segments", "processing_times", "segments", "text"]
+ENRICH_KEYS = ["summary", "topics"]                 # + "speaker_names" when found
+TIME_KEYS = ["diarization", "merge", "total", "transcription"]
+DIAR_TOL = 5e-2            # relative L2 of bf16 nets on the card vs f32 on the CPU
+
+
+def two_speaker_clip(seconds: float, seed: int):
+    """Alternating two-speaker dialogue of harmonic voices at 115 and 285
+    Hz with silences between turns, and its true turns (the synthetic
+    conversation of tests/test_diarization_der.py)."""
+    rng = np.random.default_rng(seed)
+    audio = np.zeros(int(seconds * 16000), np.float32)
+    turns, t, spk = [], 0.8, 0
+    while t < seconds - 5.0:
+        dur = float(rng.uniform(2.5, 4.5))
+        tt = np.arange(int(dur * 16000)) / 16000
+        f0 = (115.0, 285.0)[spk] * rng.uniform(0.97, 1.03)
+        vib = 1.0 + 0.01 * np.sin(2 * np.pi * 5.0 * tt)
+        sig = sum((0.5 / k) * np.sin(2 * np.pi * f0 * k * vib * tt + rng.uniform(0, 6))
+                  for k in range(1, 6))
+        am = 0.6 + 0.4 * np.clip(np.sin(2 * np.pi * rng.uniform(2, 4) * tt), 0, 1)
+        seg = 0.3 * sig * am + 0.005 * rng.standard_normal(len(tt))
+        i0 = int(t * 16000)
+        audio[i0:i0 + len(seg)] = seg
+        turns.append({"start": t, "end": t + dur, "speaker": f"S{spk}"})
+        t += dur + float(rng.uniform(0.8, 1.3))
+        spk = 1 - spk
+    return audio, turns
+
+
+def check_result_schema(res: dict, duration: float, enriched: bool) -> None:
+    keys = sorted(RESULT_KEYS + (ENRICH_KEYS + (["speaker_names"] if "speaker_names" in res
+                                                 else []) if enriched else []))
+    assert sorted(res) == keys, sorted(res)
+    assert sorted(res["processing_times"]) == sorted(TIME_KEYS + (["llm"] if enriched else []))
+    assert abs(res["duration"] - duration) < 1e-3
+    for seg in res["diarization_segments"]:
+        assert 0.0 <= seg["start"] < seg["end"] <= duration + 1e-6, seg
+    assert len(res["merged_segments"]) == len(res["segments"])
+
+
+def check_diarization_nets(diarizer, cpu_seg, cpu_emb, audio: np.ndarray) -> None:
+    """The bf16 nets on the card against the f32 nets of the same weights
+    on the CPU, on the same mels: 8 segmentation windows and 8 crops."""
+    from turbo_whisper_workspace_tpu_torch.ops import mel as mel_ops
+
+    def pcm(rows):
+        return torch.from_numpy(np.clip(np.stack(rows) * 32768.0, -32768, 32767)
+                                .astype(np.int16))
+
+    win, crop = 160000, 32000
+    with torch.no_grad():
+        seg_mel = mel_ops.log_mel_spectrogram(
+            pcm([audio[i * 48000:i * 48000 + win] for i in range(8)]))[:, :, :1000]
+        emb_mel = mel_ops.log_mel_spectrogram(
+            pcm([audio[i * 16000:i * 16000 + crop] for i in range(8)]))[:, :, :200]
+        for name, card_net, cpu_net, mel in (
+                ("segmentation logits", diarizer.seg_params, cpu_seg, seg_mel),
+                ("embeddings", diarizer.emb_params, cpu_emb, emb_mel)):
+            got = card_net(mel.to(diarizer.device)).cpu()
+            ref = cpu_net(mel)
+            e = rel_err(got, ref)
+            print(f"diarization {name}, bf16 on the card vs f32 on the CPU, "
+                  f"{tuple(got.shape)}: rel err {e:.3e} (tolerance {DIAR_TOL})")
+            assert got.shape == ref.shape and torch.isfinite(got).all() and e <= DIAR_TOL
+
+
+def master_flow_phase(att, transcriber, dev, card: str) -> dict:
+    """Phase 7. Returns the launches of the flow's runs (counts zeroed
+    just before them)."""
+    import dataclasses
+
+    from turbo_whisper_workspace_tpu_torch.config import PipelineConfig
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.models import convert
+    from turbo_whisper_workspace_tpu_torch.models import embedding as emb_mod
+    from turbo_whisper_workspace_tpu_torch.models import segmentation as seg_mod
+    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
+        AudioProcessingPipeline)
+    from turbo_whisper_workspace_tpu_torch.utils.metrics import der
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # random nets at the default dims, seed 0, written as the
+        # default names' checkpoints and loaded by name (bf16 on the card)
+        cfg = PipelineConfig(models_dir=tmp)
+        gen = torch.Generator().manual_seed(0)
+        seg_dims, emb_dims = seg_mod.SegmentationDims(), emb_mod.EmbeddingDims()
+        cpu_seg = seg_mod.init_params(seg_dims, gen)
+        cpu_emb = emb_mod.init_params(emb_dims, gen)
+        convert.save_params(os.path.join(tmp, f"seg-{cfg.diarization.segmentation_model}.npz"),
+                            cpu_seg, meta=dataclasses.asdict(seg_dims))
+        convert.save_params(os.path.join(tmp, f"emb-{cfg.diarization.embedding_model}.npz"),
+                            cpu_emb, meta=dataclasses.asdict(emb_dims))
+        pipe = AudioProcessingPipeline(cfg, transcriber=transcriber, device=dev)
+        neural = pipe.load_diarizer()
+        assert neural.seg_dims == seg_dims and neural.emb_dims == emb_dims
+        for net in (neural.seg_params, neural.emb_params):
+            w = next(net.parameters())
+            assert w.dtype == torch.bfloat16 and w.device.type == dev.type, w
+        print(f"diarizer: segmentation {seg_dims}, embedding {emb_dims}, bf16 from "
+              f"{neural.segmentation_model!r} / {neural.embedding_model!r}")
+
+        long_audio, truth = two_speaker_clip(75.0, seed=5)
+        long_path = os.path.join(tmp, "two_speakers_75s.wav")
+        write_wav(long_path, long_audio)
+        check_diarization_nets(neural, cpu_seg, cpu_emb, long_audio)
+        paths = [GOLDEN, long_path]
+        durations = [15.0, 75.0]
+        golden_want = json.load(open(os.path.join(REPO, "examples", "golden",
+                                                  "expected.json")))["diarization_segments"]
+
+        def report(label: str, results: list, wall: float) -> None:
+            audio_s = sum(durations)
+            t = results[0]["processing_times"]
+            print(f"master flow, {label}: {len(paths)} files, {audio_s:.1f} s audio, wall "
+                  f"{wall:.3f} s; transcription {t['transcription']:.3f} s, diarization "
+                  f"{t['diarization']:.3f} s ({audio_s / t['diarization']:.1f} audio-s/s), "
+                  f"merge {sum(r['processing_times']['merge'] for r in results):.6f} s; "
+                  f"turns {[len(r['diarization_segments']) for r in results]} [{card}]")
+
+        att.reset_launch_counts()
+        for label, names in (("neural tier, first call", {}), ("neural tier", {}),
+                             ("weight-free tier", dict(segmentation_model="none",
+                                                       embedding_model="none"))):
+            t0 = time.perf_counter()
+            results = pipe.process_batch(paths, num_speakers=2, enrich=False, **names)
+            report(label, results, time.perf_counter() - t0)
+            for res, path, duration in zip(results, paths, durations):
+                assert res["audio_path"] == path
+                check_result_schema(res, duration, enriched=False)
+        fallback = pipe.load_diarizer(segmentation_model="none", embedding_model="none")
+        assert fallback.seg_params is None and fallback.emb_params is None
+        # the weight-free tier on the golden clip: its committed timeline
+        # (±0.5 s), and on the 75 s dialogue: the DER bound of the JAX tests
+        got = results[0]["diarization_segments"]
+        assert [g["speaker"] for g in got] == [w["speaker"] for w in golden_want], got
+        assert all(abs(g["start"] - w["start"]) <= 0.5 and abs(g["end"] - w["end"]) <= 0.5
+                   for g, w in zip(got, golden_want)), got
+        rep = der(truth, results[1]["diarization_segments"], duration_s=75.0)
+        print(f"weight-free tier on the 75 s dialogue: DER {rep['der']:.4f} "
+              f"(bound 0.25), {rep}")
+        assert rep["der"] < 0.25, rep
+
+        llm_helper.set_llm(llm_helper.DummyLLM())
+        try:
+            t0 = time.perf_counter()
+            res = pipe.process_audio(long_path, num_speakers=0, enrich=True)
+            wall = time.perf_counter() - t0
+        finally:
+            llm_helper.set_llm(None)
+        check_result_schema(res, 75.0, enriched=True)
+        t = res["processing_times"]
+        print(f"master flow, process_audio(num_speakers=0, enrich=True) with DummyLLM: "
+              f"wall {wall:.3f} s; transcription {t['transcription']:.3f} s, diarization "
+              f"{t['diarization']:.3f} s ({75.0 / t['diarization']:.1f} audio-s/s), merge "
+              f"{t['merge']:.6f} s, llm {t['llm']:.3f} s; "
+              f"{len({s['speaker'] for s in res['diarization_segments']})} speakers [{card}]")
+    counts = dict(att.launch_counts)
+    print(f"launches on the master-flow path: {counts}")
+    assert counts["flash_attention"] > 0 and counts["cross_attention_int8"] > 0, counts
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the LLM enrichment path
 
 
 def wrong_nibbles(tq, w_q4: torch.Tensor) -> dict:
@@ -781,7 +968,7 @@ def library_int8(x, w_q, scale, flush):
 
 
 def check_quant_kernels(tq, dev, card: str) -> dict:
-    """Phase 7: each quantized-matmul kernel against its plain version
+    """Phase 8: each quantized-matmul kernel against its plain version
     at the LLM path's shapes in bf16 and one ragged shape, with the wrong
     layout readings shown to matter, timed. The row in the kernels line
     is the first shape of each kernel (the path's heaviest use)."""
@@ -1133,7 +1320,7 @@ def llm_model(tq, lm, dev):
 
 
 def llm_phase(att, dev, card: str):
-    """Phase 7. Returns the three kernels' stats and the launches of the
+    """Phase 8. Returns the three kernels' stats and the launches of the
     stage's run (counts zeroed just before it)."""
     from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
     from turbo_whisper_workspace_tpu_torch.llm import llm_helper
@@ -1189,7 +1376,7 @@ def llm_phase(att, dev, card: str):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the LLM-ops profiler path
+# Phase 9: the LLM-ops profiler path
 
 
 def library_s8(prof, xq, xs, w_q, scale, flush) -> None:
@@ -1215,7 +1402,7 @@ def library_s8(prof, xq, xs, w_q, scale, flush) -> None:
 
 
 def check_s8_kernels(tq, prof, dev, card: str) -> dict:
-    """Phase 8: s8_matmul and s8g4_matmul against their plain versions at
+    """Phase 9: s8_matmul and s8g4_matmul against their plain versions at
     S8_SHAPES in the profiler's formats (int8 weights with per-column
     scales; grouped int4 with G = 128), with the wrong layout readings
     shown to matter, timed (s8_matmul also back to back, and int8_matmul's
@@ -1341,7 +1528,7 @@ def check_s8_kernels(tq, prof, dev, card: str) -> dict:
 
 
 def profiler_phase(dev, card: str):
-    """Phase 8. Returns the two kernels' stats and the launches of the
+    """Phase 9. Returns the two kernels' stats and the launches of the
     profiler's run (counts zeroed just before it)."""
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
@@ -1663,13 +1850,16 @@ def main(argv: list[str] | None = None) -> int:
         path_counts[label] = read_counts(label, ("flash_attention", "cross_attention_s8"))
         assert path_counts[label]["cross_attention_int8"] == 0, path_counts[label]
 
-    # 7. the LLM enrichment path: llama-3.1-8b at the Q4 point
+    # 7. the master flow: transcribe → diarize → merge → enrich, same model
+    path_counts["master flow"] = master_flow_phase(att, transcriber, dev, card)
+
+    # 8. the LLM enrichment path: llama-3.1-8b at the Q4 point
     del beam_tr, s8_tr, cross_kv, transcriber, pipe
     torch.cuda.empty_cache()
     qstats, path_counts["llm"] = llm_phase(att, dev, card)
     stats.update(qstats)
 
-    # 8. the LLM-ops profiler path at llama-3.2-3b width
+    # 9. the LLM-ops profiler path at llama-3.2-3b width
     torch.cuda.empty_cache()
     pstats, path_counts["profiler"] = profiler_phase(dev, card)
     stats.update(pstats)

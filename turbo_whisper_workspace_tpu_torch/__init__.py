@@ -10,12 +10,15 @@ package. Entry points run on CUDA unless the caller passes
 Layering:
     ops/       mel frontend, attention and quantized-matmul kernels'
                wrappers, quantizers, kernel build
-    models/    Whisper encoder/decoder as nn.Modules, the Llama LM,
-               weight conversion
+    models/    Whisper encoder/decoder as nn.Modules, the Llama LM, the
+               segmentation and speaker-embedding nets, weight conversion
     decode/    token rules, greedy and beam decode, long-form chunking/merge
     llm/       Llama generation, speaker naming, summaries, topics
-    pipeline/  transcriber, the single-file pipeline entry, LLM stages
+    pipeline/  transcriber, diarizer, the master flow (process_audio /
+               process_batch: transcribe → diarize → merge → enrich)
     audio/     first-party audio decode (copy of the JAX package's)
+    utils/     model registry, WER/DER metrics, wordlists
+    __main__   CLI: transcribe, models
 """
 
 __version__ = "0.1.0"

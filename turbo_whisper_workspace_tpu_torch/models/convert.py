@@ -1,18 +1,25 @@
 """Weights from the JAX package's parameter tree, `.npz` checkpoints and
 HF Whisper snapshots.
 
-Port of turbo_whisper_workspace_tpu/models/convert.py (`load_params`,
-`dims_from_hf_config`, `params_from_hf_state_dict`, `load_hf_snapshot`),
-plus `from_jax_params`, which maps the JAX tree onto models/whisper.Whisper:
+Port of turbo_whisper_workspace_tpu/models/convert.py (`save_params`,
+`load_params`, `load_meta`, `dims_from_hf_config`,
+`params_from_hf_state_dict`, `load_hf_snapshot`), plus the functions that
+map a JAX tree onto the port's modules: `from_jax_params` (Whisper),
+`segmentation_from_jax_params` and `embedding_from_jax_params` (the
+diarization nets), and `jax_params_from_module`, the way back:
 
-* `blocks` leaves are stacked along a leading layer axis (L, ...) and
-  are split into one module per layer;
+* `blocks` leaves, at any depth of the tree (`encoder/blocks` in
+  Whisper's, top-level `blocks` in the diarization nets'), are stacked
+  along a leading layer axis (L, ...) and are split into one module per
+  layer;
 * linear weights `w` are stored (d_in, d_out) and become
   `nn.Linear.weight` (d_out, d_in);
 * conv weights are OIH, which is torch's conv1d layout, and copy as is;
 * LayerNorm `scale`/`bias` become `weight`/`bias`.
 
-One checkpoint thus feeds both packages. A transformers
+One checkpoint thus feeds both packages: `save_params` writes the JAX
+package's flat `.npz` (bf16 stored as f32, `__meta__` as JSON), which
+either package's `load_params` reads. A transformers
 WhisperForConditionalGeneration state dict goes through the JAX tree's
 layout too (`params_from_hf_state_dict`), so both packages round its
 weights alike; `load_hf_snapshot` reads a snapshot directory
@@ -34,8 +41,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from torch import nn
+
+from .embedding import Embedding, EmbeddingDims
 from .llama import LlamaDims
-from .whisper import Whisper, WhisperDims
+from .segmentation import Segmentation, SegmentationDims
+from .whisper import LayerNorm, Whisper, WhisperDims
 
 
 def _leaf_name(parts: list[str], arr: np.ndarray) -> tuple[str, bool]:
@@ -51,21 +62,30 @@ def _leaf_name(parts: list[str], arr: np.ndarray) -> tuple[str, bool]:
     return ".".join(mods + [leaf]), False
 
 
+def _f32(node) -> np.ndarray:
+    """A leaf (numpy, JAX or torch array, bf16 too) → f32 numpy."""
+    if isinstance(node, torch.Tensor):
+        return node.detach().to(torch.float32).cpu().numpy()
+    return np.array(node, dtype=np.float32)
+
+
 def _flatten(tree: dict, prefix: tuple = ()):
     for key, node in tree.items():
         if isinstance(node, dict):
             yield from _flatten(node, prefix + (key,))
         else:
-            yield list(prefix + (key,)), np.array(node, dtype=np.float32)
+            yield list(prefix + (key,)), _f32(node)
 
 
 def state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:
-    """JAX parameter tree (nested dicts of arrays) → Whisper state dict."""
+    """JAX parameter tree (nested dicts of arrays) → state dict of the
+    matching port module."""
     state = {}
     for parts, arr in _flatten(params):
-        if len(parts) > 2 and parts[1] == "blocks":
+        if "blocks" in parts[:-1]:
             # (L, ...) stacked leaf → one entry per layer
-            head, rest = parts[:2], parts[2:]
+            cut = parts.index("blocks") + 1
+            head, rest = parts[:cut], parts[cut:]
             for li in range(arr.shape[0]):
                 name, transpose = _leaf_name(head + [str(li)] + rest, arr[li])
                 state[name] = torch.from_numpy(arr[li].T.copy() if transpose else arr[li])
@@ -75,20 +95,105 @@ def state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def from_jax_params(params: dict, dims: WhisperDims,
-                    dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cpu") -> Whisper:
-    """A Whisper module holding the weights of a JAX parameter tree."""
+def _module_from_jax_params(cls, params: dict, dims, dtype: torch.dtype,
+                            device: torch.device | str) -> nn.Module:
     with torch.device("meta"):
-        model = Whisper(dims)
+        model = cls(dims)
     model.load_state_dict(state_dict_from_jax_params(params), strict=True, assign=True)
     return model.to(device=device, dtype=dtype).eval().requires_grad_(False)
 
 
-def load_params(path: str) -> dict:
+def from_jax_params(params: dict, dims: WhisperDims,
+                    dtype: torch.dtype = torch.float32,
+                    device: torch.device | str = "cpu") -> Whisper:
+    """A Whisper module holding the weights of a JAX parameter tree."""
+    return _module_from_jax_params(Whisper, params, dims, dtype, device)
+
+
+def segmentation_from_jax_params(params: dict, dims: SegmentationDims,
+                                 dtype: torch.dtype = torch.float32,
+                                 device: torch.device | str = "cpu") -> Segmentation:
+    """A Segmentation module holding the weights of a JAX
+    models/segmentation.py tree (its `pos_emb` is a leaf and is copied)."""
+    return _module_from_jax_params(Segmentation, params, dims, dtype, device)
+
+
+def embedding_from_jax_params(params: dict, dims: EmbeddingDims,
+                              dtype: torch.dtype = torch.float32,
+                              device: torch.device | str = "cpu") -> Embedding:
+    """An Embedding module holding the weights of a JAX
+    models/embedding.py tree."""
+    return _module_from_jax_params(Embedding, params, dims, dtype, device)
+
+
+def jax_params_from_module(model: nn.Module) -> dict:
+    """A port module (Whisper, Segmentation, Embedding) → the JAX
+    package's parameter tree of f32 numpy arrays: the inverse of the
+    `*_from_jax_params` functions (layers stacked under `blocks`,
+    (d_in, d_out) linear weights, LayerNorm `scale`)."""
+    owners = dict(model.named_modules())
+    flat: dict[tuple, dict[int, np.ndarray]] = {}
+    for name, tensor in model.state_dict().items():
+        *path, leaf = name.split(".")
+        owner = owners[".".join(path)]
+        arr = _f32(tensor)
+        if isinstance(owner, (nn.Linear, nn.Conv1d)):
+            if leaf == "weight":
+                leaf, arr = "w", (arr.T.copy() if arr.ndim == 2 else arr)
+            else:
+                leaf = "b"
+        elif isinstance(owner, LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        li = -1
+        if "blocks" in path:
+            cut = path.index("blocks") + 1
+            li = int(path[cut])
+            path = path[:cut] + path[cut + 1:]
+        flat.setdefault(tuple(path) + (leaf,), {})[li] = arr
+    tree: dict = {}
+    for parts, layers in flat.items():
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = layers[-1] if -1 in layers else np.stack(
+            [layers[li] for li in range(len(layers))])
+    return tree
+
+
+def save_params(path: str, params, meta: dict | None = None) -> None:
+    """Flat `.npz` save of a parameter tree (nested dicts of numpy or
+    torch arrays) or of a port module (through jax_params_from_module),
+    in the JAX package's format: keys joined by `/`, bf16 stored as f32,
+    and `meta` (JSON-serializable, e.g. the dims' fields) under the
+    reserved `__meta__` key, so a loader can rebuild the architecture
+    from the checkpoint alone."""
+    if isinstance(params, nn.Module):
+        params = jax_params_from_module(params)
+    flat = {}
+
+    def visit(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                visit(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(node, torch.Tensor):
+            # npz has no bfloat16: store as f32 (load_params re-casts)
+            if node.dtype == torch.bfloat16:
+                node = node.float()
+            flat[prefix] = node.detach().cpu().numpy()
+        else:
+            flat[prefix] = np.asarray(node)
+
+    visit("", params)
+    if meta is not None:
+        flat["__meta__"] = np.asarray(json.dumps(meta))
+    np.savez(path, **flat)
+
+
+def load_params(path: str, dtype: torch.dtype | None = None) -> dict:
     """Load a flat `.npz` checkpoint (keys like `encoder/blocks/attn/q/w`,
-    bf16 stored as f32) into a nested tree of numpy arrays, skipping
-    `__meta__`."""
+    bf16 stored as f32) into a nested tree, skipping `__meta__`: numpy
+    arrays, or with `dtype` torch tensors whose floating leaves are cast
+    to it (integer leaves keep their type), as the JAX loader rounds."""
     tree: dict = {}
     with np.load(path) as data:
         for key in data.files:
@@ -98,8 +203,21 @@ def load_params(path: str) -> dict:
             node = tree
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = data[key]
+            arr = data[key]
+            if dtype is not None:
+                arr = torch.from_numpy(arr)
+                if arr.is_floating_point():
+                    arr = arr.to(dtype)
+            node[parts[-1]] = arr
     return tree
+
+
+def load_meta(path: str) -> dict | None:
+    """The `__meta__` dict saved alongside a `.npz` checkpoint, or None."""
+    with np.load(path) as data:
+        if "__meta__" not in data.files:
+            return None
+        return json.loads(str(data["__meta__"]))
 
 
 # ---------------------------------------------------------------------------

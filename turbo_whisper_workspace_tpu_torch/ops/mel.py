@@ -120,14 +120,16 @@ def _chunked_dft_bases(n_fft: int = N_FFT, hop: int = HOP_LENGTH):
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
-    """Full float32 products inside (TF32 off), restored on exit."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+def full_f32():
+    """Full float32 products and convolutions inside (TF32 off for
+    matmuls and cuDNN), restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _stft_power_tf(audio: torch.Tensor, n_fft: int = N_FFT,
@@ -170,7 +172,7 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mels: int = 80) -> torch.Tensor
         # host→device copy carries half the bytes of float32
         audio = audio.to(torch.float32) * (1.0 / 32768.0)
     audio = audio.to(torch.float32)
-    with _full_f32_matmul():
+    with full_f32():
         power = _stft_power_tf(audio)
         mel_w = torch.from_numpy(mel_filter_bank(num_mels)).to(audio.device)
         mel = torch.einsum("mf,btf->bmt", mel_w, power)

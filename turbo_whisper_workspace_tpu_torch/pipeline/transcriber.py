@@ -64,6 +64,16 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     return device
 
 
+def stage_pcm(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Float waveforms (B, N) → int16 PCM on its way to `device`: on CUDA
+    copied from pinned memory without blocking, so the copies of later
+    batches overlap the compute of earlier ones."""
+    pcm = torch.from_numpy(np.clip(batch * 32768.0, -32768, 32767).astype(np.int16))
+    if device.type == "cuda":
+        pcm = pcm.pin_memory()
+    return pcm.to(device, non_blocking=True)
+
+
 def _gather_kv(cross_kv: dict, rows: np.ndarray) -> dict:
     """Gather batch rows (axis 1 of every (L, B, ...) leaf) of a
     precomputed cross-KV dict — temperature retries re-decode failed rows
@@ -257,11 +267,7 @@ class Transcriber:
                 batch = np.concatenate(
                     [batch, np.zeros((pad, batch.shape[1]), np.float32)]
                 )
-            pcm = torch.from_numpy(
-                np.clip(batch * 32768.0, -32768, 32767).astype(np.int16))
-            if self.device.type == "cuda":
-                pcm = pcm.pin_memory()
-            staged.append((lo, hi, pcm.to(self.device, non_blocking=True)))
+            staged.append((lo, hi, stage_pcm(batch, self.device)))
         for lo, hi, pcm_dev in staged:
             cross_kv = self._encode_windows(pcm_dev)
             if detect and any(
