@@ -121,10 +121,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    llama-3.1-8b's decode shapes (4096→14336, 14336→4096), equal to and
    timed beside int4_matmul_s8 on the same inputs; then, with the counts
    zeroed, profile_llm_ops.main --steps 8 --iters 2, whose JSON of ms
-   per step is printed; both kernels must have been launched there.
+   per step is printed; both kernels must have been launched there;
+10. the offline tool shell, on phase 7's pipeline and phase 8's
+   quantized llama-3.1-8b, with the counts zeroed: SecurityMonitor
+   .monitor_directory over a directory holding the golden clip and the
+   75 s two-speaker dialogue (one process_batch call, DummyLLM
+   enrichment), timed; bar_security_monitor.run_mock_analysis with the
+   TorchLlama injected, so the incident summary is generated on the card
+   (an underage_drinking incident; prefill ms and ms per decode step);
+   evaluate_corpus over the same two files on the weight-free
+   diarization tier, with RTTMs from the dialogue's truth and
+   examples/golden/expected.json (corpus WER and DER printed, the
+   dialogue's DER under 0.25); dynamic_normalize and spectral_denoise on
+   the dialogue on the card, within 1e-4 relative L2 of the same calls on
+   the CPU, both timed; the CLI's check-gpu, info, diagnose and
+   preprocess (--denoise --dynamic --device cuda) on the golden clip;
+   flash_attention, cross_attention_int8, int4_matmul, int4_matmul_s8 and
+   int8_matmul must have been launched.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 9; every one of the ten kernels must have been launched), then as
+to 10; every one of the ten kernels must have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -837,9 +853,10 @@ def check_diarization_nets(diarizer, cpu_seg, cpu_emb, audio: np.ndarray) -> Non
             assert got.shape == ref.shape and torch.isfinite(got).all() and e <= DIAR_TOL
 
 
-def master_flow_phase(att, transcriber, dev, card: str) -> dict:
+def master_flow_phase(att, transcriber, dev, card: str):
     """Phase 7. Returns the launches of the flow's runs (counts zeroed
-    just before them)."""
+    just before them) and the pipeline, whose neural diarizer stays
+    loaded for phase 10."""
     import dataclasses
 
     from turbo_whisper_workspace_tpu_torch.config import PipelineConfig
@@ -930,7 +947,7 @@ def master_flow_phase(att, transcriber, dev, card: str) -> dict:
     counts = dict(att.launch_counts)
     print(f"launches on the master-flow path: {counts}")
     assert counts["flash_attention"] > 0 and counts["cross_attention_int8"] > 0, counts
-    return counts
+    return counts, pipe
 
 
 # ---------------------------------------------------------------------------
@@ -1320,8 +1337,9 @@ def llm_model(tq, lm, dev):
 
 
 def llm_phase(att, dev, card: str):
-    """Phase 8. Returns the three kernels' stats and the launches of the
-    stage's run (counts zeroed just before it)."""
+    """Phase 8. Returns the three kernels' stats, the launches of the
+    stage's run (counts zeroed just before it) and the TorchLlama, kept
+    for phase 10."""
     from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
     from turbo_whisper_workspace_tpu_torch.llm import llm_helper
     from turbo_whisper_workspace_tpu_torch.models import llama as lm
@@ -1372,7 +1390,7 @@ def llm_phase(att, dev, card: str):
     assert all(tq.launch_counts[name] > 0 for name in tq.launch_counts), counts
     llm_helper.set_llm(None)
     profile_decode(lm, params, dims, dev, card)
-    return qstats, counts
+    return qstats, counts, llm
 
 
 # ---------------------------------------------------------------------------
@@ -1551,6 +1569,147 @@ def profiler_phase(dev, card: str):
     print(f"launches on the profiler path: {counts}")
     assert all(prof.launch_counts[name] > 0 for name in prof.launch_counts), counts
     return stats, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the offline tool shell
+
+
+class CountedPipeline:
+    """A pipeline whose process_batch calls are recorded (the monitor's
+    directory mode must make one)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.calls = pipe, []
+
+    def process_batch(self, files, **kw):
+        self.calls.append(list(files))
+        return self.pipe.process_batch(files, **kw)
+
+
+def write_rttm(path: str, stem: str, turns: list) -> None:
+    """NIST RTTM SPEAKER lines (a name holds no blank: "Speaker 0" → "Speaker_0")."""
+    with open(path, "w") as f:
+        for t in turns:
+            name = t["speaker"].replace(" ", "_")
+            f.write(f"SPEAKER {stem} 1 {t['start']:.3f} {t['end'] - t['start']:.3f} "
+                    f"<NA> <NA> {name} <NA> <NA>\n")
+
+
+def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
+    """Phase 10. Returns the launches of the phase's runs (counts zeroed
+    just before them)."""
+    import shutil
+
+    from turbo_whisper_workspace_tpu_torch import __main__ as cli
+    from turbo_whisper_workspace_tpu_torch.analysis import bar_security_monitor as bar
+    from turbo_whisper_workspace_tpu_torch.analysis import preprocess as pp
+    from turbo_whisper_workspace_tpu_torch.analysis.security_monitor import SecurityMonitor
+    from turbo_whisper_workspace_tpu_torch.config import DiarizationConfig, PipelineConfig
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
+        AudioProcessingPipeline)
+    from turbo_whisper_workspace_tpu_torch.utils.evaluate import evaluate_corpus
+
+    dialogue, truth = two_speaker_clip(75.0, seed=5)
+    golden_want = json.load(open(os.path.join(REPO, "examples", "golden", "expected.json")))
+    att.reset_launch_counts()
+    tq.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir, ref_dir, rttm_dir = (os.path.join(tmp, d) for d in ("audio", "ref", "rttm"))
+        for d in (audio_dir, ref_dir, rttm_dir):
+            os.makedirs(d)
+        shutil.copy(GOLDEN, os.path.join(audio_dir, "golden.wav"))
+        write_wav(os.path.join(audio_dir, "dialogue.wav"), dialogue)
+
+        # the monitor's directory mode: one process_batch over both files
+        # (phase 7's pipeline, neural diarization, DummyLLM enrichment)
+        counted = CountedPipeline(pipe)
+        llm_helper.set_llm(llm_helper.DummyLLM())
+        try:
+            t0 = time.perf_counter()
+            incidents = SecurityMonitor(pipeline=counted, output_dir=os.path.join(tmp, "inc"),
+                                        device=dev).monitor_directory(audio_dir)
+            wall = time.perf_counter() - t0
+        finally:
+            llm_helper.set_llm(None)
+        assert len(counted.calls) == 1 and len(counted.calls[0]) == 2, counted.calls
+        print(f"security monitor, directory of 2 files (90.0 s audio): one process_batch "
+              f"call, wall {wall:.3f} s, {len(incidents)} incidents [{card}]")
+
+        # the mock transcript, its incident summary generated on the card
+        llm_helper.set_llm(llm)
+        try:
+            llm.last_generation = {}
+            t0 = time.perf_counter()
+            inc = bar.run_mock_analysis(monitor=bar.BarSecurityMonitor(
+                output_dir=os.path.join(tmp, "bar"), device=dev))
+            wall = time.perf_counter() - t0
+        finally:
+            llm_helper.set_llm(None)
+        assert inc is not None and inc.incident_type == "underage_drinking", inc
+        g = llm.last_generation
+        assert g, "the incident summary was not generated"   # generate_text hides errors
+        steps = g["decode_forwards"] + 1
+        print(f"mock bar incident ({inc.incident_type}, level {inc.threat_level}/5): summary "
+              f"prompt {g['prompt_tokens']} tokens, {steps} sampled (max 128); prefill "
+              f"{g['prefill_s'] * 1e3:.1f} ms; decode "
+              f"{g['decode_s'] * 1e3 / max(steps - 1, 1):.3f} ms per step; summary "
+              f"{len(inc.summary)} chars; wall {wall:.3f} s [{card}]")
+
+        # corpus WER and DER on the weight-free diarization tier
+        for stem, turns in (("golden", golden_want["diarization_segments"]),
+                            ("dialogue", truth)):
+            write_rttm(os.path.join(rttm_dir, f"{stem}.rttm"), stem, turns)
+            with open(os.path.join(ref_dir, f"{stem}.txt"), "w") as f:
+                f.write(golden_want["text"] if stem == "golden" else "")
+        eval_pipe = AudioProcessingPipeline(
+            PipelineConfig(diarization=DiarizationConfig(segmentation_model="none",
+                                                         embedding_model="none")),
+            transcriber=pipe.load_transcription_model(), device=dev)
+        t0 = time.perf_counter()
+        rep = evaluate_corpus(audio_dir, ref_dir=ref_dir, rttm_dir=rttm_dir, pipeline=eval_pipe,
+                              num_speakers=2, device=dev)
+        wall = time.perf_counter() - t0
+        print(f"evaluator, 2 files: corpus WER {rep['wer']} over {rep['wer_ref_words']} "
+              f"reference words (random weights, empty references: WER counts inserted "
+              f"words), corpus DER {rep['der']} (missed {rep['missed']}, false alarm "
+              f"{rep['false_alarm']}, confusion {rep['confusion']}), per file "
+              f"{rep['files']}; wall {wall:.3f} s [{card}]")
+        assert rep["files"]["dialogue"]["der"] < 0.25 and rep["files"]["golden"]["der"] < 0.25, rep
+
+        # preprocessing on the card against the same calls on the CPU
+        for name, fn in (("dynamic_normalize", pp.dynamic_normalize),
+                         ("spectral_denoise", pp.spectral_denoise)):
+            fn(dialogue, device=dev)                      # warm-up
+            walls = {}
+            outs = {}
+            for where in (dev, "cpu"):
+                t0 = time.perf_counter()
+                outs[str(where)] = fn(dialogue, device=where)
+                walls[str(where)] = time.perf_counter() - t0
+            got, ref = outs[str(dev)], outs["cpu"]
+            e = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+            print(f"{name} on 75 s: card {walls[str(dev)] * 1e3:.2f} ms, CPU "
+                  f"{walls['cpu'] * 1e3:.2f} ms (numpy in and out); card vs CPU rel err "
+                  f"{e:.3e} (tolerance 1e-4) [{card}]")
+            assert got.shape == ref.shape and np.isfinite(got).all() and e <= 1e-4, e
+
+        # the CLI on the card
+        cli.main(["check-gpu"])
+        cli.main(["info", "-i", GOLDEN])
+        cli.main(["diagnose", "-i", GOLDEN])
+        out = os.path.join(tmp, "golden_pre.wav")
+        cli.main(["preprocess", "-i", GOLDEN, "-o", out, "--denoise", "0.3", "--dynamic",
+                  "--device", str(dev)])
+        assert os.path.getsize(out) > 44
+    counts = {**{n: c for n, c in att.launch_counts.items() if c},
+              **{n: c for n, c in tq.launch_counts.items() if c}}
+    print(f"launches on the tool-shell path: {counts}")
+    for name in ("flash_attention", "cross_attention_int8", "int4_matmul", "int4_matmul_s8",
+                 "int8_matmul"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    return counts
 
 
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
@@ -1851,18 +2010,23 @@ def main(argv: list[str] | None = None) -> int:
         assert path_counts[label]["cross_attention_int8"] == 0, path_counts[label]
 
     # 7. the master flow: transcribe → diarize → merge → enrich, same model
-    path_counts["master flow"] = master_flow_phase(att, transcriber, dev, card)
+    path_counts["master flow"], flow_pipe = master_flow_phase(att, transcriber, dev, card)
 
     # 8. the LLM enrichment path: llama-3.1-8b at the Q4 point
     del beam_tr, s8_tr, cross_kv, transcriber, pipe
     torch.cuda.empty_cache()
-    qstats, path_counts["llm"] = llm_phase(att, dev, card)
+    qstats, path_counts["llm"], llm = llm_phase(att, dev, card)
     stats.update(qstats)
 
     # 9. the LLM-ops profiler path at llama-3.2-3b width
     torch.cuda.empty_cache()
     pstats, path_counts["profiler"] = profiler_phase(dev, card)
     stats.update(pstats)
+
+    # 10. the offline tool shell: phase 7's pipeline, phase 8's LLM
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+
+    path_counts["tool shell"] = tool_shell_phase(att, tq, flow_pipe, llm, dev, card)
 
     lines = []
     for name, s in stats.items():

@@ -1,8 +1,10 @@
 """Port HF Whisper snapshot loading (turbo_whisper_workspace_tpu_torch/
-models/convert.py: dims_from_hf_config, params_from_hf_state_dict,
-load_hf_snapshot; pipeline/audio_pipeline.py:load_transcription_model)
-against the JAX package, on a random-init tiny transformers
-WhisperForConditionalGeneration saved with `save_pretrained`."""
+models/convert.py: hf_config_from_dims, dims_from_hf_config,
+params_from_hf_state_dict, load_hf_snapshot; pipeline/audio_pipeline.py:
+load_transcription_model; the CLI's `convert`) against the JAX package,
+on a random-init tiny transformers WhisperForConditionalGeneration saved
+with `save_pretrained`; and the port's own checkpoints (save_checkpoint /
+load_checkpoint) and models/whisper.py:param_count."""
 
 import json
 import logging
@@ -133,3 +135,63 @@ def test_pipeline_raises_for_unlisted_name_without_snapshot(tmp_path):
         device="cpu")
     with pytest.raises(ValueError, match="unknown whisper model"):
         pipe.load_transcription_model()
+
+
+def test_hf_config_from_dims_matches_jax():
+    dims = twm.WhisperDims(**DIMS.__dict__)
+    assert tconvert.hf_config_from_dims(dims).to_dict() == \
+        jconvert.hf_config_from_dims(DIMS).to_dict()
+
+
+@pytest.mark.parametrize("name", ["tiny", "large-v3-turbo"])
+def test_param_count_matches_jax(name):
+    """The count from the dims alone (a meta-device model: no weights
+    are allocated), against JAX param_count over the shapes of its init."""
+    jdims = DIMS if name == "tiny" else jwm.WHISPER_CONFIGS[name]
+    shapes = jax.eval_shape(lambda: jwm.init_params(jdims, jax.random.PRNGKey(0)))
+    with torch.device("meta"):
+        model = twm.Whisper(twm.WhisperDims(**jdims.__dict__))
+    assert twm.param_count(model) == jwm.param_count(shapes)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """A module's state dict and a nested numpy tree, saved and loaded
+    back: equal leaves; `like` gives each leaf its dtype."""
+    gen = torch.Generator().manual_seed(0)
+    model = twm.init_params(twm.WhisperDims(**DIMS.__dict__), gen)
+    path = str(tmp_path / "ckpt" / "whisper.pt")
+    tconvert.save_checkpoint(path, model)
+    back = tconvert.load_checkpoint(path)
+    assert sorted(back) == sorted(model.state_dict())
+    for name, val in model.state_dict().items():
+        assert torch.equal(back[name], val), name
+    like = {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()}
+    cast = tconvert.load_checkpoint(path, like=like)
+    assert all(cast[k].dtype == torch.bfloat16 for k in cast)
+    assert torch.equal(cast["decoder.token_emb"], like["decoder.token_emb"])
+
+    tree = {"a": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
+            "n": np.array([1, 2], np.int32)}
+    tconvert.save_checkpoint(str(tmp_path / "tree.pt"), tree)
+    back = tconvert.load_checkpoint(str(tmp_path / "tree.pt"))
+    np.testing.assert_array_equal(back["a"]["w"].numpy(), tree["a"]["w"])
+    assert back["n"].dtype == torch.int32
+
+
+def test_cli_convert_loads_in_jax(snapshot, tmp_path, capsys):
+    """The port's `convert` writes an `.npz` that the JAX package's
+    load_params reads, equal leaf by leaf to the JAX package's own
+    conversion of the same snapshot."""
+    from turbo_whisper_workspace_tpu_torch import __main__ as tcli
+
+    out = str(tmp_path / "whisper-tiny-snapshot.npz")
+    tcli.main(["convert", "-i", str(snapshot), "-o", out])
+    assert "converted" in capsys.readouterr().out
+    got = jconvert.load_params(out, dtype=jax.numpy.float32)
+    ref, _ = jconvert.load_hf_snapshot(str(snapshot), dtype=jax.numpy.float32)
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_ref = dict(jax.tree_util.tree_flatten_with_path(ref)[0])
+    assert sorted(map(str, flat_got)) == sorted(map(str, flat_ref))
+    for key, val in flat_ref.items():
+        np.testing.assert_array_equal(np.asarray(flat_got[key]), np.asarray(val),
+                                      err_msg=str(key))

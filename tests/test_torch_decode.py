@@ -1,8 +1,9 @@
 """Port decode (turbo_whisper_workspace_tpu_torch/decode) against the JAX
 package: token rules, greedy decode at T=0, beam search in its three
 self-KV cache modes and language detection on the same weights and
-cross-KV; sampled decode (T>0) for grammar validity only, since torch's
-generator cannot reproduce JAX's rbg draws."""
+cross-KV, the mel-in helpers greedy_decode and detect_language, and
+ops/mel.py:stft_power; sampled decode (T>0) for grammar validity only,
+since torch's generator cannot reproduce JAX's rbg draws."""
 
 import jax
 import jax.numpy as jnp
@@ -15,12 +16,14 @@ from turbo_whisper_workspace_tpu.decode import greedy as jgreedy
 from turbo_whisper_workspace_tpu.decode import rules as jrules
 from turbo_whisper_workspace_tpu.decode import tokenizer as jtok
 from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu.ops import mel as jmel
 from turbo_whisper_workspace_tpu_torch.decode import beam as tbeam
 from turbo_whisper_workspace_tpu_torch.decode import greedy as tgreedy
 from turbo_whisper_workspace_tpu_torch.decode import rules as trules
 from turbo_whisper_workspace_tpu_torch.decode import tokenizer as ttok
 from turbo_whisper_workspace_tpu_torch.models import convert
 from turbo_whisper_workspace_tpu_torch.models import whisper as twm
+from turbo_whisper_workspace_tpu_torch.ops import mel as tmel
 
 DIMS = jwm.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
 SP_J = jtok.special_tokens_for_vocab(DIMS.n_vocab)
@@ -215,3 +218,46 @@ def test_top_k_matches_jax_on_ties():
         got_v, got_i = tbeam._top_k(torch.from_numpy(x), k)
         np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+
+
+@pytest.fixture(scope="module")
+def mel():
+    """Log-mel features of two 30 s windows of noise and tone, (2, 80, 3000)."""
+    rng = np.random.default_rng(2)
+    t = np.arange(tmel.N_SAMPLES) / tmel.SAMPLE_RATE
+    audio = np.stack([0.1 * rng.standard_normal(t.size),
+                      0.3 * np.sin(2 * np.pi * 300 * t) + 0.01 * rng.standard_normal(t.size)])
+    return np.array(jmel.log_mel_spectrogram(jnp.asarray(audio, jnp.float32)))
+
+
+def test_greedy_decode_from_mel_matches_jax(setup, mel):
+    """Encoder, dense cross-KV and greedy decode at T = 0 from log-mel
+    input: tokens and lengths equal."""
+    params, model = setup[:2]
+    prompt = np.array([SP_J.sot_sequence("en")] * 2, np.int32)
+    ref = jgreedy.greedy_decode(params, DIMS, jnp.asarray(mel), jnp.asarray(prompt),
+                                rules=jrules.DecodeRules(specials=SP_J), max_len=12)
+    got = tgreedy.greedy_decode(model, torch.from_numpy(mel), torch.from_numpy(prompt).long(),
+                                rules=trules.DecodeRules(specials=SP_T), max_len=12)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(ref.lengths))
+    np.testing.assert_allclose(got.sum_logprobs.numpy(), np.asarray(ref.sum_logprobs),
+                               atol=1e-3)
+
+
+def test_detect_language_from_mel_matches_jax(setup, mel):
+    params, model = setup[:2]
+    ref = np.asarray(jgreedy.detect_language(params, DIMS, jnp.asarray(mel), SP_J))
+    got = tgreedy.detect_language(model, torch.from_numpy(mel), SP_T).numpy()
+    assert got.shape == ref.shape == (2, SP_J.n_languages)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("n", [16000, 16000 * 3 + 77])
+def test_stft_power_matches_jax(n):
+    audio = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32) * 0.1
+    ref = np.asarray(jmel.stft_power(jnp.asarray(audio)))
+    got = tmel.stft_power(torch.from_numpy(audio)).numpy()
+    assert got.shape == ref.shape == (2, tmel.N_FREQS, n // tmel.HOP_LENGTH)
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-5

@@ -30,6 +30,26 @@ def _port_modules() -> list[str]:
         for p in PORT.rglob("*.py"))
 
 
+# the modules of the offline tool shell, listed so that a missing file
+# fails here instead of dropping out of the glob
+TOOL_SHELL = [
+    "turbo_whisper_workspace_tpu_torch.analysis",
+    "turbo_whisper_workspace_tpu_torch.analysis.audio_info",
+    "turbo_whisper_workspace_tpu_torch.analysis.bar_security_monitor",
+    "turbo_whisper_workspace_tpu_torch.analysis.diagnostics",
+    "turbo_whisper_workspace_tpu_torch.analysis.preprocess",
+    "turbo_whisper_workspace_tpu_torch.analysis.security_monitor",
+    "turbo_whisper_workspace_tpu_torch.analysis.visualizer",
+    "turbo_whisper_workspace_tpu_torch.audio.features",
+    "turbo_whisper_workspace_tpu_torch.utils.evaluate",
+    "turbo_whisper_workspace_tpu_torch.utils.profiling",
+]
+
+
+def test_tool_shell_modules_are_checked():
+    assert set(TOOL_SHELL) <= set(_port_modules())
+
+
 def test_port_imports_load_no_jax():
     code = (
         "import sys; sys.path.insert(0, '.')\n"

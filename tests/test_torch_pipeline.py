@@ -35,9 +35,17 @@ from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.pipeline import audio_pipeline as tpipe
 from turbo_whisper_workspace_tpu_torch.pipeline import diarizer as tdz
 from turbo_whisper_workspace_tpu_torch.pipeline import transcriber as ttr
-from tests.test_pipeline import FakeTranscriber, _write_two_speaker_wav
+from tests.test_pipeline import FakeTranscriber as _JFakeTranscriber
+from tests.test_pipeline import _write_two_speaker_wav
 
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "examples" / "golden"
+
+
+class FakeTranscriber(_JFakeTranscriber):
+    """The JAX tests' fake, also taking the port pipeline's per-call task."""
+
+    def transcribe(self, audios, languages=None, initial_prompt=None, task=None):
+        return super().transcribe(audios, languages, initial_prompt)
 
 
 @pytest.fixture(autouse=True)

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from turbo_whisper_workspace_tpu.audio import io as jio
+from turbo_whisper_workspace_tpu.config import PipelineConfig as JPipelineConfig
 from turbo_whisper_workspace_tpu.config import TranscriptionConfig as JConfig
 from turbo_whisper_workspace_tpu.decode import longform as jlongform
 from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu.pipeline import audio_pipeline as jpipe
 from turbo_whisper_workspace_tpu.pipeline import diarizer as jdiar
 from turbo_whisper_workspace_tpu.pipeline import transcriber as jtr
 from turbo_whisper_workspace_tpu_torch.audio import io as tio
@@ -86,6 +88,56 @@ def test_pipeline_transcribe_returns_result_schema(pair, monkeypatch):
                               "segments", "text"]
     assert result["language"] == "en"
     assert result["duration"] == pytest.approx(15.0, abs=0.01)
+
+
+@pytest.mark.parametrize("task, config_task, want", [
+    ("translate", "transcribe", "translate"),
+    ("transcribe", "translate", "transcribe"),
+    (None, "translate", "translate"),
+    (None, "transcribe", "transcribe"),
+])
+def test_task_reaches_sot_rows(pair, monkeypatch, tmp_path, task, config_task, want):
+    """A per-call task reaches every SOT row the decoder is given, through
+    process_batch; without one the transcription config's task does (the
+    JAX pipeline drops the per-call task, a recorded deviation)."""
+    _, model = pair
+    monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
+    rows = []
+    decode = ttr.greedy_mod.greedy_decode_features
+
+    def spy(model, cross_kv, prompt, **kw):
+        rows.extend(prompt.tolist())
+        return decode(model, cross_kv, prompt, **kw)
+
+    monkeypatch.setattr(ttr.greedy_mod, "greedy_decode_features", spy)
+    tt = ttr.load_transcriber(model, TConfig(batch_size=1, max_decode_len=4, language="en",
+                                             task=config_task), device="cpu")
+    sp = tt.tokenizer.specials
+    path = str(tmp_path / "a.wav")
+    tio.write_wav(path, _long_clip(4.0))
+    pipe = tpipe.AudioProcessingPipeline(PipelineConfig(), transcriber=tt, device="cpu")
+    pipe.process_batch([path], task=task, num_speakers=1, enrich=False)
+    token = sp.translate if want == "translate" else sp.transcribe
+    assert rows and all(r[:3] == [sp.sot, sp.language_tokens["en"], token] for r in rows)
+
+
+def test_task_transcribe_matches_jax_pipeline(pair, monkeypatch):
+    """task="transcribe" passed through the port's process_batch gives the
+    JAX pipeline's results on the same weights and file."""
+    params, model = pair
+    monkeypatch.setattr(jtr, "FALLBACK_TEMPERATURES", (0.0,))
+    monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
+    kw = dict(batch_size=1, max_decode_len=12, language="en")
+    path = str(GOLDEN / "conversation.wav")
+    ref = jpipe.AudioProcessingPipeline(
+        JPipelineConfig(), transcriber=jtr.load_transcriber(params, DIMS, JConfig(**kw))
+    ).process_batch([path], task="transcribe", num_speakers=2, enrich=False)[0]
+    got = tpipe.AudioProcessingPipeline(
+        PipelineConfig(), transcriber=ttr.load_transcriber(model, TConfig(**kw), device="cpu"),
+        device="cpu").process_batch([path], task="transcribe", num_speakers=2,
+                                    enrich=False)[0]
+    for key in ("text", "chunks", "language", "merged_segments", "diarization_segments"):
+        assert got[key] == ref[key], key
 
 
 def test_encode_windows_passes_int16_through(pair):

@@ -16,9 +16,14 @@ Layering:
     llm/       Llama generation, speaker naming, summaries, topics
     pipeline/  transcriber, diarizer, the master flow (process_audio /
                process_batch: transcribe → diarize → merge → enrich)
-    audio/     first-party audio decode (copy of the JAX package's)
-    utils/     model registry, WER/DER metrics, wordlists
-    __main__   CLI: transcribe, models
+    analysis/  security monitors, preprocessing (torch on a device),
+               diagnostics, audio info, visualizer (matplotlib, lazy)
+    audio/     first-party audio decode (copy of the JAX package's),
+               features (MFCC, silence, splits)
+    utils/     model registry, WER/DER metrics and the corpus evaluator,
+               profiling, native builds, wordlists
+    __main__   CLI: transcribe, security, info, diagnose, preprocess,
+               convert, models, eval, check-gpu
 """
 
 __version__ = "0.1.0"

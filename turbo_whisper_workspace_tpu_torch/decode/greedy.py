@@ -5,7 +5,9 @@ runs the loop as one `lax.while_loop` inside one jit; here it is a
 Python loop over decoder steps that stops when every row has emitted
 EOT (`finished.all()`, one host sync per step) or after max_len steps.
 Returned bookkeeping mirrors openai/whisper's DecodingResult fields the
-long-form fallbacks need (avg_logprob, no_speech_prob).
+long-form fallbacks need (avg_logprob, no_speech_prob). `greedy_decode`
+and `detect_language` take log-mel input: the encoder, then the dense
+cross-KV, then the `*_features` function, as the JAX helpers do.
 
 Sampling at temperature T > 0 is gumbel-max, argmax(logits + T·G), with
 G drawn from the caller's `torch.Generator`; its draws differ from the
@@ -125,3 +127,19 @@ def detect_language_features(model: wm.Whisper, cross_kv: dict, sot: int,
     logits, _ = model.decoder(prompt, cross_kv, cross_s8=cross_s8)
     lang_logits = logits[:, 0, lang_token_start:lang_token_start + n_languages]
     return torch.softmax(lang_logits, dim=-1)
+
+
+@torch.no_grad()
+def greedy_decode(model: wm.Whisper, mel: torch.Tensor, prompt: torch.Tensor,
+                  **kw) -> DecodeResult:
+    """mel (B, n_mels, 3000) + prompt (B, P) → DecodeResult."""
+    cross_kv = model.decoder.precompute_cross_kv(model.encoder(mel))
+    return greedy_decode_features(model, cross_kv, prompt, **kw)
+
+
+@torch.no_grad()
+def detect_language(model: wm.Whisper, mel: torch.Tensor, specials) -> torch.Tensor:
+    """mel (B, n_mels, 3000) → (B, n_languages) language probabilities."""
+    cross_kv = model.decoder.precompute_cross_kv(model.encoder(mel))
+    return detect_language_features(model, cross_kv, specials.sot, specials.sot + 1,
+                                     specials.n_languages)

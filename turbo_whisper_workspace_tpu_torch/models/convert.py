@@ -2,8 +2,9 @@
 HF Whisper snapshots.
 
 Port of turbo_whisper_workspace_tpu/models/convert.py (`save_params`,
-`load_params`, `load_meta`, `dims_from_hf_config`,
-`params_from_hf_state_dict`, `load_hf_snapshot`), plus the functions that
+`load_params`, `load_meta`, `hf_config_from_dims`, `dims_from_hf_config`,
+`params_from_hf_state_dict`, `load_hf_snapshot`, `save_checkpoint`,
+`load_checkpoint`), plus the functions that
 map a JAX tree onto the port's modules: `from_jax_params` (Whisper),
 `segmentation_from_jax_params` and `embedding_from_jax_params` (the
 diarization nets), and `jax_params_from_module`, the way back:
@@ -19,7 +20,12 @@ diarization nets), and `jax_params_from_module`, the way back:
 
 One checkpoint thus feeds both packages: `save_params` writes the JAX
 package's flat `.npz` (bf16 stored as f32, `__meta__` as JSON), which
-either package's `load_params` reads. A transformers
+either package's `load_params` reads. `save_checkpoint` /
+`load_checkpoint` differ from the JAX package's: it writes Orbax
+checkpoint directories, and here a checkpoint is one `torch.save` file
+of the nested tensor tree, read back with `weights_only=True`; the two
+are not interchangeable, and the `.npz` stays the interchange format. A
+transformers
 WhisperForConditionalGeneration state dict goes through the JAX tree's
 layout too (`params_from_hf_state_dict`), so both packages round its
 weights alike; `load_hf_snapshot` reads a snapshot directory
@@ -220,8 +226,69 @@ def load_meta(path: str) -> dict | None:
         return json.loads(str(data["__meta__"]))
 
 
+def save_checkpoint(path: str, params) -> None:
+    """Save a parameter tree (nested dicts of tensors or numpy arrays) or
+    a port module's state dict with `torch.save`, numpy leaves as
+    tensors."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+
+    def to_tensor(node):
+        if isinstance(node, Mapping):
+            return {k: to_tensor(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            return node.detach()
+        return torch.from_numpy(np.asarray(node))
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(to_tensor(params), path)
+
+
+def load_checkpoint(path: str, like=None):
+    """Load a `save_checkpoint` file (`weights_only=True`: tensors and
+    plain containers only). `like`, a tree of the same structure (a
+    module's state dict, say), gives each leaf its dtype and device;
+    without it the leaves come back as saved, on the CPU."""
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    if like is None:
+        return tree
+
+    def match(node, ref):
+        if isinstance(node, Mapping):
+            return {k: match(v, ref[k]) for k, v in node.items()}
+        return node.to(dtype=ref.dtype, device=ref.device)
+
+    return match(tree, like)
+
+
 # ---------------------------------------------------------------------------
 # HF Whisper snapshots
+
+
+def hf_config_from_dims(dims: WhisperDims):
+    """A transformers WhisperConfig matching `dims` (offline; transformers
+    is imported here only, so nothing else of the port needs it)."""
+    from transformers import WhisperConfig
+
+    return WhisperConfig(
+        vocab_size=dims.n_vocab,
+        num_mel_bins=dims.n_mels,
+        d_model=dims.n_audio_state,
+        encoder_layers=dims.n_audio_layer,
+        encoder_attention_heads=dims.n_audio_head,
+        decoder_layers=dims.n_text_layer,
+        decoder_attention_heads=dims.n_text_head,
+        encoder_ffn_dim=4 * dims.n_audio_state,
+        decoder_ffn_dim=4 * dims.n_text_state,
+        max_source_positions=dims.n_audio_ctx,
+        max_target_positions=dims.n_text_ctx,
+        # keep special ids inside small test vocabs
+        pad_token_id=0,
+        bos_token_id=0,
+        eos_token_id=min(dims.n_vocab - 1, 50257),
+        decoder_start_token_id=min(dims.n_vocab - 1, 50258),
+    )
+
 
 # transformers.WhisperConfig's defaults, for keys a config.json leaves out
 _HF_DEFAULTS = {"num_mel_bins": 80, "max_source_positions": 1500, "d_model": 384,

@@ -400,6 +400,14 @@ class Whisper(nn.Module):
         return self.decoder(tokens, cross_kv)[0]
 
 
+def param_count(model: nn.Module) -> int:
+    """Elements of every weight in the model's state dict: its parameters
+    and the encoder's sinusoidal `pos_emb` buffer, which is a leaf of the
+    JAX package's parameter tree, so the count equals JAX `param_count`
+    of the same dims."""
+    return sum(t.numel() for t in model.state_dict().values())
+
+
 # ---------------------------------------------------------------------------
 # Initialization and cache
 

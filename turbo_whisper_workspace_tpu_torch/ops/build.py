@@ -4,7 +4,12 @@ Each source has a plain C interface and becomes its own shared library,
 compiled by `nvcc` for `sm_90a` into `build/torch_cuda/` at the repo
 root (ignored by git) and loaded with ctypes. All stale sources compile
 at once, one `nvcc` process each. A library is rebuilt when its source,
-or a header in csrc/ (the sources' shared helpers), is newer. Nothing
+or a header in csrc/ (the sources' shared helpers), is newer. Across
+processes the check and the build run under a `flock` on
+`build/torch_cuda/build.lock`, and each `nvcc` writes a per-process
+temporary name that `os.replace` moves into place once it succeeded
+(utils/native.py's `locked` and `temp_path`), so no process loads a
+half-written library. Nothing
 here runs at import time: the CPU tests import every module on machines
 with no `nvcc`.
 
@@ -22,6 +27,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils.native import locked, temp_path
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -68,8 +75,8 @@ def _nvcc() -> str:
 def build_all() -> float:
     """Compile every stale kernel library in parallel; returns seconds."""
     t0 = time.perf_counter()
-    with _LOCK:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with _LOCK, locked(os.path.join(_BUILD_DIR, "build.lock")):
         headers = [os.path.getmtime(h) for h in glob.glob(os.path.join(_CSRC, "*.cuh"))]
         procs = {}
         for name in SIGNATURES:
@@ -77,15 +84,21 @@ def build_all() -> float:
             if os.path.exists(so) and os.path.getmtime(so) >= max(
                     [os.path.getmtime(src), *headers]):
                 continue
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", so, src]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", temp_path(so), src]
             procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)
         failed = []
         for name, proc in procs.items():
             out, _ = proc.communicate()
             build_log[name] = out
-            if proc.returncode != 0:
+            so = os.path.join(_BUILD_DIR, f"lib{name}.so")
+            tmp = temp_path(so)
+            if proc.returncode == 0:
+                os.replace(tmp, so)
+            else:
                 failed.append(f"{name}:\n{out}")
+                if os.path.exists(tmp):
+                    os.remove(tmp)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0

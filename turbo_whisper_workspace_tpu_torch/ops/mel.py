@@ -157,6 +157,14 @@ def _stft_power_tf(audio: torch.Tensor, n_fft: int = N_FFT,
     return real * real + imag * imag
 
 
+def stft_power(audio: torch.Tensor, n_fft: int = N_FFT,
+               hop_length: int = HOP_LENGTH) -> torch.Tensor:
+    """Power spectrogram |STFT|^2 of float audio (B, T), in the
+    (B, n_freqs, frames) layout, float32 with full-f32 products."""
+    with full_f32():
+        return _stft_power_tf(audio.to(torch.float32), n_fft, hop_length).transpose(1, 2)
+
+
 def log_mel_spectrogram(audio: torch.Tensor, num_mels: int = 80) -> torch.Tensor:
     """Whisper log-mel features: audio (B, T) or (T,), float or int16 PCM
     → (B, num_mels, T//hop) float32 on audio's device.

@@ -157,14 +157,15 @@ class AudioProcessingPipeline:
                 "bytes_in_use": torch.cuda.memory_allocated(device),
                 "bytes_limit": torch.cuda.mem_get_info(device)[1]}
 
-    def transcribe(self, audio_path: str, task: str = "transcribe",
+    def transcribe(self, audio_path: str, task: str | None = None,
                    initial_prompt: str | None = None) -> dict:
         """Single-file ASR: {"text", "chunks", "segments", "language",
         "duration", "processing_times"}. initial_prompt → <|startofprev|>
-        conditioning."""
+        conditioning; task ("transcribe" or "translate") reaches the
+        prompt's task token (None: the transcription config's task)."""
         t = self.load_transcription_model()
         audio, _ = audio_io.read_audio_file(audio_path)
-        return t.transcribe([audio], initial_prompt=initial_prompt)[0]
+        return t.transcribe([audio], initial_prompt=initial_prompt, task=task)[0]
 
     def diarize(self, audio_path: str, num_speakers: int = 2,
                 threshold: float | None = None,
@@ -202,7 +203,7 @@ class AudioProcessingPipeline:
     def process_audio(
         self,
         audio_path: str,
-        task: str = "transcribe",
+        task: str | None = None,
         segmentation_model: str | None = None,
         embedding_model: str | None = None,
         num_speakers: int = 2,
@@ -221,7 +222,7 @@ class AudioProcessingPipeline:
     def process_batch(
         self,
         audio_paths: Sequence[str],
-        task: str = "transcribe",
+        task: str | None = None,
         num_speakers: int = 2,
         threshold: float = 0.5,
         enrich: bool | None = None,
@@ -231,9 +232,11 @@ class AudioProcessingPipeline:
     ) -> list[dict]:
         """Batched master flow: all files' windows share the
         transcriber's batches, all files' diarization windows and crops
-        the diarizer's; merge and enrichment run per file. `task` is
-        accepted and not used, as in the JAX package (the transcription
-        config's task decides)."""
+        the diarizer's; merge and enrichment run per file. `task`
+        ("transcribe" or "translate"; None: the transcription config's)
+        reaches the transcriber's prompt, as the original system passes
+        it to its transcribe step; the JAX package accepts it and leaves
+        the config's task to decide (a recorded deviation)."""
         enrich = self.config.llm.enabled if enrich is None else enrich
         times_total0 = time.time()
 
@@ -242,7 +245,7 @@ class AudioProcessingPipeline:
         # 1) transcription (all files at once)
         t0 = time.time()
         transcriber = self.load_transcription_model()
-        asr = transcriber.transcribe(audios, initial_prompt=initial_prompt)
+        asr = transcriber.transcribe(audios, initial_prompt=initial_prompt, task=task)
         t_transcribe = time.time() - t0
 
         # 2) diarization: one batched call

@@ -19,7 +19,10 @@ Audio reaches the device as int16 PCM (converted on the device in the
 mel frontend), all batches' copies issued from pinned memory before the
 compute loop so they overlap it. One deliberate deviation from the JAX
 package: `_encode_windows` rescales only float arrays; an int16 array
-passes as it is (the JAX copy rescales it as if it were float).
+passes as it is (the JAX copy rescales it as if it were float). A
+second: `transcribe` takes a per-call `task`, which the SOT rows use
+before `config.task` (the JAX copy has no such argument, so its
+pipeline's `task` never reaches the prompt).
 """
 
 from __future__ import annotations
@@ -116,11 +119,12 @@ class Transcriber:
         return [sp.sot_prev] + toks[-max(cap, 0):]
 
     def _prompt_row(
-        self, language: str | None, prefix: list[int] | None = None
+        self, language: str | None, prefix: list[int] | None = None,
+        task: str | None = None,
     ) -> list[int]:
         return (prefix or []) + self.tokenizer.specials.sot_sequence(
             language=language or self.config.language or "en",
-            task=self.config.task,
+            task=task or self.config.task,
             timestamps=self.config.return_timestamps,
         )
 
@@ -149,10 +153,11 @@ class Transcriber:
         temperature: float = 0.0,
         beam_size: int | None = None,
         prefix: list[int] | None = None,
+        task: str | None = None,
     ):
         beam_size = beam_size if beam_size is not None else self.config.beam_size
         prompt = torch.tensor(
-            [self._prompt_row(l, prefix) for l in languages], dtype=torch.long,
+            [self._prompt_row(l, prefix, task) for l in languages], dtype=torch.long,
             device=self.device)
         sot_index = len(prefix) if prefix else 0
         if beam_size > 1 and temperature == 0.0:
@@ -208,12 +213,15 @@ class Transcriber:
         audios: Sequence[np.ndarray],
         languages: Sequence[str] | None = None,
         initial_prompt: str | None = None,
+        task: str | None = None,
     ) -> list[dict]:
         """Transcribe a list of waveforms (16 kHz mono float32).
 
         Returns one result dict per file: {"text", "chunks", "segments",
         "language", "duration", "processing_times"}. initial_prompt
-        conditions the decoder via <|startofprev|> tokens.
+        conditions the decoder via <|startofprev|> tokens; task
+        ("transcribe" or "translate") picks the SOT sequence's task
+        token, `config.task` when None.
         """
         t0 = time.time()
         cfg = self.config
@@ -282,7 +290,7 @@ class Transcriber:
                      for w in range(lo, hi)]
             langs += ["en"] * (bsz - (hi - lo))
             self._decode_windows_with_fallback(
-                cross_kv, langs, lo, hi, window_results, prefix=prefix
+                cross_kv, langs, lo, hi, window_results, prefix=prefix, task=task
             )
 
         # merge windows per file
@@ -303,7 +311,7 @@ class Transcriber:
         return out
 
     def _decode_windows_with_fallback(
-        self, cross_kv, langs, lo, hi, window_results, prefix=None
+        self, cross_kv, langs, lo, hi, window_results, prefix=None, task=None
     ) -> None:
         """Decode one fixed batch; re-decode failing rows at escalating
         temperatures (openai/whisper's fallback). The initial_prompt
@@ -314,7 +322,7 @@ class Transcriber:
         cur_kv, cur_langs = cross_kv, langs
         for t_i, temp in enumerate(FALLBACK_TEMPERATURES):
             res, p_len = self._decode_batch(
-                cur_kv, cur_langs, temperature=temp, prefix=prefix
+                cur_kv, cur_langs, temperature=temp, prefix=prefix, task=task
             )
             tokens = res.tokens[:, p_len:].cpu().numpy()
             lengths = res.lengths.cpu().numpy()
