@@ -137,10 +137,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the CPU, both timed; the CLI's check-gpu, info, diagnose and
    preprocess (--denoise --dynamic --device cuda) on the golden clip;
    flash_attention, cross_attention_int8, int4_matmul, int4_matmul_s8 and
-   int8_matmul must have been launched.
+   int8_matmul must have been launched;
+11. serving, on phase 7's pipeline (DummyLLM enrichment), with the counts
+   zeroed: the port's stdlib server on 127.0.0.1 in a thread, through
+   its client: GET / and /api/models, POST /api/transcribe with the
+   golden clip, /api/security/analyze and /api/analyze on the 75 s
+   dialogue (the card's machine has no matplotlib: the audio info and
+   `plots_error`), then two concurrent /api/transcribe requests whose
+   text and merged segments must equal the lone request's; then one
+   boot through ensure_api_server_running on a second port; each
+   request's wall printed; flash_attention and cross_attention_int8
+   must have been launched;
+12. parallelism: (a) an NCCL group of one rank, DP = 1: make_dp_decode
+   on phase 7's full-width model (int8 cross-KV), greedy and beam 5 on
+   one bucket of 8 windows, tokens equal to greedy_decode_features /
+   beam_decode_features run directly on the same inputs and no
+   collective issued; (b) the train step at full width on the same
+   group: first flash_attention's autograd route against the plain
+   version's autograd gradients at an encoder layer's (2, 20, 1500, 64)
+   (relative L2 of dq, dk, dv within 1e-2), then three AdamW steps of
+   make_train_step on one batch of 2 windows × 12 tokens (a fresh
+   random large-v3-turbo in bf16, learning rate 1e-3): finite losses
+   that descend, ms a step and peak memory printed; (c) TP = 2 as two
+   processes sharing the card over gloo (`--tp-worker`; NCCL takes one
+   rank a card): make_tp_decode at large-v3-turbo's widths and 4 + 4
+   layers with int8 cross-KV, 10 heads a rank, 8 windows × 32 greedy
+   steps, both ranks' tokens equal to the unsharded module's, each
+   rank's flash_attention and cross_attention_int8 launched and its
+   all-reduces counted; both processes joined with a timeout.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 10; every one of the ten kernels must have been launched), then as
+to 12, the TP ranks' included; every one of the ten kernels must have
+been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -167,10 +195,12 @@ import contextlib
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
@@ -1712,6 +1742,376 @@ def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serving_phase(att, pipe, dev, card: str) -> dict:
+    """Phase 11. Returns the launches of the phase's requests (counts
+    zeroed just before them)."""
+    from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.serve import api
+    from turbo_whisper_workspace_tpu_torch.serve.client import (APIClient,
+                                                                ensure_api_server_running)
+
+    dialogue, _ = two_speaker_clip(75.0, seed=5)
+    golden_s = len(audio_io.read_audio_file(GOLDEN)[0]) / 16000
+    api.set_pipeline(pipe)
+    llm_helper.set_llm(llm_helper.DummyLLM())
+    httpd = api.serve("127.0.0.1", 0, device=dev)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    booted = None
+
+    def timed(label: str, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        print(f"served {label}: wall {time.perf_counter() - t0:.3f} s [{card}]")
+        return res
+
+    def check_transcript(res: dict) -> None:
+        enriched = "summary" in res
+        check_result_schema(res, golden_s, enriched)
+        assert isinstance(res["text"], str) and res["language"]
+
+    att.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dialogue_path = os.path.join(tmp, "dialogue.wav")
+            write_wav(dialogue_path, dialogue)
+            client = APIClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+            root = timed("GET /", client.health)
+            assert root["name"] == "turbo-whisper-workspace-tpu-torch", root
+            models = timed("GET /api/models", client.models)
+            assert "large-v3-turbo" in models["whisper_models"], models
+            lone = timed(f"POST /api/transcribe (golden clip, {golden_s:.1f} s)",
+                         client.transcribe, GOLDEN)
+            check_transcript(lone)
+            sec = timed("POST /api/security/analyze (75 s dialogue)",
+                        client.security_analyze, dialogue_path)
+            assert isinstance(sec["incident_detected"], bool), sec
+            ana = timed("POST /api/analyze (75 s dialogue)", client.analyze, dialogue_path)
+            assert abs(ana["audio_info"]["duration"] - 75.0) < 1e-3, ana["audio_info"]
+            assert len(ana["plots"]) == 4 or "plots_error" in ana, sorted(ana)
+            print(f"  /api/analyze: {len(ana['plots'])} plots"
+                  + (f" ({ana['plots_error']})" if "plots_error" in ana else ""))
+            both, walls = [None, None], [0.0, 0.0]
+
+            def call(i: int) -> None:
+                t0 = time.perf_counter()
+                both[i] = client.transcribe(GOLDEN)
+                walls[i] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            print(f"served 2 concurrent POST /api/transcribe (golden clip): walls "
+                  f"{walls[0]:.3f} and {walls[1]:.3f} s, {wall:.3f} s together [{card}]")
+            for res in both:
+                assert res is not None, "a concurrent request did not answer"
+                check_transcript(res)
+                assert res["text"] == lone["text"], (res["text"], lone["text"])
+                assert res["merged_segments"] == lone["merged_segments"]
+            print(f"  concurrent responses equal the lone one: text ({len(lone['text'])} "
+                  f"chars) and {len(lone['merged_segments'])} merged segments")
+            booted = ensure_api_server_running(port=free_port(), device=str(dev))
+            assert timed("GET / (self-booted server)", booted.health)["name"] == root["name"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        llm_helper.set_llm(None)
+        api.set_pipeline(None)
+    counts = {n: c for n, c in att.launch_counts.items() if c}
+    print(f"launches on the serving path: {counts}")
+    for name in ("flash_attention", "cross_attention_int8"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: parallelism
+
+TP_LAYERS = 4              # large-v3-turbo widths at 4 + 4 layers for TP = 2
+TP_DECODE = 32             # greedy steps of the TP check
+TP_TIMEOUT_S = 600         # the two TP processes, joined
+TRAIN_BATCH, TRAIN_TOKENS, TRAIN_STEPS, TRAIN_LR = 2, 12, 3, 1e-3
+GRAD_TOL = 1e-2            # relative L2 of flash_attention's gradients, bf16
+# TP and unsharded bf16 logits differ by rounding alone (max abs 0.027 at
+# the prefill, NVIDIA H100 80GB HBM3, 700 W), and random weights leave
+# top-2 gaps near 0.12: a TP decode may leave the unsharded one only at a
+# decision whose margin is within twice that difference
+TIE_NATS = 0.05
+
+
+def pcm_windows(n: int, seed0: int) -> torch.Tensor:
+    """n synthesized 30 s windows as int16 PCM (the transcriber's input)."""
+    audio = np.stack([synth_clip(30.0, seed=s) for s in range(seed0, seed0 + n)])
+    return torch.from_numpy(np.clip(audio * 32768.0, -32768, 32767).astype(np.int16))
+
+
+def tp_worker(rank: int, world: int, port: int, out_dir: str) -> int:
+    """`chip_smoke.py --tp-worker RANK WORLD PORT DIR`: one rank of phase
+    12's TP = 2 check, sharing the card with the other over gloo; writes
+    DIR/tp_rank<RANK>.json (rank 0 also decodes with the unsharded
+    module)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
+    from turbo_whisper_workspace_tpu_torch.decode.rules import DecodeRules
+    from turbo_whisper_workspace_tpu_torch.decode.tokenizer import special_tokens_for_vocab
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import attention as att
+    from turbo_whisper_workspace_tpu_torch.ops import mel as mel_ops
+    from turbo_whisper_workspace_tpu_torch.parallel import infer
+    from turbo_whisper_workspace_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    dims = dataclasses.replace(wm.WHISPER_CONFIGS["large-v3-turbo"], n_audio_layer=TP_LAYERS,
+                               n_text_layer=TP_LAYERS)
+    model = wm.init_params(dims, torch.Generator(dev).manual_seed(0), dtype=torch.bfloat16)
+    rules = DecodeRules(specials=special_tokens_for_vocab(dims.n_vocab), timestamps=True)
+    pcm = pcm_windows(8, seed0=5)
+    sot = rules.specials.sot_sequence(language="en", task="transcribe", timestamps=True)
+    prompt = torch.tensor([sot] * len(pcm))
+    mesh = make_mesh(model_parallel=world, device_type="cuda")
+    fn = infer.make_tp_decode(model, mesh, rules=rules, max_len=TP_DECODE, quantize_kv=True)
+    local = fn.model
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, collectives = infer.count_collectives(fn, pcm, prompt)
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0, "launches": dict(att.launch_counts),
+           "collectives": collectives, "tokens": res.tokens.tolist(),
+           "lengths": res.lengths.tolist(),
+           "heads": [local.encoder.blocks[0].n_head, local.decoder.n_head],
+           "q": list(local.encoder.blocks[0].attn.q.weight.shape),
+           "fc2": list(local.encoder.blocks[0].mlp.fc2.weight.shape)}
+    with torch.no_grad():
+        kv = local.decoder.precompute_cross_kv(
+            torch.zeros(1, dims.n_audio_ctx, dims.n_audio_state, dtype=model.dtype,
+                        device=dev), quantize=True)
+    out["k_q"] = list(kv["k_q"].shape)
+
+    # the unsharded module's decode on rank 0, its tokens sent to rank 1
+    ref_tokens = torch.empty_like(res.tokens)
+    if rank == 0:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            mels = mel_ops.log_mel_spectrogram(pcm.to(dev), num_mels=dims.n_mels)
+            ckv = model.decoder.precompute_cross_kv(model.encoder(mels), quantize=True)
+            ref = greedy_mod.greedy_decode_features(model, ckv, prompt.to(dev), rules=rules,
+                                                    max_len=TP_DECODE)
+        torch.cuda.synchronize()
+        out["ref_wall"] = time.perf_counter() - t0
+        ref_tokens.copy_(ref.tokens)
+    dist.broadcast(ref_tokens, src=0)
+
+    def forced(module) -> torch.Tensor:
+        """Logits of every sampled position, teacher-forced on the
+        unsharded decode's tokens (the decisions it made)."""
+        with torch.no_grad():
+            mels = mel_ops.log_mel_spectrogram(pcm.to(dev), num_mels=dims.n_mels)
+            ckv = module.decoder.precompute_cross_kv(module.encoder(mels), quantize=True)
+            return module.decoder(ref_tokens[:, :-1], ckv)[0][:, prompt.shape[1] - 1:]
+
+    tp_logits = forced(local)
+    if rank == 0:
+        ref_logits = forced(model)
+        out["ref_tokens"] = ref_tokens.tolist()
+        out["forced_rel_err"] = rel_err(tp_logits, ref_logits)
+        out["forced_max_abs"] = float((tp_logits - ref_logits).abs().max())
+        # where a row's free-running TP decode first leaves the unsharded
+        # one: the unsharded logits' margin between its choice and TP's
+        p = prompt.shape[1]
+        out["divergence"] = []
+        for row, (a, b) in enumerate(zip(res.tokens.tolist(), ref_tokens.tolist())):
+            t = next((i for i in range(p, len(a)) if a[i] != b[i]), None)
+            margin = None if t is None else float(
+                ref_logits[row, t - p, b[t]] - ref_logits[row, t - p, a[t]])
+            out["divergence"].append([None if t is None else t - p, margin])
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_check(card: str) -> dict:
+    """Phase 12 (c): two `--tp-worker` processes; returns the launches of
+    their TP decodes, summed."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                                   str(r), "2", str(port), out]) for r in range(2)]
+        try:
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            rcs = [p.wait(timeout=max(deadline - time.monotonic(), 1)) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        assert rcs == [0, 0], f"TP workers exited {rcs}"
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"tp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"TP = 2 vs the unsharded module, both teacher-forced on the unsharded "
+          f"decode's tokens (8 windows x {TP_DECODE} steps): logits rel L2 "
+          f"{r0['forced_rel_err']:.3e}, max abs {r0['forced_max_abs']:.3e} (tolerance "
+          f"{MODEL_TOL}) [{card}]")
+    assert r0["forced_rel_err"] <= MODEL_TOL, r0["forced_rel_err"]
+    for r, got in enumerate(ranks):
+        print(f"TP = 2, rank {r}: {got['heads'][0]} encoder / {got['heads'][1]} decoder heads, "
+              f"q {got['q']}, fc2 {got['fc2']}, int8 cross-K {got['k_q']}; 8 windows x "
+              f"{TP_DECODE} steps, wall {got['wall']:.3f} s; collectives {got['collectives']}; "
+              f"launches {({n: c for n, c in got['launches'].items() if c})} [{card}]")
+        assert got["heads"] == [10, 10] and got["k_q"][2] == 10, got["heads"]
+        assert got["collectives"]["all_reduce"] > 0, got["collectives"]
+        for name in ("flash_attention", "cross_attention_int8"):
+            assert got["launches"][name] > 0, (name, got["launches"])
+        assert got["tokens"] == ranks[0]["tokens"], "the TP ranks decoded different tokens"
+    equal = sum(t is None for t, _ in r0["divergence"])
+    print(f"TP = 2 free-running tokens: {equal} of 8 rows equal to the unsharded decode "
+          f"over all {TP_DECODE} steps; the others (step, the unsharded logits' margin "
+          f"between its token and TP's): "
+          f"{[(t, round(m, 4)) for t, m in r0['divergence'] if t is not None]} (a row may "
+          f"leave only at a near-tie, |margin| <= {TIE_NATS}); unsharded decode "
+          f"{r0['ref_wall']:.3f} s on rank 0; two processes {wall:.1f} s in all [{card}]")
+    assert all(t is None or abs(m) <= TIE_NATS for t, m in r0["divergence"]), r0["divergence"]
+    return {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+
+
+def train_check(att, mesh, dev, card: str) -> dict:
+    """Phase 12 (b). Returns the launches of the three train steps."""
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import mel as mel_ops
+    from turbo_whisper_workspace_tpu_torch.parallel import train
+
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v, g = (torch.randn(TRAIN_BATCH, 20, 1500, 64, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    ours = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    att.flash_attention(*ours).backward(g)
+    att.flash_attention_reference(*plain).backward(g)
+    errs = [rel_err(a.grad, b.grad) for a, b in zip(ours, plain)]
+    print(f"flash_attention autograd route vs the plain version's autograd, "
+          f"{tuple(q.shape)} bf16: rel L2 dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+          f"(tolerance {GRAD_TOL})")
+    assert all(e <= GRAD_TOL for e in errs), errs
+    del q, k, v, g, ours, plain
+
+    dims = wm.WHISPER_CONFIGS["large-v3-turbo"]
+    model = wm.init_params(dims, torch.Generator(dev).manual_seed(1), dtype=torch.bfloat16)
+    init_fn, step_fn = train.make_train_step(model, mesh, learning_rate=TRAIN_LR)
+    local, opt = init_fn()
+    with torch.no_grad():
+        mel = mel_ops.log_mel_spectrogram(pcm_windows(TRAIN_BATCH, seed0=20).to(dev),
+                                          num_mels=dims.n_mels)
+    tokens = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_TOKENS), generator=gen, device=dev)
+    mask = torch.ones(TRAIN_BATCH, TRAIN_TOKENS - 1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        local, opt, loss = step_fn(local, opt, mel, tokens, mask)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {n: c for n, c in att.launch_counts.items() if c}
+    print(f"train step, large-v3-turbo bf16, batch {TRAIN_BATCH} x {TRAIN_TOKENS} tokens, "
+          f"AdamW lr {TRAIN_LR}: losses {[round(x, 4) for x in losses]}, ms a step "
+          f"{[round(w * 1e3, 1) for w in walls]}, peak memory {peak:.2f} GiB; launches "
+          f"{counts} [{card}]")
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    assert counts.get("flash_attention") == dims.n_audio_layer * TRAIN_STEPS, counts
+    del model, local, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parallel_phase(att, transcriber, dev, card: str) -> dict:
+    """Phase 12. Returns {path: launches} for the DP decodes, the train
+    steps and the TP ranks (counts zeroed just before each run)."""
+    import torch.distributed as dist
+
+    from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod
+    from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
+    from turbo_whisper_workspace_tpu_torch.ops import mel as mel_ops
+    from turbo_whisper_workspace_tpu_torch.parallel import infer
+    from turbo_whisper_workspace_tpu_torch.parallel.mesh import make_mesh
+
+    model = transcriber.model
+    pcm = pcm_windows(8, seed0=5)
+    prompt = torch.tensor([transcriber._prompt_row("en")] * len(pcm))
+    path_counts = {"dp decode": {}}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(model_parallel=1, data_parallel=1, device_type="cuda")
+        for beam in (1, BEAM):
+            fn = infer.make_dp_decode(model, mesh, rules=transcriber.rules, beam_size=beam,
+                                      max_len=DECODE, quantize_kv=True)
+            att.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, collectives = infer.count_collectives(fn, pcm, prompt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for name, c in att.launch_counts.items():
+                path_counts["dp decode"][name] = path_counts["dp decode"].get(name, 0) + c
+            full = infer.gather_dp(mesh, res)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                mels = mel_ops.log_mel_spectrogram(pcm.to(dev), num_mels=model.dims.n_mels)
+                ckv = model.decoder.precompute_cross_kv(model.encoder(mels), quantize=True)
+                kw = dict(rules=transcriber.rules, max_len=DECODE)
+                direct = (beam_mod.beam_decode_features(model, ckv, prompt.to(dev),
+                                                        beam_size=beam, **kw)
+                          if beam > 1 else
+                          greedy_mod.greedy_decode_features(model, ckv, prompt.to(dev), **kw))
+            torch.cuda.synchronize()
+            direct_wall = time.perf_counter() - t0
+            label = "greedy" if beam == 1 else f"beam-{beam}"
+            print(f"DP = 1 (NCCL, one rank) {label} decode, 8 windows x {DECODE} steps max: "
+                  f"wall {wall:.3f} s (direct call {direct_wall:.3f} s), collectives "
+                  f"{collectives}, lengths {full.lengths.tolist()} [{card}]")
+            assert sum(collectives.values()) == 0, collectives
+            assert torch.equal(full.tokens, direct.tokens), label
+            assert torch.equal(full.lengths, direct.lengths), label
+        print(f"DP decode tokens equal the direct calls'; launches {path_counts['dp decode']}")
+        for name in ("flash_attention", "cross_attention_int8"):
+            assert path_counts["dp decode"][name] > 0, (name, path_counts["dp decode"])
+        path_counts["train"] = train_check(att, mesh, dev, card)
+    finally:
+        dist.destroy_process_group()
+    path_counts["tp decode"] = tp_check(card)
+    return path_counts
+
+
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
     pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
     with wave.open(path, "wb") as w:
@@ -1843,6 +2243,9 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 2
     args = sys.argv[1:] if argv is None else argv
+    if "--tp-worker" in args:
+        i = args.index("--tp-worker")
+        return tp_worker(int(args[i + 1]), int(args[i + 2]), int(args[i + 3]), args[i + 4])
     if "--prefill-profile" in args:
         return prefill_profile_only()
     if "--before" in args:
@@ -2027,6 +2430,13 @@ def main(argv: list[str] | None = None) -> int:
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
 
     path_counts["tool shell"] = tool_shell_phase(att, tq, flow_pipe, llm, dev, card)
+
+    # 11. serving: phase 7's pipeline behind the port's HTTP server
+    path_counts["serving"] = serving_phase(att, flow_pipe, dev, card)
+
+    # 12. parallelism: DP = 1 and the train step on an NCCL group of one
+    # rank, TP = 2 in two processes sharing the card
+    path_counts.update(parallel_phase(att, flow_pipe.load_transcription_model(), dev, card))
 
     lines = []
     for name, s in stats.items():

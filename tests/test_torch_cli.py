@@ -1,7 +1,8 @@
 """Port CLI (turbo_whisper_workspace_tpu_torch/__main__.py): the cases of
 tests/test_cli.py (info, diagnose, preprocess, security --bar --test)
 through the port's `main`, against the JAX CLI's output on the same
-file, and check-gpu exiting non-zero without a GPU."""
+file, check-gpu exiting non-zero without a GPU, the serving and batch
+commands in the help, and `batch --device cpu` on a tiny model."""
 
 import json
 
@@ -93,3 +94,53 @@ def test_check_gpu_without_a_gpu_exits_nonzero(monkeypatch):
 def test_unknown_command_exits():
     with pytest.raises(SystemExit):
         tcli.main(["frobnicate"])
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--help"], ["api", "ui", "batch"]),
+    (["api", "--help"], ["--host", "--port", "--device"]),
+    (["ui", "--help"], ["--host", "--port", "--device"]),
+    (["batch", "--help"], ["--input", "--files-per-call", "--no-enrich", "--device"]),
+], ids=["main", "api", "ui", "batch"])
+def test_help_lists_serving_and_batch(capsys, argv, want):
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv)
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert all(w in out for w in want), out
+
+
+def test_batch_on_cpu(tmp_path, capsys, monkeypatch):
+    """`batch --model tiny --device cpu` through get_pipeline: a tiny
+    random Whisper (d 64, 8 decode steps) stands in the pipeline cache
+    under tiny's key, so the command runs its real driver and pipeline."""
+    from turbo_whisper_workspace_tpu_torch.config import PipelineConfig, TranscriptionConfig
+    from turbo_whisper_workspace_tpu_torch.models import whisper as twm
+    from turbo_whisper_workspace_tpu_torch.pipeline import audio_pipeline as tpipe
+    from turbo_whisper_workspace_tpu_torch.pipeline import transcriber as ttr
+
+    monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
+    dims = twm.WhisperDims(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
+                           n_audio_layer=2, n_vocab=51865, n_text_ctx=448,
+                           n_text_state=64, n_text_head=2, n_text_layer=2)
+    tr = ttr.load_transcriber(twm.init_params(dims, torch.Generator().manual_seed(0)),
+                              TranscriptionConfig(batch_size=2, max_decode_len=8,
+                                                  language="en"), device="cpu")
+    key = ("tiny", PipelineConfig().transcription.beam_size, "cpu")
+    monkeypatch.setitem(tpipe._PIPELINE_CACHE, key, tpipe.AudioProcessingPipeline(
+        PipelineConfig(), transcriber=tr, device="cpu"))
+    audio_dir = tmp_path / "audio"
+    audio_dir.mkdir()
+    for i in range(3):
+        tio.write_wav(str(audio_dir / f"c{i}.wav"),
+                      0.1 * np.sin(np.arange(16000 * (i + 1)) / 16000 * 2 * np.pi * 300)
+                      .astype(np.float32))
+    out = tmp_path / "out"
+    tcli.main(["batch", "-i", str(audio_dir), "-o", str(out), "--model", "tiny",
+               "--device", "cpu", "--no-enrich", "--files-per-call", "2"])
+    stats = json.loads(capsys.readouterr().out)
+    assert stats["processed"] == 3 and stats["failed"] == 0
+    assert stats["audio_seconds"] == pytest.approx(6.0)
+    assert sorted(p.name for p in out.iterdir()) == [
+        "c0.json", "c1.json", "c2.json", "manifest_host0.json"]
+    assert json.loads((out / "c2.json").read_text())["duration"] == pytest.approx(3.0)

@@ -46,8 +46,27 @@ TOOL_SHELL = [
 ]
 
 
+# serving and parallelism, likewise
+SERVE_AND_PARALLEL = [
+    "turbo_whisper_workspace_tpu_torch.parallel",
+    "turbo_whisper_workspace_tpu_torch.parallel.batch_driver",
+    "turbo_whisper_workspace_tpu_torch.parallel.infer",
+    "turbo_whisper_workspace_tpu_torch.parallel.mesh",
+    "turbo_whisper_workspace_tpu_torch.parallel.sharding",
+    "turbo_whisper_workspace_tpu_torch.parallel.train",
+    "turbo_whisper_workspace_tpu_torch.serve",
+    "turbo_whisper_workspace_tpu_torch.serve.api",
+    "turbo_whisper_workspace_tpu_torch.serve.client",
+    "turbo_whisper_workspace_tpu_torch.serve.ui",
+]
+
+
 def test_tool_shell_modules_are_checked():
     assert set(TOOL_SHELL) <= set(_port_modules())
+
+
+def test_serve_and_parallel_modules_are_checked():
+    assert set(SERVE_AND_PARALLEL) <= set(_port_modules())
 
 
 def test_port_imports_load_no_jax():
@@ -63,8 +82,9 @@ def test_port_imports_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

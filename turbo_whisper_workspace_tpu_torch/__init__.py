@@ -22,8 +22,11 @@ Layering:
                features (MFCC, silence, splits)
     utils/     model registry, WER/DER metrics and the corpus evaluator,
                profiling, native builds, wordlists
-    __main__   CLI: transcribe, security, info, diagnose, preprocess,
-               convert, models, eval, check-gpu
+    parallel/  meshes over torch.distributed ranks, Megatron sharding,
+               DP/TP decode, the training step, the directory batch driver
+    serve/     HTTP API (stdlib server), client, browser UI
+    __main__   CLI: api, ui, batch, transcribe, security, info, diagnose,
+               preprocess, convert, models, eval, check-gpu
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,11 @@
 """CLI: python -m turbo_whisper_workspace_tpu_torch <command>.
 
 Port of the JAX package's CLI (turbo_whisper_workspace_tpu/__main__.py):
-`transcribe` (the master flow on one file: conversation markdown,
-summary, or the whole result with --json), `security` (the security
+`api` (the HTTP API server), `ui` (the browser UI), `batch` (the
+directory batch driver: sharded over torch.distributed ranks when
+launched by torchrun, resumable), `transcribe` (the master flow on one
+file: conversation markdown, summary, or the whole result with --json),
+`security` (the security
 monitors; `--bar --test` runs the mock transcript), `info` and
 `diagnose` (file statistics and a diagnostic report, numpy), `preprocess`
 (normalize, denoise, filter), `convert` (an HF Whisper snapshot → the
@@ -10,9 +13,10 @@ monitors; `--bar --test` runs the mock transcript), `info` and
 WER/DER) and `check-gpu`, which takes the place of the JAX `check-tpu`.
 `--device` (default cuda) picks where the models and the torch parts of
 preprocessing run; pass `--device cpu` on a machine without a GPU.
-Checkpoints are looked up under `PipelineConfig().models_dir`. `api`,
-`ui` and `batch` are not ported yet.
+Checkpoints are looked up under `PipelineConfig().models_dir`.
 
+    python -m turbo_whisper_workspace_tpu_torch api --port 8000
+    python -m turbo_whisper_workspace_tpu_torch batch -i audio_dir -o out --model tiny
     python -m turbo_whisper_workspace_tpu_torch transcribe -i clip.wav --model tiny
     python -m turbo_whisper_workspace_tpu_torch preprocess -i in.wav -o out.wav --dynamic
     python -m turbo_whisper_workspace_tpu_torch models list
@@ -24,6 +28,39 @@ import argparse
 import json
 import logging
 import sys
+
+
+def run_api(args):
+    from .serve.api import run_api_server
+
+    run_api_server(args.host, args.port, args.device)
+
+
+def run_ui(args):
+    from .serve.ui import run_ui as _run
+
+    _run(args.host, args.port, args.device)
+
+
+def run_batch(args):
+    from .parallel.batch_driver import BatchDriver
+    from .parallel.infer import maybe_initialize_distributed
+
+    # under torchrun: the group, and this rank's card, before any model loads
+    maybe_initialize_distributed(args.device)
+    pipeline = None
+    if args.model:
+        from .config import PipelineConfig
+        from .pipeline.audio_pipeline import get_pipeline
+
+        config = PipelineConfig()
+        config.transcription.model = args.model
+        pipeline = get_pipeline(config, device=args.device)
+    driver = BatchDriver(pipeline=pipeline, output_dir=args.output,
+                         files_per_call=args.files_per_call, device=args.device)
+    stats = driver.run_directory(args.input, num_speakers=args.num_speakers,
+                                 enrich=not args.no_enrich)
+    print(json.dumps(stats.to_dict(), indent=1))
 
 
 def run_transcribe(args):
@@ -178,6 +215,30 @@ def main(argv=None):
     )
     p = argparse.ArgumentParser(prog="turbo_whisper_workspace_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    device_help = "torch device the models run on (default: cuda)"
+
+    s = sub.add_parser("api", help="run the HTTP API server")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--device", default="cuda", help=device_help)
+    s.set_defaults(fn=run_api)
+
+    s = sub.add_parser("ui", help="run the browser UI")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7860)
+    s.add_argument("--device", default="cuda", help=device_help)
+    s.set_defaults(fn=run_ui)
+
+    s = sub.add_parser("batch", help="batched directory transcription")
+    s.add_argument("--input", "-i", required=True)
+    s.add_argument("--output", "-o", default="batch_output")
+    s.add_argument("--model", default=None,
+                   help="whisper config name (tiny/base/.../large-v3-turbo)")
+    s.add_argument("--num-speakers", type=int, default=0)
+    s.add_argument("--files-per-call", type=int, default=8)
+    s.add_argument("--no-enrich", action="store_true")
+    s.add_argument("--device", default="cuda", help=device_help)
+    s.set_defaults(fn=run_batch)
 
     s = sub.add_parser("transcribe", help="transcribe one file")
     s.add_argument("--input", "-i", required=True)

@@ -93,7 +93,7 @@ def beam_decode_features(
 
     # prefill once at B rows: every beam shares the prompt
     cache = wm.init_kv_cache(dims, b, max_len=total, dtype=model.dtype, device=device,
-                             quantize=quantize_cache)
+                             quantize=quantize_cache, n_head=model.decoder.n_head)
     prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0,
                                          cross_s8=cross_s8)
     if lane_cache:

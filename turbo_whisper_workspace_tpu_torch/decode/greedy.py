@@ -59,7 +59,7 @@ def greedy_decode_features(
         generator = torch.Generator(device).manual_seed(0)
 
     cache = wm.init_kv_cache(dims, b, max_len=total, dtype=model.dtype,
-                             device=device)
+                             device=device, n_head=model.decoder.n_head)
     static_mask = rules.static_mask(device)
     begin_mask = rules.begin_mask(device)
 

@@ -224,6 +224,9 @@ class TextDecoder(nn.Module):
         super().__init__()
         d = dims.n_text_state
         self.dims = dims
+        # heads this module's attention projections hold: all of them, or
+        # a tensor-parallel rank's share (parallel/sharding.shard_params)
+        self.n_head = dims.n_text_head
         self.token_emb = nn.Parameter(torch.zeros(dims.n_vocab, d))
         self.pos_emb = nn.Parameter(torch.zeros(dims.n_text_ctx, d))
         self.blocks = nn.ModuleList(
@@ -236,11 +239,11 @@ class TextDecoder(nn.Module):
         """JAX `precompute_cross_kv`: K/V of every layer's cross-attention
         over the encoder output, head-major {"k", "v"} (L, B, H, 1500, Dh);
         quantize=True returns quantize_cross_kv_int8's int8 dict instead."""
-        b, t, d = audio_features.shape
-        h = self.dims.n_text_head
+        b, t, _ = audio_features.shape
+        h = self.n_head
 
         def heads(x):
-            return x.reshape(b, t, h, d // h).transpose(1, 2)
+            return x.reshape(b, t, h, x.shape[-1] // h).transpose(1, 2)
 
         k = torch.stack([heads(blk.cross.k(audio_features)) for blk in self.blocks])
         v = torch.stack([heads(blk.cross.v(audio_features)) for blk in self.blocks])
@@ -256,7 +259,7 @@ class TextDecoder(nn.Module):
         of its cross-KV, which stays at batch B. An int8 cross-KV goes to
         cross_attention_s8 with cross_s8, else to cross_attention_int8."""
         b, tq, d = q.shape
-        h = self.dims.n_text_head
+        h = self.n_head
         if beam > 1:
             qh = q.reshape(b // beam, beam, h, d // h)
         else:
@@ -282,7 +285,7 @@ class TextDecoder(nn.Module):
         JAX package returns an updated copy). Keys past pos+T are all
         masked, so they are left out of the product."""
         b, t, d = q.shape
-        h = self.dims.n_text_head
+        h = self.n_head
         dh = d // h
         n_keys = pos + t
         if "k_p" in cache:
@@ -344,15 +347,13 @@ class TextDecoder(nn.Module):
         cross_s8: an int8 cross-KV is read by cross_attention_s8 instead
         of cross_attention_int8 (the JAX package's TWW_CROSS_S8=1)."""
         b, t = tokens.shape
-        x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
         use_cache = kv_cache is not None
         if not use_cache:
-            kv_cache = init_kv_cache(self.dims, b, max_len=t, dtype=x.dtype,
-                                     device=x.device)
             pos = 0
+        x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
         if beam > 1 and t != 1:
             raise ValueError(f"beam={beam} decodes one step at a time, got T={t}")
-        if "k_p" in kv_cache and (lane_map is None or beam != kv_cache["k_p"].shape[3]):
+        if use_cache and "k_p" in kv_cache and (lane_map is None or beam != kv_cache["k_p"].shape[3]):
             raise ValueError("the lane cache needs lane_map and beam equal to its "
                              f"{kv_cache['k_p'].shape[3]} lanes, got beam={beam}")
         mask = None
@@ -364,8 +365,13 @@ class TextDecoder(nn.Module):
         for li, block in enumerate(self.blocks):
             h = block.attn_ln(x)
             a = block.attn
-            attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos, mask,
-                                        beam, lane_map)
+            if use_cache:
+                attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos, mask,
+                                            beam, lane_map)
+            else:
+                # teacher-forced: the keys are this call's, no cache is written
+                # (so autograd sees no in-place update)
+                attn = mha(a.q(h), a.k(h), a.v(h), self.n_head, mask=mask)
             x = x + a.out(attn)
             c = block.cross
             x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li, beam,
@@ -373,10 +379,11 @@ class TextDecoder(nn.Module):
             x = x + block.mlp(block.mlp_ln(x))
 
         x = self.ln(x).reshape(b * t, -1)
-        if x.is_cuda and x.dtype != torch.float32:
+        if x.is_cuda and x.dtype != torch.float32 and not x.requires_grad:
             # f32 logits from bf16 operands with f32 sums, as the JAX
             # einsum's preferred_element_type=f32; torch.mm's out_dtype
-            # has no CPU kernel, so the CPU (f32 in the tests) upcasts
+            # has no CPU kernel and no derivative, so the CPU (f32 in the
+            # tests) and a training step upcast
             logits = torch.mm(x, self.token_emb.t(), out_dtype=torch.float32)
         else:
             logits = x.float() @ self.token_emb.float().t()
@@ -443,20 +450,24 @@ def init_params(dims: WhisperDims, generator: torch.Generator,
 
 def init_kv_cache(dims: WhisperDims, batch: int, max_len: int | None = None,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: torch.device | str = "cpu", quantize: bool = False) -> dict:
-    """Preallocated self-attention cache.
+                  device: torch.device | str = "cpu", quantize: bool = False,
+                  n_head: int | None = None) -> dict:
+    """Preallocated self-attention cache of n_head heads (default all
+    dims.n_text_head; a tensor-parallel rank passes its decoder's
+    `n_head`), each of the model's head width Dh, D = n_head·Dh.
 
     quantize=False: {"k","v"} (L, B, max_len, D) in `dtype`.
     quantize=True: head-major int8 payload {"k_q","v_q"} (L, B, H,
     max_len, Dh) with per-(head, position) scales {"k_s","v_s"} (L, B, H,
     max_len) in bf16 whatever `dtype` is, as in the JAX package."""
     max_len = max_len or dims.n_text_ctx
+    h = n_head or dims.n_text_head
+    dh = dims.n_text_state // dims.n_text_head
     if not quantize:
-        shape = (dims.n_text_layer, batch, max_len, dims.n_text_state)
+        shape = (dims.n_text_layer, batch, max_len, h * dh)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    h = dims.n_text_head
-    qshape = (dims.n_text_layer, batch, h, max_len, dims.n_text_state // h)
+    qshape = (dims.n_text_layer, batch, h, max_len, dh)
     sshape = qshape[:-1]
     return {"k_q": torch.zeros(qshape, dtype=torch.int8, device=device),
             "v_q": torch.zeros(qshape, dtype=torch.int8, device=device),

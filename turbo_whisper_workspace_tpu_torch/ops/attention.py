@@ -91,9 +91,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     CUDA: csrc/flash_attention.cu, bf16 only. q, k and v may be strided
     views (the encoder passes (B, T, H·64) projections viewed as
     (B, H, T, 64)) as long as they share strides and each row of 64 is
-    dense; the output has the same strides. CPU: the plain version."""
+    dense; the output has the same strides. When autograd records (a
+    training step), the kernel's forward goes behind FlashAttention,
+    whose backward recomputes the weights in torch ops; otherwise
+    nothing is saved. CPU: the plain version (autograd differentiates
+    it)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
+    return _flash_attention_launch(q, k, v)
+
+
+def flash_attention_backward(q, k, v, grad_out):
+    """The standard attention backward of softmax(q·kᵀ/√d)·v, the
+    weights recomputed from q and k in f32: dV = Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P ∘ (dP − rowsum(dP ∘ P)), dQ = dS·K/√d, dK = dSᵀ·Q/√d. The
+    JAX package has no backward kernel (its flash_attention has no
+    custom_vjp), so this is torch ops on every device."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), grad_out.float()
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with a gradient: the forward launches the kernel,
+    the backward is flash_attention_backward on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_attention_launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return flash_attention_backward(*ctx.saved_tensors, grad_out)
+
+
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check_cuda("flash_attention", {"q": q, "k": k, "v": v},
                 dict.fromkeys("qkv", torch.bfloat16), align=16, contiguous=False)
     b, h, t, d = q.shape
