@@ -164,10 +164,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    layers with int8 cross-KV, 10 heads a rank, 8 windows × 32 greedy
    steps, both ranks' tokens equal to the unsharded module's, each
    rank's flash_attention and cross_attention_int8 launched and its
-   all-reduces counted; both processes joined with a timeout.
+   all-reduces counted; both processes joined with a timeout;
+13. the decode loops as CUDA graphs: greedy_decode_features and
+   generate_tokens replay one captured step (utils/step_loop.py) on the
+   card, so phases 4, 7, 8, 10 and 11 already ran them graphed; here
+   each is held against its eager step function (graphed=False, the
+   same function called each step) in turns eager, graphed, graphed,
+   eager: Whisper greedy on phase 4's 8 windows x 224 steps at full
+   large-v3-turbo width on the int8 and the s8 cross route, tokens,
+   lengths and sum_logprobs bit-equal; the 8B LLM on a 1748-token prompt
+   x 200 steps, tokens bit-equal; each with its walls, capture ms, ms per
+   step against the byte bound, and a step's profile (host wall, device
+   busy, idle share, kernels run, cudaLaunchKernel and cudaGraphLaunch
+   calls) as the difference of two loop lengths; profile_decode on the
+   graphed LLM step; one sampled call of each loop at T = 0.6 (grammar or
+   EOS padding, seeded); the phase's peak memory. The graphed runs'
+   launches (replays counted) join the kernels line.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 12, the TP ranks' included; every one of the ten kernels must have
+to 13, the TP ranks' included; every one of the ten kernels must have
 been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1276,12 +1291,27 @@ def conversation() -> list[dict]:
     return segs
 
 
+def device_us(e) -> float:
+    """A profiler event's self time on the device, in µs."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def calls(events, prefix: str) -> int:
+    """Host calls of the CUDA runtime functions named `prefix`... in a
+    profiler window (cudaLaunchKernel also counts cudaLaunchKernelExC,
+    the cluster launches of the port's kernels)."""
+    return sum(e.count for e in events if e.key.startswith(prefix))
+
+
 def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
-                   steps: int = 3) -> None:
+                   steps: int = 3, graphed: bool = False) -> None:
     """Where a decode step's time goes: host wall per step against the
     device's busy time (torch.profiler, kernel self time) after a
     prompt_len-token prefill, the kernel launches per step and the
-    kernels that take the most device time."""
+    kernels that take the most device time. graphed: the step is
+    models/llama.py:forward at a device position captured once in a
+    CUDA graph (utils/step_loop.StepGraph, as llm/generate.py runs it)
+    and replayed; else forward at a host position, eagerly."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(dev).manual_seed(4)
@@ -1291,29 +1321,44 @@ def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
     tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
     with torch.no_grad():
         lm.forward(params, dims, prompt, cache, pos=0)
-        lm.forward(params, dims, tok, cache, pos=prompt_len)            # warm-up
+        if graphed:
+            from turbo_whisper_workspace_tpu_torch.utils.step_loop import StepGraph
+
+            pos = torch.tensor(prompt_len, device=dev)
+
+            def step():
+                lm.forward(params, dims, tok, cache, pos=pos)
+                pos.add_(1)
+
+            run = StepGraph(step, {"pos": pos}).replay
+        else:
+            at = [prompt_len]
+
+            def run():
+                lm.forward(params, dims, tok, cache, pos=at[0])
+                at[0] += 1
+
+        run()                                                        # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(steps):
-            lm.forward(params, dims, tok, cache, pos=prompt_len + 1 + i)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(steps):
-                lm.forward(params, dims, tok, cache, pos=prompt_len + 1 + steps + i)
+            for _ in range(steps):
+                run()
             torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
     kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")]
     busy = sum(device_us(e) for e in kernels) / steps / 1e3
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
-    print(f"decode step profile ({LLM}, cache at {prompt_len} positions): host wall "
+    launches = calls(events, "cudaLaunchKernel") / steps
+    graph_launches = calls(events, "cudaGraphLaunch") / steps
+    print(f"decode step profile ({LLM}, cache at {prompt_len} positions, "
+          f"{'graphed' if graphed else 'eager'}): host wall "
           f"{wall * 1e3:.2f} ms per step, device busy {busy:.2f} ms per step "
           f"({100 * (1 - busy / (wall * 1e3)):.0f}% idle), {launches:.0f} kernel launches "
-          f"per step [{card}]")
+          f"and {graph_launches:.0f} graph launches per step [{card}]")
     for e in sorted(kernels, key=device_us, reverse=True)[:6]:
         print(f"  {device_us(e) / steps / 1e3:.3f} ms per step, {e.count // steps} calls: "
               f"{e.key[:90]}")
@@ -1338,10 +1383,6 @@ def profile_prefill(lm, params, dims, dev, card: str,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
     kernels = sorted((e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")),
                      key=device_us, reverse=True)
     busy = sum(device_us(e) for e in kernels) / 1e3
@@ -2112,6 +2153,221 @@ def parallel_phase(att, transcriber, dev, card: str) -> dict:
     return path_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the decode loops as CUDA graphs
+
+GRAPH_PROFILE = {"whisper": (32, DECODE), "llm": (16, 64)}   # loop lengths of a step's
+                                                              # profile (see step_profile)
+LLM_GRAPH_STEPS = 200      # the LLM witness: the 1748-token prompt, then 200 steps
+SAMPLED_T = 0.6
+
+
+def batch_windows(transcriber, batch: list) -> np.ndarray:
+    """The 30 s windows Transcriber.transcribe cuts from `batch` (phase
+    4's batch call: 8 windows)."""
+    from turbo_whisper_workspace_tpu_torch.decode import longform
+
+    cfg = transcriber.config
+    plans = [p for fi, audio in enumerate(batch) for p in longform.plan_chunks(
+        len(audio), fi, chunk_s=cfg.chunk_length_s, stride_s=cfg.stride_length_s)]
+    return np.stack([longform.slice_chunk(batch[p.file_index], p) for p in plans])
+
+
+def step_profile(run, short: int, long: int) -> dict:
+    """Per decode step of the loop `run(n)` (n sampled tokens, random
+    weights: no row ends early; it returns the loop's timings). Host
+    wall: the steps' own loop (`loop_s`, after the capture, ending in a
+    sync) of an unprofiled run of `long` steps, over its steps. Device
+    busy (kernel self time), kernels run, and cudaLaunchKernel and
+    cudaGraphLaunch calls: torch.profiler windows over a run of `long`
+    and one of `short` steps, their difference over long − short steps,
+    so the prefill, the warm-up and the capture cancel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timings = run(long)
+    wall = timings["loop_s"] / timings["decode_forwards"] * 1e3
+    read = {}
+    for n in (short, long):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(n)
+        events = prof.key_averages()
+        kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")]
+        read[n] = (sum(device_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels),
+                   calls(events, "cudaLaunchKernel"), calls(events, "cudaGraphLaunch"))
+    busy, kernels, launches, graph_launches = (
+        (a - b) / (long - short) for a, b in zip(read[long], read[short]))
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "kernels": kernels,
+            "launches": launches, "graph_launches": graph_launches}
+
+
+def print_step_profile(label: str, prof: dict, card: str) -> None:
+    print(f"{label} step profile: host wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms ({100 * prof['idle']:.1f}% idle), "
+          f"{prof['kernels']:.1f} kernels run, {prof['launches']:.1f} cudaLaunchKernel and "
+          f"{prof['graph_launches']:.1f} cudaGraphLaunch calls per step [{card}]")
+
+
+def in_turns(run) -> dict:
+    """run(graphed) in turns eager, graphed, graphed, eager → {graphed:
+    [its two results]}."""
+    out = {False: [], True: []}
+    for graphed in (False, True, True, False):
+        out[graphed].append(run(graphed))
+    return out
+
+
+def check_grammar(tokens: torch.Tensor, p: int, rules) -> None:
+    """Each row's sampled tokens obey the timestamp grammar: EOT-padded
+    after the first EOT, a first timestamp within max_initial_timestamp,
+    no suppressed token, timestamps non-decreasing."""
+    sp = rules.specials
+    suppressed = set(rules._static_suppress_ids().tolist())
+    tsb = sp.timestamp_begin
+    for row in tokens[:, p:].tolist():
+        n = row.index(sp.eot) if sp.eot in row else len(row)
+        assert all(t == sp.eot for t in row[n:]), row
+        body = row[:n]
+        if not body:
+            continue
+        assert tsb <= body[0] <= tsb + 50, body[0]
+        assert not suppressed.intersection(body), body
+        ts = [t for t in body if t >= tsb]
+        assert all(a <= b for a, b in zip(ts, ts[1:])), ts
+
+
+def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) -> dict:
+    """Phase 13. Returns the launches of the graphed loops run through
+    their entry points (counts zeroed before each, summed)."""
+    from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
+    from turbo_whisper_workspace_tpu_torch.llm import generate as gen_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+
+    def counted(fn):
+        """fn() with the counts zeroed before; the launches join `counts`."""
+        att.reset_launch_counts()
+        tq.reset_launch_counts()
+        out = fn()
+        for name, c in {**att.launch_counts, **tq.launch_counts}.items():
+            counts[name] = counts.get(name, 0) + c
+        return out
+
+    # Whisper greedy at large-v3-turbo width on phase 4's 8 windows
+    model, rules = transcriber.model, transcriber.rules
+    with torch.no_grad():
+        cross_kv = transcriber._encode_windows(windows)
+    prompt = torch.tensor([transcriber._prompt_row("en")] * len(windows), device=dev)
+    p = prompt.shape[1]
+    step_bytes = (sum(t.numel() * t.element_size() for t in model.decoder.parameters())
+                  + nbytes(*cross_kv.values()))
+    print(f"Whisper greedy step bound: {step_bytes / PEAK_BYTES * 1e3:.4f} ms (bytes: the "
+          f"decoder's weights and the int8 cross-KV of {len(windows)} windows, "
+          f"{step_bytes / 1e6:.1f} MB) [{card}]")
+    for route in ("int8", "s8"):
+        def decode(graphed, max_len=DECODE, **kw):
+            timings = {}
+            t0 = time.perf_counter()
+            res = greedy_mod.greedy_decode_features(
+                model, cross_kv, prompt, rules=rules, max_len=max_len,
+                cross_s8=route == "s8", graphed=graphed, timings=timings, **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, timings
+
+        def run(graphed):
+            out = counted(lambda: decode(graphed)) if graphed else decode(graphed)
+            assert out[2]["decode_forwards"] == DECODE - 1, out[2]   # random weights
+            return out
+
+        runs = in_turns(run)
+        (eager, _, _), (graph, _, timings) = runs[False][0], runs[True][0]
+        for field in ("tokens", "lengths", "sum_logprobs"):
+            for res, _, _ in runs[False] + runs[True]:
+                assert torch.equal(getattr(res, field), getattr(eager, field)), (route, field)
+        assert eager.tokens.shape == (len(windows), p + DECODE)
+        walls = {g: [f"{w:.3f}" for _, w, _ in runs[g]] for g in runs}
+        print(f"Whisper greedy, {route} cross route, {len(windows)} windows x {DECODE} steps: "
+              f"tokens, lengths and sum_logprobs of the graphed loop bit-equal to the eager "
+              f"step function's; walls eager {walls[False]} s, graphed {walls[True]} s "
+              f"(capture {1e3 * timings['capture_s']:.1f} and "
+              f"{1e3 * runs[True][1][2]['capture_s']:.1f} ms) [{card}]")
+        for graphed in (False, True):
+            prof = step_profile(lambda n, g=graphed: decode(g, max_len=n)[2],
+                                *GRAPH_PROFILE["whisper"])
+            print_step_profile(f"Whisper greedy ({route}, {'graphed' if graphed else 'eager'})",
+                               prof, card)
+    sampled = [counted(lambda s=s: decode(True, temperature=SAMPLED_T,
+                                          generator=torch.Generator(dev).manual_seed(s)))
+               for s in (7, 7, 8)]
+    for res, _, _ in sampled:
+        check_grammar(res.tokens, p, rules)
+    assert torch.equal(sampled[0][0].tokens, sampled[1][0].tokens)
+    print(f"Whisper greedy at T = {SAMPLED_T} (graphed, s8 route): obeys the grammar, seeded "
+          f"(seed 7 twice equal; seed 8 {'differs' if not torch.equal(sampled[0][0].tokens, sampled[2][0].tokens) else 'equal'}); "
+          f"lengths {sampled[0][0].lengths.tolist()} [{card}]")
+    del cross_kv
+
+    # the LLM at llama-3.1-8b, int4 body and int8 head
+    from turbo_whisper_workspace_tpu_torch.models import llama as lm
+
+    params, dims = llm.params, llm.dims
+    lprompt = torch.randint(1, dims.n_vocab, (1, LLM_LONG_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(8), device=dev)
+
+    def generate(graphed, max_len=LLM_GRAPH_STEPS, **kw):
+        timings = {}
+        res = gen_mod.generate_tokens(params, dims, lprompt, max_len=max_len,
+                                      graphed=graphed, timings=timings, **kw)
+        torch.cuda.synchronize()
+        return res, timings
+
+    def run_llm(graphed):
+        out = counted(lambda: generate(graphed)) if graphed else generate(graphed)
+        assert out[1]["decode_forwards"] == LLM_GRAPH_STEPS - 1, out[1]
+        return out
+
+    runs = in_turns(run_llm)
+    eager = runs[False][0][0]
+    for res, _ in runs[False] + runs[True]:
+        assert torch.equal(res.tokens, eager.tokens) and torch.equal(res.lengths, eager.lengths)
+    body = sum(nbytes(*(t for t in leaf.values())) for blk in params["blocks"]
+               for name, leaf in blk.items() if name in lm.PROJECTIONS)
+    head = nbytes(*params["lm_head"].values())
+    kv = (2 * dims.n_layer * dims.n_kv_head * dims.head_dim * 2
+          * (LLM_LONG_PROMPT + LLM_GRAPH_STEPS // 2))
+    bound = (body + head) / PEAK_BYTES * 1e3
+    per_step = {g: [(t["decode_s"] - t["capture_s"]) / t["decode_forwards"] * 1e3
+                    for _, t in runs[g]] for g in runs}
+    print(f"LLM {LLM} greedy, prompt {LLM_LONG_PROMPT} tokens x {LLM_GRAPH_STEPS} steps: "
+          f"graphed tokens bit-equal to the eager step function's; ms per step eager "
+          f"{[f'{x:.3f}' for x in per_step[False]]}, graphed "
+          f"{[f'{x:.3f}' for x in per_step[True]]} (capture "
+          f"{[f'{1e3 * t['capture_s']:.1f}' for _, t in runs[True]]} ms), against a "
+          f"{bound:.4f} ms bound (bytes: int4 body {body / 1e6:.0f} MB + int8 head "
+          f"{head / 1e6:.0f} MB; the KV cache read adds {kv / PEAK_BYTES * 1e3:.4f} ms at "
+          f"the middle step) [{card}]")
+    for graphed in (False, True):
+        prof = step_profile(lambda n, g=graphed: generate(g, max_len=n)[1],
+                            *GRAPH_PROFILE["llm"])
+        print_step_profile(f"LLM ({'graphed' if graphed else 'eager'})", prof, card)
+    profile_decode(lm, params, dims, dev, card, graphed=True)
+    sampled = [counted(lambda s=s: generate(True, max_len=64, temperature=SAMPLED_T,
+                                            generator=torch.Generator(dev).manual_seed(s)))
+               for s in (9, 9)]
+    for res, _ in sampled:
+        n = int(res.lengths[0])
+        assert 0 <= n <= 64 and (res.tokens[0, LLM_LONG_PROMPT + n:] == 0).all(), n
+    assert torch.equal(sampled[0][0].tokens, sampled[1][0].tokens)
+    print(f"LLM at T = {SAMPLED_T} (graphed, 64 steps): EOS-padded after its length "
+          f"{int(sampled[0][0].lengths[0])}, seed 9 twice equal [{card}]")
+    print(f"phase 13 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches of the graphed loops {counts} [{card}]")
+    for name in ("cross_attention_int8", "cross_attention_s8", "int4_matmul_s8",
+                 "int8_matmul"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    return counts
+
+
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
     pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
     with wave.open(path, "wb") as w:
@@ -2437,6 +2693,13 @@ def main(argv: list[str] | None = None) -> int:
     # 12. parallelism: DP = 1 and the train step on an NCCL group of one
     # rank, TP = 2 in two processes sharing the card
     path_counts.update(parallel_phase(att, flow_pipe.load_transcription_model(), dev, card))
+
+    # 13. the greedy and LLM decode loops as CUDA graphs against their
+    # eager step functions
+    tr = flow_pipe.load_transcription_model()
+    windows = batch_windows(tr, batch)
+    assert len(windows) == 8, len(windows)
+    path_counts["graph loops"] = graph_phase(att, tq, tr, windows, llm, dev, card)
 
     lines = []
     for name, s in stats.items():

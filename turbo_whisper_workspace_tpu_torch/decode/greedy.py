@@ -1,17 +1,27 @@
 """KV-cached greedy / sampled decode.
 
 Port of turbo_whisper_workspace_tpu/decode/greedy.py. The JAX package
-runs the loop as one `lax.while_loop` inside one jit; here it is a
-Python loop over decoder steps that stops when every row has emitted
-EOT (`finished.all()`, one host sync per step) or after max_len steps.
+runs the loop as one `lax.while_loop` inside one jit; here it is one
+step function over fixed shapes: the prompt's prefill and the first
+sample (with the begin mask) run eagerly, then each step is a decoder
+call at a device-resident position over the whole preallocated cache
+under a key mask, the token rules, the sample and the bookkeeping, all
+tensor ops updating static buffers in place (`utils/step_loop.py`). On
+a CUDA device that step is captured once per call into a CUDA graph and
+replayed, and the host reads the stop flag every STOP_EVERY steps; on
+the CPU it runs eagerly with the stop read every step. The loop ends
+when every row has emitted EOT or after max_len sampled tokens; rows
+that finished stay frozen (EOT, their log-probabilities unchanged), so
+the steps a graphed run makes past the last row's EOT change nothing.
 Returned bookkeeping mirrors openai/whisper's DecodingResult fields the
 long-form fallbacks need (avg_logprob, no_speech_prob). `greedy_decode`
 and `detect_language` take log-mel input: the encoder, then the dense
 cross-KV, then the `*_features` function, as the JAX helpers do.
 
 Sampling at temperature T > 0 is gumbel-max, argmax(logits + T·G), with
-G drawn from the caller's `torch.Generator`; its draws differ from the
-JAX package's `rbg` key, so sampled tokens do not match it.
+G drawn from the caller's `torch.Generator` (registered with the graph
+on the card, so each replay draws anew); its draws differ from the JAX
+package's `rbg` key, so sampled tokens do not match it.
 """
 
 from __future__ import annotations
@@ -21,7 +31,10 @@ from typing import NamedTuple
 import torch
 
 from ..models import whisper as wm
+from ..utils.step_loop import run_steps
 from .rules import DecodeRules, update_ts_floor
+
+STOP_EVERY = 8      # graphed steps between the host's reads of the stop flag
 
 
 class DecodeResult(NamedTuple):
@@ -44,9 +57,21 @@ def greedy_decode_features(
     generator: torch.Generator | None = None,
     sot_index: int = 0,
     cross_s8: bool = False,
+    graphed: bool | None = None,
+    timings: dict | None = None,
 ) -> DecodeResult:
     """cross_s8: an int8 cross-KV is read by the s8×s8 cross-attention
-    kernel (TranscriptionConfig.cross_attention_s8)."""
+    kernel (TranscriptionConfig.cross_attention_s8).
+
+    graphed: None (the default) replays the step as a CUDA graph on a
+    CUDA device and runs it eagerly, with the stop read every step, on
+    the CPU. False runs the same step function eagerly with the card's
+    cadence (the stop read every STOP_EVERY steps) on any device: on the
+    card, the witness that the graph is that function, and the
+    tensor-parallel decode, whose all-reduces a graph does not hold.
+    True graphs it (CUDA only). `timings`, when given, receives the
+    graph's `capture_s` and the decoder calls after the prefill
+    (`decode_forwards`)."""
     dims = model.dims
     sp = rules.specials
     device = prompt.device
@@ -68,22 +93,25 @@ def greedy_decode_features(
                                          cross_s8=cross_s8)
     no_speech_probs = torch.softmax(prefill_logits[:, sot_index], dim=-1)[:, sp.no_speech]
 
-    tokens = torch.cat(
-        [prompt, torch.full((b, max_len), sp.eot, dtype=prompt.dtype, device=device)], 1)
     # Pairing state looks at SAMPLED tokens only (openai/whisper): before
     # anything is sampled, "last" is a non-timestamp sentinel and
     # "penultimate" counts as a timestamp.
     ts_sentinel = torch.full((b,), sp.timestamp_begin, dtype=torch.long, device=device)
-    last_logits = prefill_logits[:, -1]
-    last_tok = torch.zeros(b, dtype=torch.long, device=device)
-    penult_tok = ts_sentinel
-    ts_floor = ts_sentinel
-    finished = torch.zeros(b, dtype=torch.bool, device=device)
-    sum_logprobs = torch.zeros(b, dtype=torch.float32, device=device)
+    state = {
+        "tokens": torch.cat([prompt, torch.full((b, max_len), sp.eot, dtype=prompt.dtype,
+                                                device=device)], 1),
+        "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
+        "last_tok": torch.zeros(b, dtype=torch.long, device=device),
+        "penult_tok": ts_sentinel.clone(),
+        "ts_floor": ts_sentinel.clone(),
+        "finished": torch.zeros(b, dtype=torch.bool, device=device),
+        "sum_logprobs": torch.zeros(b, dtype=torch.float32, device=device),
+    }
 
-    for step in range(max_len):
-        masked = rules.apply(last_logits, step == 0, last_tok, penult_tok, ts_floor,
-                             static_mask, begin_mask)
+    def sample(logits: torch.Tensor, is_begin: bool) -> None:
+        """Sample token p + step from (B, V) logits into the state."""
+        masked = rules.apply(logits, is_begin, state["last_tok"], state["penult_tok"],
+                             state["ts_floor"], static_mask, begin_mask)
         if temperature > 0.0:
             gumbel = -torch.log(torch.empty_like(masked).exponential_(generator=generator))
             next_tok = torch.argmax(masked + temperature * gumbel, dim=-1)
@@ -92,22 +120,34 @@ def greedy_decode_features(
         logp = torch.log_softmax(masked, dim=-1)
         tok_logp = logp.gather(-1, next_tok[:, None])[:, 0]
 
+        finished = state["finished"]
         next_tok = torch.where(finished, sp.eot, next_tok)
-        sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logp)
-        finished = finished | (next_tok == sp.eot)
-        tokens[:, p + step] = next_tok
-        ts_floor = update_ts_floor(ts_floor, next_tok, last_tok, sp)
-        if step + 1 == max_len or bool(finished.all()):
-            break
-        logits, cache = model.decoder(next_tok[:, None], cross_kv, cache, pos=p + step,
-                                      cross_s8=cross_s8)
+        state["sum_logprobs"].add_(torch.where(finished, 0.0, tok_logp))
+        finished.logical_or_(next_tok == sp.eot)
+        state["tokens"].index_copy_(1, (state["step"] + p).view(1), next_tok[:, None])
+        state["ts_floor"].copy_(update_ts_floor(state["ts_floor"], next_tok,
+                                                state["last_tok"], sp))
         # penultimate stays the ts-sentinel while fewer than 2 tokens sampled
-        penult_tok = ts_sentinel if step == 0 else last_tok
-        last_tok = next_tok
-        last_logits = logits[:, 0]
+        if not is_begin:
+            state["penult_tok"].copy_(state["last_tok"])
+        state["last_tok"].copy_(next_tok)
+        state["step"].add_(1)
 
-    sampled = tokens[:, p:]
-    is_eot = sampled == sp.eot
+    def step() -> None:
+        """Feed the last sampled token at its position, sample the next."""
+        logits, _ = model.decoder(state["last_tok"][:, None], cross_kv, cache,
+                                  pos=state["step"] + (p - 1), cross_s8=cross_s8)
+        sample(logits[:, 0], is_begin=False)
+
+    sample(prefill_logits[:, -1], is_begin=True)
+    del prefill_logits
+    forwards = run_steps(step, state, max_len - 1, STOP_EVERY, graphed,
+                         generator if temperature > 0.0 else None, timings)
+    if timings is not None:
+        timings["decode_forwards"] = forwards
+
+    tokens, sum_logprobs = state["tokens"], state["sum_logprobs"]
+    is_eot = tokens[:, p:] == sp.eot
     # first EOT; no EOT → full length
     lengths = torch.where(is_eot.any(-1), is_eot.int().argmax(-1), max_len)
     avg = sum_logprobs / torch.clamp(lengths + 1, min=1).float()

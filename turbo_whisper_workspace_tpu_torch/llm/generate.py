@@ -1,17 +1,24 @@
 """Autoregressive generation for the Llama LM.
 
 Port of turbo_whisper_workspace_tpu/llm/generate.py. The JAX package
-runs the loop as one `lax.while_loop` inside one jit; here it is a
-Python loop over decode steps with one host sync per step
-(`finished.all()`), which stops when every row has emitted an EOS token
-or after max_len steps, and skips the forward after the last sampled
-token (its logits would be discarded).
+runs the loop as one `lax.while_loop` inside one jit; here it is one
+step function over fixed shapes (`utils/step_loop.py`): the prefill and
+the first sample run eagerly, then each step is a forward of the last
+token at a device-resident position (`models/llama.py:forward` with a
+tensor `pos`), the sample, and the token written by index, all updating
+static buffers in place. On a CUDA device that step is captured once
+per call into a CUDA graph and replayed, and the host reads the stop
+flag every STOP_EVERY steps; on the CPU it runs eagerly with the stop
+read every step. The loop ends when every row has emitted an EOS token
+or after max_len sampled tokens; finished rows stay frozen (EOS-padded),
+so steps past the last row's EOS change nothing.
 
 Sampling is gumbel-max, argmax(logits + T·G): an exact argmax at T = 0
 and an exact categorical draw at T > 0, with G drawn from the caller's
-`torch.Generator` (seeded 0 when none is given). Its draws differ from
-the JAX package's `rbg` key, so sampled tokens do not match it; fed the
-same noise, `sample` picks the same token.
+`torch.Generator` (seeded 0 when none is given; registered with the
+graph on the card). Its draws differ from the JAX package's `rbg` key,
+so sampled tokens do not match it; fed the same noise, `sample` picks
+the same token.
 """
 
 from __future__ import annotations
@@ -22,6 +29,9 @@ from typing import NamedTuple
 import torch
 
 from ..models import llama as lm
+from ..utils.step_loop import run_steps
+
+STOP_EVERY = 4      # graphed steps between the host's reads of the stop flag
 
 
 class GenResult(NamedTuple):
@@ -48,10 +58,18 @@ def generate_tokens(
     eos_tokens: tuple = (),
     generator: torch.Generator | None = None,
     timings: dict | None = None,
+    graphed: bool | None = None,
 ) -> GenResult:
     """Prefill the prompt, then sample up to max_len tokens. `timings`,
     when given, receives the prefill's and the decode loop's wall seconds
-    (each ending in a device sync) and the number of decode forwards."""
+    (each ending in a device sync), the number of decode forwards and the
+    graph's `capture_s` (inside `decode_s`).
+
+    graphed: None (the default) replays the step as a CUDA graph on a
+    CUDA device and runs it eagerly, with the stop read every step, on
+    the CPU; False runs the same step function eagerly with the card's
+    cadence (the stop read every STOP_EVERY steps), the witness that the
+    graph is that function; True graphs it (CUDA only)."""
     device = prompt.device
     b, p = prompt.shape
     total = p + max_len
@@ -60,41 +78,55 @@ def generate_tokens(
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device).manual_seed(0)
     eos = torch.tensor(eos_tokens or (0,), dtype=prompt.dtype, device=device)
-    pad_tok = int(eos[0])
+    pad_tok = int(eos_tokens[0]) if eos_tokens else 0
 
     t0 = time.perf_counter()
     cache = lm.init_kv_cache(dims, b, max_len=total, dtype=params["token_emb"].dtype,
                              device=device)
     prefill_logits, cache = lm.forward(params, dims, prompt, cache, pos=0)
-    tokens = torch.cat([prompt, torch.full((b, max_len), pad_tok, dtype=prompt.dtype,
-                                           device=device)], 1)
     last_logits = prefill_logits[:, -1].float()
     del prefill_logits
-    finished = torch.zeros(b, dtype=torch.bool, device=device)
+    state = {
+        "tokens": torch.cat([prompt, torch.full((b, max_len), pad_tok, dtype=prompt.dtype,
+                                                device=device)], 1),
+        "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
+        "last_tok": torch.zeros(b, dtype=prompt.dtype, device=device),
+        "finished": torch.zeros(b, dtype=torch.bool, device=device),
+    }
     if timings is not None:
         _sync(device)
         timings["prefill_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    forwards = 0
 
-    for step in range(max_len):
+    def sample_into_state(logits: torch.Tensor) -> None:
+        """Sample token p + step from (B, V) f32 logits into the state."""
         gumbel = None
         if temperature > 0.0:
-            gumbel = -torch.log(torch.empty_like(last_logits).exponential_(generator=generator))
-        next_tok = sample(last_logits, temperature, gumbel)
+            gumbel = -torch.log(torch.empty_like(logits).exponential_(generator=generator))
+        next_tok = sample(logits, temperature, gumbel)
+        finished = state["finished"]
         next_tok = torch.where(finished, pad_tok, next_tok)
-        finished = finished | torch.isin(next_tok, eos)
-        tokens[:, p + step] = next_tok
-        if step + 1 == max_len or bool(finished.all()):
-            break
-        logits, cache = lm.forward(params, dims, next_tok[:, None], cache, pos=p + step)
-        forwards += 1
-        last_logits = logits[:, 0].float()
+        finished.logical_or_((next_tok[:, None] == eos[None]).any(-1))
+        state["tokens"].index_copy_(1, (state["step"] + p).view(1), next_tok[:, None])
+        state["last_tok"].copy_(next_tok)
+        state["step"].add_(1)
+
+    def step() -> None:
+        """Forward the last sampled token at its position, sample the next."""
+        logits, _ = lm.forward(params, dims, state["last_tok"][:, None], cache,
+                               pos=state["step"] + (p - 1))
+        sample_into_state(logits[:, 0].float())
+
+    sample_into_state(last_logits)
+    del last_logits
+    forwards = run_steps(step, state, max_len - 1, STOP_EVERY, graphed,
+                         generator if temperature > 0.0 else None, timings)
 
     if timings is not None:
         _sync(device)
         timings["decode_s"] = time.perf_counter() - t0
         timings["decode_forwards"] = forwards
+    tokens = state["tokens"]
     is_eos = torch.isin(tokens[:, p:], eos)
     lengths = torch.where(is_eos.any(-1), is_eos.int().argmax(-1), max_len)
     return GenResult(tokens=tokens, lengths=lengths)

@@ -12,7 +12,11 @@ and every projection goes through `ops/quant.matmul_any`.
 dict into that dict, as the JAX function of that name does.
 
 Unlike the JAX function, `forward` writes the KV cache in place: the
-returned cache is the same tensors as the one passed in.
+returned cache is the same tensors as the one passed in. Its `pos` is a
+host int (the prefill) or a 0-dim int64 tensor on the model's device (a
+decode step a CUDA graph replays: the RoPE rows, the cache row written
+and the attention mask all come from it, as the JAX function's traced
+`pos`).
 """
 
 from __future__ import annotations
@@ -110,6 +114,22 @@ def _rope_tables(positions: torch.Tensor, half: int, theta: float):
     return torch.cos(angles)[None, :, None, :], torch.sin(angles)[None, :, None, :]
 
 
+_ROPE_TABLES: dict = {}     # (half, theta, max_ctx, device) → (cos, sin) (max_ctx, half)
+
+
+def _rope_rows(dims: LlamaDims, positions: torch.Tensor):
+    """_rope_tables' (cos, sin) at `positions` (T,) on their device, as
+    rows of tables built once per (dims, device) over max_ctx positions:
+    no host→device copy per call, so a captured step holds none."""
+    half = dims.head_dim // 2
+    key = (half, dims.rope_theta, dims.max_ctx, positions.device)
+    if key not in _ROPE_TABLES:
+        cos, sin = _rope_tables(torch.arange(dims.max_ctx, device=positions.device), half,
+                                dims.rope_theta)
+        _ROPE_TABLES[key] = cos[0, :, 0], sin[0, :, 0]
+    return tuple(t.index_select(0, positions)[None, :, None, :] for t in _ROPE_TABLES[key])
+
+
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -130,11 +150,12 @@ def init_kv_cache(dims: LlamaDims, batch: int, max_len: int,
 
 
 def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
-            kv_cache: dict | None = None, pos: int = 0):
+            kv_cache: dict | None = None, pos: int | torch.Tensor = 0):
     """tokens (B, T) → (logits (B, T, vocab) f32, cache). Logits come for
     every position, as the JAX function computes them (the prefill's
     lm_head thus runs at m = B·T). With no cache a fresh one of length T
-    is used and None is returned in its place."""
+    is used and None is returned in its place. `pos` is an int or a 0-dim
+    int64 tensor on the tokens' device; positions past max_ctx raise."""
     b, t = tokens.shape
     dtype = params["token_emb"].dtype
     h, kvh, dh = dims.n_head, dims.n_kv_head, dims.head_dim
@@ -146,11 +167,13 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
         kv_cache = init_kv_cache(dims, b, max_len=t, dtype=dtype, device=device)
         pos = 0
     cache_len = kv_cache["k"].shape[2]
+    if not torch.is_tensor(pos) and pos + t > dims.max_ctx:
+        raise ValueError(f"positions up to {pos + t} exceed max_ctx {dims.max_ctx}")
     positions = pos + torch.arange(t, device=device)
     key_pos = torch.arange(cache_len, device=device)
     attn_mask = key_pos[None, :] <= positions[:, None]               # (t, cache_len)
     group = h // kvh
-    rope = _rope_tables(positions, dh // 2, dims.rope_theta)    # shared by every layer
+    rope = _rope_rows(dims, positions)                  # shared by every layer
 
     for li, block in enumerate(params["blocks"]):
         ck, cv = kv_cache["k"][li], kv_cache["v"][li]                # (B, S, kvh·dh) views
@@ -161,9 +184,9 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
         q = _apply_rope(q, *rope)
         k = _apply_rope(k, *rope)
 
-        # written in place
-        ck[:, pos:pos + t] = k.reshape(b, t, kvh * dh).to(ck.dtype)
-        cv[:, pos:pos + t] = v.reshape(b, t, kvh * dh).to(cv.dtype)
+        # written in place, at the positions' rows
+        ck.index_copy_(1, positions, k.reshape(b, t, kvh * dh).to(ck.dtype))
+        cv.index_copy_(1, positions, v.reshape(b, t, kvh * dh).to(cv.dtype))
         kk = ck.reshape(b, cache_len, kvh, dh).to(dtype)
         vv = cv.reshape(b, cache_len, kvh, dh).to(dtype)
         # GQA: query head i reads kv head i // group

@@ -278,15 +278,22 @@ class TextDecoder(nn.Module):
             out = torch.einsum("bhqk,bhkd->bhqd", weights, cv.to(q.dtype))
         return out.transpose(1, 2).reshape(b, tq, d)
 
-    def _self_attention(self, li: int, q, k, v, cache: dict, pos: int, mask,
-                        beam: int, lane_map) -> torch.Tensor:
+    def _self_attention(self, li: int, q, k, v, cache: dict, pos: int | torch.Tensor,
+                        mask, beam: int, lane_map) -> torch.Tensor:
         """Layer li's self-attention, (B, T, D) → (B, T, D), after writing
         this call's K/V rows into the cache IN PLACE at [pos, pos+T) (the
         JAX package returns an updated copy). Keys past pos+T are all
-        masked, so they are left out of the product."""
+        masked: at an int pos they are left out of the product; at a
+        tensor pos (one step over the bf16 cache) the product covers the
+        whole cache under `mask`, as the JAX function's does."""
         b, t, d = q.shape
         h = self.n_head
         dh = d // h
+        if torch.is_tensor(pos):
+            cache["k"][li].index_copy_(1, pos.view(1), k.to(cache["k"].dtype))
+            cache["v"][li].index_copy_(1, pos.view(1), v.to(cache["v"].dtype))
+            return mha(q, cache["k"][li].to(q.dtype), cache["v"][li].to(q.dtype), h,
+                       mask=mask)
         n_keys = pos + t
         if "k_p" in cache:
             # lane cache: beam row b·K+k writes lane k of batch item b at pos
@@ -328,7 +335,7 @@ class TextDecoder(nn.Module):
                    cache["v"][li, :, :n_keys].to(q.dtype), h, mask=mask)
 
     def forward(self, tokens: torch.Tensor, cross_kv: dict,
-                kv_cache: dict | None = None, pos: int = 0, beam: int = 1,
+                kv_cache: dict | None = None, pos: int | torch.Tensor = 0, beam: int = 1,
                 lane_map: torch.Tensor | None = None, cross_s8: bool = False):
         """JAX `decoder_forward`: tokens (B, T) at positions [pos, pos+T) →
         (logits (B, T, V) f32, kv_cache). Prefill when T > 1, one step when T == 1.
@@ -345,22 +352,39 @@ class TextDecoder(nn.Module):
         at each position.
 
         cross_s8: an int8 cross-KV is read by cross_attention_s8 instead
-        of cross_attention_int8 (the JAX package's TWW_CROSS_S8=1)."""
+        of cross_attention_int8 (the JAX package's TWW_CROSS_S8=1).
+
+        pos may be a 0-dim int64 tensor on the tokens' device for one step
+        (T == 1, beam == 1) over the bf16 cache: the step a CUDA graph
+        replays, its position embedding, cache row and mask over the whole
+        cache all read from it. The int8 and lane caches take an int pos
+        (their kernels take the key count as a host int)."""
         b, t = tokens.shape
         use_cache = kv_cache is not None
         if not use_cache:
             pos = 0
-        x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
+        if torch.is_tensor(pos):
+            if t != 1 or beam != 1 or "k" not in kv_cache:
+                raise ValueError(
+                    "a tensor pos takes one step (T == 1, beam == 1) over the bf16 "
+                    "cache; the int8 and lane caches take an int pos until "
+                    "self_attention_int8 and self_attention_int8_lanes read the key "
+                    "count from device memory (the beam loop's graph)")
+            x = self.token_emb[tokens] + self.pos_emb.index_select(0, pos.view(1))
+            key_pos = torch.arange(kv_cache["k"].shape[2], device=x.device)
+            mask = (key_pos <= pos)[None, None, None]
+        else:
+            x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
+            mask = None
+            if t > 1:
+                key_pos = torch.arange(pos + t, device=x.device)
+                q_pos = pos + torch.arange(t, device=x.device)
+                mask = (key_pos[None, :] <= q_pos[:, None])[None, None]
         if beam > 1 and t != 1:
             raise ValueError(f"beam={beam} decodes one step at a time, got T={t}")
         if use_cache and "k_p" in kv_cache and (lane_map is None or beam != kv_cache["k_p"].shape[3]):
             raise ValueError("the lane cache needs lane_map and beam equal to its "
                              f"{kv_cache['k_p'].shape[3]} lanes, got beam={beam}")
-        mask = None
-        if t > 1:
-            key_pos = torch.arange(pos + t, device=x.device)
-            q_pos = pos + torch.arange(t, device=x.device)
-            mask = (key_pos[None, :] <= q_pos[:, None])[None, None]
 
         for li, block in enumerate(self.blocks):
             h = block.attn_ln(x)

@@ -17,6 +17,7 @@ Each kernel has:
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -37,6 +38,23 @@ launch_counts = {name: 0 for name in ("flash_attention", "cross_attention_int8",
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# the launches a CUDA graph being captured in this thread has recorded
+# (utils/step_loop.StepGraph sets .record to a dict, then replays it)
+capture = threading.local()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Count one launch of kernel `name` in `counts` (a module's
+    `launch_counts`). While this thread captures a CUDA graph nothing is
+    launched: the launch goes to the graph's record instead, and each
+    replay of the graph adds it to `counts`."""
+    record = getattr(capture, "record", None)
+    if record is None:
+        counts[name] += 1
+    else:
+        record[name] = (counts, record.get(name, (counts, 0))[1] + 1)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -156,7 +174,7 @@ def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     build.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, h, t, stride_b, stride_h, stride_t,
                  _stream(q.device))
-    launch_counts["flash_attention"] += 1
+    count_launch(launch_counts, "flash_attention")
     return out
 
 
@@ -246,7 +264,7 @@ def cross_attention_int8(q, kq, vq, k_scale, v_scale,
     build.launch("cross_attention_int8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
                  b, h, tq, kq.shape[-1], seq_len, _stream(q.device))
-    launch_counts["cross_attention_int8"] += 1
+    count_launch(launch_counts, "cross_attention_int8")
     return out
 
 
@@ -325,7 +343,7 @@ def cross_attention_s8(q, kq, vq, k_scale, v_scale,
     build.launch("cross_attention_s8", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
                  b, h, tq, kq.shape[-1], seq_len, _stream(q.device))
-    launch_counts["cross_attention_s8"] += 1
+    count_launch(launch_counts, "cross_attention_s8")
     return out
 
 
@@ -400,7 +418,7 @@ def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
     build.launch("self_attention_int8", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                  vq.data_ptr(), vs.data_ptr(), out.data_ptr(), b * h, tq, t, valid_len,
                  _stream(q.device))
-    launch_counts["self_attention_int8"] += 1
+    count_launch(launch_counts, "self_attention_int8")
     return out
 
 
@@ -482,5 +500,5 @@ def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
     build.launch("self_attention_int8_lanes", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                  vq.data_ptr(), vs.data_ptr(), lane_map.data_ptr(), out.data_ptr(),
                  b, h, k, t, valid_len, _stream(q.device))
-    launch_counts["self_attention_int8_lanes"] += 1
+    count_launch(launch_counts, "self_attention_int8_lanes")
     return out

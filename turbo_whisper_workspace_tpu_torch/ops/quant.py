@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .attention import _check_cuda, _div, _stream
+from .attention import _check_cuda, _div, _stream, count_launch
 
 GROUP4 = 128
 
@@ -288,7 +288,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.launch("int8_matmul", x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, k, n, _stream(x.device))
-    launch_counts["int8_matmul"] += 1
+    count_launch(launch_counts, "int8_matmul")
     return out
 
 
@@ -341,7 +341,7 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> tor
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.launch("int4_matmul", x.data_ptr(), w_q4.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, k, n, scale.shape[0], _stream(x.device))
-    launch_counts["int4_matmul"] += 1
+    count_launch(launch_counts, "int4_matmul")
     return out
 
 
@@ -379,8 +379,16 @@ _tickets: dict = {}        # device → zeroed int32 tickets of int4_matmul_s8's
 
 
 def _s8_tickets(device: torch.device, count: int) -> torch.Tensor:
+    """The device's ticket buffer, grown to `count`. It outlives every
+    call, so it must not come from a CUDA graph's private pool: a graph
+    captures a launch only after an eager warm-up at the same shapes
+    (`utils/step_loop.py`), and growing the buffer inside a capture
+    raises."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int4_matmul_s8: its ticket buffer must be allocated "
+                               "before a CUDA graph capture (warm up eagerly first)")
         buf = _tickets[device] = torch.zeros(max(count, 4096), dtype=torch.int32,
                                              device=device)
     return buf
@@ -431,7 +439,7 @@ def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
                  scale4.data_ptr(), scratch.data_ptr() if scratch is not None else None,
                  tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
                  m, k, n, n_groups, pb, _stream(xq.device))
-    launch_counts["int4_matmul_s8"] += 1
+    count_launch(launch_counts, "int4_matmul_s8")
     return out
 
 

@@ -65,7 +65,7 @@ def maybe_initialize_distributed(device: torch.device | str = "cuda") -> bool:
 @torch.no_grad()
 def _local_decode(model: wm.Whisper, audio: torch.Tensor, prompt: torch.Tensor, *,
                   rules: DecodeRules, beam_size: int, max_len: int, quantize_kv: bool,
-                  sot_index: int):
+                  sot_index: int, graphed: bool | None = None):
     mels = mel_ops.log_mel_spectrogram(audio, num_mels=model.dims.n_mels)
     cross_kv = model.decoder.precompute_cross_kv(model.encoder(mels), quantize=quantize_kv)
     if beam_size > 1:
@@ -73,7 +73,8 @@ def _local_decode(model: wm.Whisper, audio: torch.Tensor, prompt: torch.Tensor, 
             model, cross_kv, prompt, rules=rules, beam_size=beam_size, max_len=max_len,
             sot_index=sot_index)
     return greedy_mod.greedy_decode_features(
-        model, cross_kv, prompt, rules=rules, max_len=max_len, sot_index=sot_index)
+        model, cross_kv, prompt, rules=rules, max_len=max_len, sot_index=sot_index,
+        graphed=graphed)
 
 
 def put_dp(mesh: DeviceMesh, x, device: torch.device | str | None = None) -> torch.Tensor:
@@ -112,9 +113,13 @@ def make_tp_decode(model: wm.Whisper, mesh: DeviceMesh, *, rules: DecodeRules,
     same program on this rank's shard of the model (`decode_fn.model`):
     Megatron column/row-parallel projections, H/tp heads, the KV caches
     at D/tp features (sharding.cache_spec). Whisper fits one card, so
-    this is the capacity path; the DP decode is the throughput path."""
+    this is the capacity path; the DP decode is the throughput path. Its
+    greedy step runs eagerly (`graphed=False`): the row-parallel sums go
+    through `mesh.all_reduce`, whose host-side counter (and, on one card,
+    gloo) a CUDA graph's replay would skip."""
     return _make_decode(shard_params(model, mesh), mesh, rules=rules, beam_size=beam_size,
-                        max_len=max_len, quantize_kv=quantize_kv, sot_index=sot_index)
+                        max_len=max_len, quantize_kv=quantize_kv, sot_index=sot_index,
+                        graphed=False)
 
 
 def gather_dp(mesh: DeviceMesh, result):

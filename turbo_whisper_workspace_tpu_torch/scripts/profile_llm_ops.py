@@ -54,7 +54,7 @@ import torch
 from ..models import llama as lm
 from ..ops import build
 from ..ops import quant
-from ..ops.attention import _check_cuda, _div, _stream
+from ..ops.attention import _check_cuda, _div, _stream, count_launch
 from ..ops.quant import quant_act_grouped
 from ..pipeline.transcriber import resolve_device
 
@@ -137,7 +137,7 @@ def s8_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     build.launch("s8_matmul", xq.data_ptr(), xs.data_ptr(), w_q.data_ptr(),
                  scale.data_ptr(), out.data_ptr(), m, k, n, _stream(xq.device))
-    launch_counts["s8_matmul"] += 1
+    count_launch(launch_counts, "s8_matmul")
     return out
 
 
@@ -228,7 +228,7 @@ def s8g4_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     build.launch("s8g4_matmul", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
                  scale4.data_ptr(), out.data_ptr(), m, k, n, n_groups, _stream(xq.device))
-    launch_counts["s8g4_matmul"] += 1
+    count_launch(launch_counts, "s8g4_matmul")
     return out
 
 
