@@ -24,7 +24,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    lane kernel also at valid_len 3 (the prompt: lane 0 alone) and at
    K=8, T=448, with the 32-byte sectors of the K panel its owned pairs
    touch; self_attention_int8 also at Tq=2 and over a T=448 cache at
-   valid_len 224 and 448): max abs error within 2e-2 and relative L2 error within 5e-3,
+   valid_len 224 and 448; both take valid_len as a device int32, their
+   launch sized by T, each time beside the host-int design's from
+   PERF.md, and each is captured in a CUDA graph at valid_len 115, 227
+   written into the device scalar and the graph replayed, the output
+   held to the plain version at 227): max abs error within 2e-2 and relative L2 error within 5e-3,
    and each mask the kernel must apply (keys past the sequence, past
    valid_len, of lanes a beam does not own) dropped from the plain
    version must read above that limit (the script prints those
@@ -59,7 +63,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    mode (int8 lanes, int8 regathered with lane_cache=False, bf16
    regathered), twice each in turns, timed; the beam calls must launch
    self_attention_int8_lanes and cross_attention_int8, the int8
-   regathered calls self_attention_int8;
+   regathered calls self_attention_int8; every beam search here (and in
+   phases 6 and 12) runs graphed, one captured CUDA graph a step, its
+   launches counted with the replays;
 6. the s8 route (TranscriptionConfig(cross_attention_s8=True)), same
    model: one decode step of the decoder with the route on against the
    same step with the plain versions (logits); then, with the counts
@@ -179,10 +185,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    calls) as the difference of two loop lengths; profile_decode on the
    graphed LLM step; one sampled call of each loop at T = 0.6 (grammar or
    EOS padding, seeded); the phase's peak memory. The graphed runs'
-   launches (replays counted) join the kernels line.
+   launches (replays counted) join the kernels line;
+14. the beam loop as a CUDA graph: beam_decode_features (beam 5) on phase
+   4's 8 windows x 224 steps at full large-v3-turbo width, held against
+   its eager step function (graphed=False) in turns eager, graphed,
+   graphed, eager, in each self-KV cache mode (int8 lanes, int8
+   regathered, bf16 regathered) and on the s8 cross route in lanes mode:
+   every field of the result bit-equal; walls, capture ms, ms per step,
+   and for the lanes mode a step's profile (host wall, device busy, idle
+   share, kernels run, cudaLaunchKernel and cudaGraphLaunch calls) as the
+   difference of two loop lengths; the phase's peak memory; each mode
+   must launch its self-attention and cross-attention kernels.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 13, the TP ranks' included; every one of the ten kernels must have
+to 14, the TP ranks' included; every one of the ten kernels must have
 been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -197,8 +213,9 @@ prefill the same way.
     python3 chip_smoke.py --before TREE
 
 times the kernels whose earlier design BEFORE_MS holds shape by shape
-(int8_matmul, s8_matmul, self_attention_int8 by valid_len, s8g4_matmul)
-built from TREE, an unpacked earlier commit
+(int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
+kernels by valid_len (an earlier tree's host-int interface called as
+such) built from TREE, an unpacked earlier commit
 (`git archive <rev> | tar -x -C build/parent`), against this checkout's,
 in turns at each shape (no result line): the source of those "before"
 times.
@@ -259,6 +276,15 @@ BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
                              (1, 3072, 1024): 0.0154, (1, 8192, 3072): 0.0278,
                              (1, 3072, 128256): 0.1457, (8, 3072, 8192): 0.0194,
                              (3, 256, 1000): 0.0097}}
+# self_attention_int8 and self_attention_int8_lanes in their host-int
+# design (valid_len a kernel argument, the launch sized by it; PERF.md §6,
+# the rows' earlier times, NVIDIA H100 80GB HBM3, 700.00 W): valid_len →
+# (single launch, back-to-back) ms at T = PROMPT + DECODE, printed beside
+# this run's, whose launch is sized by T and reads valid_len on the card
+HOST_INT_MS = {"self_attention_int8": {MID_DECODE: (0.0152, 0.0101),
+                                       PROMPT + DECODE: (0.0219, 0.0157)},
+               "self_attention_int8_lanes": {MID_DECODE: (0.0255, 0.0194),
+                                             PROMPT + DECODE: (0.0401, 0.0338)}}
 # cross_attention_s8's mean relative distance from cross_attention_int8
 # in its earlier design (same check, same card), printed beside this run's
 S8_VS_INT8_BEFORE = "2.72-2.73e-2"
@@ -423,6 +449,43 @@ def random_ancestry(gen, b: int, k: int, t: int, dev) -> torch.Tensor:
     return lane_map
 
 
+def device_int(n: int, dev) -> torch.Tensor:
+    """n as the one-element int32 tensor the self-attention kernels read
+    valid_len from (made before a timed window: an int would be copied to
+    the card inside it)."""
+    return torch.tensor([n], dtype=torch.int32, device=dev)
+
+
+def print_host_int(name: str, valid: int, single: float, b2b: float | None = None) -> None:
+    was = HOST_INT_MS[name].get(valid)
+    was = ("not measured" if was is None
+           else f"single {was[0]:.4f} ms, back-to-back {was[1]:.4f} ms")
+    now = f"single {single:.4f} ms" + ("" if b2b is None else f", back-to-back {b2b:.4f} ms")
+    print(f"  {name} valid_len={valid} from device memory, launch sized by T: {now}; "
+          f"the host-int design (PERF.md §6): {was}")
+
+
+def check_replay(name: str, fn, plain, args: tuple, t: int) -> tuple:
+    """One launch of fn(*args, valid_len) captured in a CUDA graph with
+    the device scalar at MID_DECODE, then t written into it and the graph
+    replayed: the output must be the plain version's at t, and the plain
+    version at the captured MID_DECODE (what a launch sized or masked at
+    capture would give) must read above the limit."""
+    vl = device_int(MID_DECODE, args[0].device)
+    fn(*args, vl)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, vl)
+    vl.fill_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = compare(f"{name} captured at valid_len={MID_DECODE}, replayed at {t}", out,
+                  plain(*args, t), {"captured valid_len": plain(*args, MID_DECODE)})
+    del graph
+    return err
+
+
 def check_kernels(att, dev, card: str) -> dict:
     """Phase 3: each kernel against its plain version, timed."""
     gen = torch.Generator(dev).manual_seed(0)
@@ -561,7 +624,8 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     """Phase 3, the beam step's self-attention kernels at the beam
     phase's shapes: B=8 windows, K=5 beams, H=20, T=PROMPT+DECODE, the
     int8 payloads and bf16 scales made by the decoder's own quantizer
-    from random K/V. The row in the kernels line is the mid-decode one."""
+    from random K/V, valid_len a device int32 as the graphed beam step
+    passes it. The row in the kernels line is the mid-decode one."""
     from turbo_whisper_workspace_tpu_torch.models import whisper as wm
 
     b, k, h, d = 8, BEAM, 20, 64
@@ -578,7 +642,8 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     args = (q, kq, ks, vq, vs)
     rows, errs = {}, {}
     for valid in (MID_DECODE, t):
-        out = att.self_attention_int8(*args, valid)
+        vl = device_int(valid, dev)
+        out = att.self_attention_int8(*args, vl)
         torch.cuda.synchronize()
         dropped = ({"valid_len mask": att.self_attention_int8_reference(*args, t)}
                    if valid < t else {})
@@ -587,21 +652,25 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
             att.self_attention_int8_reference(*args, valid), dropped)
         # K and V rows and their bf16 scales at t < valid_len, q and o
         label = f"self_attention_int8 valid_len={valid}"
-        rows[valid] = timed(label, lambda: att.self_attention_int8(*args, valid),
-                            lambda: att.self_attention_int8_reference(*args, valid),
+        rows[valid] = timed(label, lambda: att.self_attention_int8(*args, vl),
+                            lambda: att.self_attention_int8_reference(*args, vl),
                             nbytes(q, out) + 2 * b * k * h * valid * (d + 2),
                             4 * b * k * h * valid * d, flush)
         copies = input_copies(args, nbytes(*args))
-        print_redesigned("self_attention_int8", label, rows[valid]["ms"], back_to_back_ms(
-            lambda *a: att.self_attention_int8(*a, valid), copies, flush), copies, card, valid)
+        b2b = back_to_back_ms(lambda *a: att.self_attention_int8(*a, vl), copies, flush)
+        print_redesigned("self_attention_int8", label, rows[valid]["ms"], b2b, copies, card,
+                         valid)
+        print_host_int("self_attention_int8", valid, rows[valid]["ms"], b2b)
         del copies
+    errs["replay"] = check_replay("self_attention_int8", att.self_attention_int8,
+                                  att.self_attention_int8_reference, args, t)
     # two query rows sharing the copied K/V (not on the path: the prefill
     # takes self_attention_int8_xla), and Whisper's whole 448-position
-    # context (the kernel's blocks then run in two waves)
+    # context (the kernel's blocks, sized for 448 keys, run in three waves)
     q2 = randn(b * k, h, 2, d).to(torch.bfloat16)
     errs["Tq=2"] = compare(
         f"self_attention_int8 B·K={b * k} H={h} T={t} Tq=2 valid_len={MID_DECODE}",
-        att.self_attention_int8(q2, *args[1:], MID_DECODE),
+        att.self_attention_int8(q2, *args[1:], device_int(MID_DECODE, dev)),
         att.self_attention_int8_reference(q2, *args[1:], MID_DECODE),
         {"valid_len mask": att.self_attention_int8_reference(q2, *args[1:], t)})
     del kq, vq, ks, vs, args, q2
@@ -609,12 +678,19 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     vq, vs = wm._quantize_kv_rows(randn(b * k, 448, h * d), h)
     args = (q, kq, ks, vq, vs)
     for valid in (224, 448):
+        vl = device_int(valid, dev)
+        out = att.self_attention_int8(*args, vl)
         errs[(448, valid)] = compare(
-            f"self_attention_int8 B·K={b * k} H={h} T=448 valid_len={valid}",
-            att.self_attention_int8(*args, valid),
+            f"self_attention_int8 B·K={b * k} H={h} T=448 valid_len={valid}", out,
             att.self_attention_int8_reference(*args, valid),
             {"valid_len mask": att.self_attention_int8_reference(*args, 448)}
             if valid < 448 else {})
+        row = timed(f"self_attention_int8 T=448 valid_len={valid}",
+                    lambda: att.self_attention_int8(*args, vl),
+                    lambda: att.self_attention_int8_reference(*args, vl),
+                    nbytes(q, out) + 2 * b * k * h * valid * (d + 2),
+                    4 * b * k * h * valid * d, flush)
+        print_host_int("self_attention_int8", valid, row["ms"])
     stats["self_attention_int8"] = kernel_row(rows[MID_DECODE], errs)
     del kq, vq, ks, vs, args
 
@@ -667,8 +743,10 @@ def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
     q = randn(b, h, k, d).to(torch.bfloat16)
     args = (q, kp, ks, vp, vs, lane_map)
     rows, errs = {}, {}
+    ranks, slice_t = att.lanes_plan(t)
     for valid in valids:
-        out = att.self_attention_int8_lanes(*args, valid)
+        vl = device_int(valid, dev)
+        out = att.self_attention_int8_lanes(*args, vl)
         torch.cuda.synchronize()
         dropped = {"lane selection": att.self_attention_int8_lanes_reference(
             q, kp, ks, vp, vs, own_lanes, valid)}
@@ -676,7 +754,8 @@ def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
             dropped["valid_len mask"] = att.self_attention_int8_lanes_reference(*args, t)
         errs[valid] = compare(
             f"self_attention_int8_lanes B={b} K={k} H={h} T={t} valid_len={valid} "
-            f"(plan: ranks, slice {att.lanes_plan(valid)})", out,
+            f"(plan: ranks, slice {(ranks, slice_t)}; "
+            f"{ranks - -(-valid // slice_t)} ranks past valid_len)", out,
             att.self_attention_int8_lanes_reference(*args, valid), dropped)
         # the (lane, t) pairs some beam owns at t < valid_len: their K and V
         # bytes and bf16 scales in every head, and q, o, lane_map[..., :valid]
@@ -684,20 +763,26 @@ def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
         rows[valid] = timed(
             f"self_attention_int8_lanes K={k} T={t} valid_len={valid}, {pairs} owned "
             f"(lane, t) pairs of {b * k * valid}",
-            lambda: att.self_attention_int8_lanes(*args, valid),
-            lambda: att.self_attention_int8_lanes_reference(*args, valid),
+            lambda: att.self_attention_int8_lanes(*args, vl),
+            lambda: att.self_attention_int8_lanes_reference(*args, vl),
             nbytes(q, out) + pairs * h * 2 * (d + 2) + b * k * valid * 4,
             4 * b * h * k * valid * d, flush)
         print(f"  K panel: the owned pairs' bytes lie in {sectors} 32-byte sectors "
               f"({sectors * 32 / 1e6:.2f} MB, {sectors * 32 / PEAK_BYTES * 1e3:.4f} ms at "
               f"3.35 TB/s)")
+        b2b = None
         if valid in redesigned:
             copies = input_copies(args, nbytes(*args))
+            b2b = back_to_back_ms(lambda *a: att.self_attention_int8_lanes(*a, vl), copies,
+                                  flush)
             print_redesigned(
                 "self_attention_int8_lanes", f"self_attention_int8_lanes B={b} K={k} H={h} "
-                f"T={t} valid_len={valid}", rows[valid]["ms"], back_to_back_ms(
-                    lambda *a: att.self_attention_int8_lanes(*a, valid), copies, flush),
-                copies, card)
+                f"T={t} valid_len={valid}", rows[valid]["ms"], b2b, copies, card)
+        print_host_int("self_attention_int8_lanes", valid, rows[valid]["ms"], b2b)
+    if t == PROMPT + DECODE:
+        errs["replay"] = check_replay("self_attention_int8_lanes",
+                                      att.self_attention_int8_lanes,
+                                      att.self_attention_int8_lanes_reference, args, t)
     return rows, errs
 
 
@@ -2368,6 +2453,79 @@ def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) 
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the beam loop as a CUDA graph
+
+BEAM_PROFILE = (16, 64)    # loop lengths of the beam step's profile (see step_profile)
+# (quantize_cache, lane_cache, cross_s8) → the self-attention kernel it runs
+BEAM_GRAPH_MODES = {"int8 lanes": ((True, True, False), "self_attention_int8_lanes"),
+                    "int8 regathered": ((True, False, False), "self_attention_int8"),
+                    "bf16 regathered": ((False, False, False), None),
+                    "int8 lanes, s8 cross route": ((True, True, True),
+                                                   "self_attention_int8_lanes")}
+
+
+def beam_graph_phase(att, transcriber, windows: np.ndarray, dev, card: str) -> dict:
+    """Phase 14. Returns the launches of the graphed beam loops (counts
+    zeroed before each, summed)."""
+    from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    model, rules = transcriber.model, transcriber.rules
+    with torch.no_grad():
+        cross_kv = transcriber._encode_windows(windows)
+    prompt = torch.tensor([transcriber._prompt_row("en")] * len(windows), device=dev)
+    for mode, ((quantize_cache, lane_cache, s8), kernel) in BEAM_GRAPH_MODES.items():
+        def decode(graphed, max_len=DECODE):
+            timings = {}
+            t0 = time.perf_counter()
+            res = beam_mod.beam_decode_features(
+                model, cross_kv, prompt, rules=rules, beam_size=BEAM, max_len=max_len,
+                quantize_cache=quantize_cache, lane_cache=lane_cache, cross_s8=s8,
+                graphed=graphed, timings=timings)
+            torch.cuda.synchronize()
+            # random weights: no item holds K finished hypotheses early
+            assert timings["decode_forwards"] == max_len, timings
+            return res, time.perf_counter() - t0, timings
+
+        def run(graphed):
+            if not graphed:
+                return decode(False)
+            att.reset_launch_counts()
+            out = decode(True)
+            for name, c in att.launch_counts.items():
+                counts[name] = counts.get(name, 0) + c
+            assert att.launch_counts["cross_attention_s8" if s8 else "cross_attention_int8"]
+            assert kernel is None or att.launch_counts[kernel] > 0, (mode, att.launch_counts)
+            return out
+
+        runs = in_turns(run)
+        eager = runs[False][0][0]
+        for res, _, _ in runs[False] + runs[True]:
+            for field in beam_mod.BeamResult._fields:
+                assert torch.equal(getattr(res, field), getattr(eager, field)), (mode, field)
+        walls = {g: [f"{w:.3f}" for _, w, _ in runs[g]] for g in runs}
+        per_step = {g: [f"{t['loop_s'] / (t['decode_forwards'] - 1) * 1e3:.3f}"
+                        for _, _, t in runs[g]] for g in runs}
+        print(f"beam-{BEAM} ({mode}), {len(windows)} windows x {DECODE} steps: "
+              f"every field of the graphed loop's result bit-equal to the eager step "
+              f"function's; walls eager {walls[False]} s, graphed {walls[True]} s; ms per "
+              f"step eager {per_step[False]}, graphed {per_step[True]} (capture "
+              f"{[f'{1e3 * t['capture_s']:.1f}' for _, _, t in runs[True]]} ms) [{card}]")
+        if mode == "int8 lanes":
+            for graphed in (False, True):
+                def steps(n, g=graphed):
+                    t = decode(g, max_len=n)[2]
+                    return {**t, "decode_forwards": t["decode_forwards"] - 1}   # the loop's
+
+                print_step_profile(f"beam-{BEAM} ({mode}, {'graphed' if graphed else 'eager'})",
+                                   step_profile(steps, *BEAM_PROFILE), card)
+    print(f"phase 14 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches of the graphed beam loops {counts} [{card}]")
+    return counts
+
+
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
     pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
     with wave.open(path, "wb") as w:
@@ -2409,12 +2567,24 @@ def prefill_profile_only() -> int:
     return 0
 
 
+# the self-attention kernels' valid_lens in `--before`: both kernels'
+# C interface took valid_len by value before it read it from device
+# memory, so an earlier tree's library is called through that interface
+BEFORE_VALID_LENS = {"self_attention_int8": (MID_DECODE, PROMPT + DECODE),
+                     "self_attention_int8_lanes": (PROMPT, MID_DECODE, PROMPT + DECODE)}
+
+
 def before_only(tree: str) -> int:
     """`chip_smoke.py --before TREE`: every kernel that BEFORE_MS times
-    shape by shape, built from the sources of TREE (an earlier commit of
-    the repo, unpacked) beside this checkout's, and timed single launch at
-    each of its shapes in turns (before, this, this, before; each checked
-    against its plain version). Prints the medians; no result line."""
+    shape by shape, and the two self-attention kernels by valid_len, built
+    from the sources of TREE (an earlier commit of the repo, unpacked)
+    beside this checkout's, and timed single launch at each of its shapes
+    in turns (before, this, this, before; each checked against its plain
+    version). Prints the medians; no result line."""
+    import ctypes
+
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import attention as att
     from turbo_whisper_workspace_tpu_torch.ops import build
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
@@ -2422,41 +2592,79 @@ def before_only(tree: str) -> int:
     card = card_line()
     print(card)
     print(f"kernels built in {build.build_all():.1f} s")
-    names = [name for name, ms in BEFORE_MS.items() if isinstance(ms, dict)]
+    shapes = {name: list(ms) for name, ms in BEFORE_MS.items() if isinstance(ms, dict)}
+    shapes.update(BEFORE_VALID_LENS)
     src = os.path.join(tree, "turbo_whisper_workspace_tpu_torch", "csrc")
     out = os.path.join(REPO, "build", "torch_cuda", "before")
     os.makedirs(out, exist_ok=True)
     procs = {name: subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{name}.so"),
          os.path.join(src, f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name in names}
+        text=True) for name in shapes}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, f"nvcc failed on the earlier {name}:\n{log}"
     libs = {name: {"before": build.load(os.path.join(out, f"lib{name}.so"), name),
-                   "this": build.library(name)} for name in names}
+                   "this": build.library(name)} for name in shapes}
+    for name in BEFORE_VALID_LENS:
+        entry = getattr(libs[name]["before"], f"tww_{name}")
+        with open(os.path.join(src, f"{name}.cu")) as f:
+            host_int = "const void* valid_len" not in f.read()
+        if host_int:      # valid_len by value, where this tree passes a pointer
+            entry.argtypes = [a if a is not ctypes.c_void_p or i != len(entry.argtypes) - 2
+                              else ctypes.c_int for i, a in enumerate(entry.argtypes)]
+        libs[name]["host_int"] = host_int
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(7)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def inputs(name, shape):
-        """(the kernel's call, a check of its output) at `shape`: (M, K,
-        N) of a matmul, valid_len of self_attention_int8 (the beam
-        phase's cache)"""
+    def self_inputs(name, valid):
+        """(the kernel's call, a check of its output) at valid_len `valid`
+        over the beam phase's cache; an earlier tree's host-int library is
+        called directly, with valid_len by value"""
         def randn(*size):
             return torch.randn(*size, generator=gen, device=dev)
 
+        h, t = 20, PROMPT + DECODE
         if name == "self_attention_int8":
-            from turbo_whisper_workspace_tpu_torch.models import whisper as wm
-            from turbo_whisper_workspace_tpu_torch.ops import attention as att
+            bk = 8 * BEAM
+            kq, ks = wm._quantize_kv_rows(randn(bk, t, h * 64), h)
+            vq, vs = wm._quantize_kv_rows(randn(bk, t, h * 64), h)
+            args = (randn(bk, h, 1, 64).to(torch.bfloat16), kq, ks, vq, vs)
+            dims = (bk * h, 1, t)
+        else:
+            b = 8
+            kq, ks = wm._quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
+            vq, vs = wm._quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
+            args = (randn(b, h, BEAM, 64).to(torch.bfloat16),
+                    kq.permute(0, 1, 3, 2).reshape(b, h * 64, BEAM * t).contiguous(), ks,
+                    vq.permute(0, 2, 1, 3).reshape(b, BEAM * t, h * 64).contiguous(), vs,
+                    random_ancestry(gen, b, BEAM, t, dev))
+            dims = (b, h, BEAM, t)
+        ref = getattr(att, f"{name}_reference")(*args, valid)
+        vl = device_int(valid, dev)
 
-            bk, h = 8 * BEAM, 20
-            kq, ks = wm._quantize_kv_rows(randn(bk, PROMPT + DECODE, h * 64), h)
-            vq, vs = wm._quantize_kv_rows(randn(bk, PROMPT + DECODE, h * 64), h)
-            args = (randn(bk, h, 1, 64).to(torch.bfloat16), kq, ks, vq, vs, shape)
-            ref = att.self_attention_int8_reference(*args)
-            return (lambda: att.self_attention_int8(*args),
-                    lambda got: rel_err(got, ref) <= KERNEL_REL_TOL)
+        def call():
+            if build._LIBS[name] is libs[name]["this"] or not libs[name]["host_int"]:
+                return getattr(att, name)(*args, vl)
+            o = torch.empty_like(args[0])
+            code = getattr(build._LIBS[name], f"tww_{name}")(
+                *(a.data_ptr() for a in args), o.data_ptr(), *dims, valid,
+                torch.cuda.current_stream().cuda_stream)
+            assert code == 0, code
+            return o
+
+        return call, lambda got: rel_err(got, ref) <= KERNEL_REL_TOL
+
+    def inputs(name, shape):
+        """(the kernel's call, a check of its output) at `shape`: (M, K,
+        N) of a matmul, valid_len of a self-attention kernel"""
+        if name in BEFORE_VALID_LENS:
+            return self_inputs(name, shape)
+
+        def randn(*size):
+            return torch.randn(*size, generator=gen, device=dev)
+
         m, k, n = shape
         if name == "s8g4_matmul":
             q = tq.quantize_int4(randn(k, n) * k ** -0.5)
@@ -2475,8 +2683,8 @@ def before_only(tree: str) -> int:
         ref = prof.s8_matmul_reference(xq, xs, wq, sc)
         return lambda: prof.s8_matmul(xq, xs, wq, sc), lambda got: torch.equal(got, ref)
 
-    for name in names:
-        for shape in BEFORE_MS[name]:
+    for name, name_shapes in shapes.items():
+        for shape in name_shapes:
             call, check = inputs(name, shape)
             times = {"before": [], "this": []}
             for tree_name in ("before", "this", "this", "before"):
@@ -2484,7 +2692,7 @@ def before_only(tree: str) -> int:
                 assert check(call()), (name, tree_name, shape)
                 times[tree_name].append(time_ms(call, flush))
             build._LIBS[name] = libs[name]["this"]
-            label = (f"valid_len={shape}" if name == "self_attention_int8"
+            label = (f"valid_len={shape}" if name in BEFORE_VALID_LENS
                      else "M={} K={} N={}".format(*shape))
             print(f"{name} {label}: single launch, the earlier tree "
                   f"{statistics.median(times['before']):.4f} ms, this tree "
@@ -2700,6 +2908,9 @@ def main(argv: list[str] | None = None) -> int:
     windows = batch_windows(tr, batch)
     assert len(windows) == 8, len(windows)
     path_counts["graph loops"] = graph_phase(att, tq, tr, windows, llm, dev, card)
+
+    # 14. the beam loop as a CUDA graph against its eager step function
+    path_counts["beam graph loops"] = beam_graph_phase(att, tr, windows, dev, card)
 
     lines = []
     for name, s in stats.items():

@@ -220,6 +220,29 @@ def test_top_k_matches_jax_on_ties():
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
 
 
+@pytest.mark.parametrize("rows,n,k", [(10, 51866, 10), (2, 50, 10), (2, 20, 5)])
+def test_top_k_equals_a_stable_sort(rows, n, k):
+    """_top_k (one torch.topk over distinct int64 keys, what a CUDA graph
+    captures) gives what a stable descending sort's first k give, values
+    and indices, at the beam step's widths (B·K rows of the vocabulary,
+    then the 2K² merge and the 2K candidates of the finished set): with
+    ties, −0.0 beside +0.0, −1e30 rows and both signs' extremes."""
+    rng = np.random.default_rng(n)
+    x = (rng.integers(-4, 4, (rows, n)) * 0.5).astype(np.float32)
+    x[0] = -1e30
+    x[1, ::3] = 0.0
+    x[1, 1::3] = -0.0
+    if rows > 2:
+        x[2] = rng.standard_normal(n).astype(np.float32) - 20.0   # log-probs
+        x[3, :7] = np.finfo(np.float32).max
+        x[3, 7:11] = -np.finfo(np.float32).max
+    x = torch.from_numpy(x)
+    got_v, got_i = tbeam._top_k(x, k)
+    ref_v, ref_i = torch.sort(x, dim=-1, descending=True, stable=True)
+    assert torch.equal(got_i, ref_i[:, :k])
+    assert torch.equal(got_v, ref_v[:, :k])
+
+
 @pytest.fixture(scope="module")
 def mel():
     """Log-mel features of two 30 s windows of noise and tone, (2, 80, 3000)."""

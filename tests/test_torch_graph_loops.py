@@ -11,13 +11,17 @@ package: the steps a CUDA graph captures (`decode/greedy.py`,
   equals JAX `decoder_forward` within 1e-5 relative L2 (dense cross-KV;
   the int8 cross-KV step equals the port's int-`pos` step, whose gap to
   JAX is the cross route's own, within 1e-5).
-* `greedy_decode_features` and `generate_tokens` run eagerly at the
-  card's stop cadence (`graphed=False`, STOP_EVERY patched to 3 and to
-  max_len) give JAX's tokens and lengths, sum_logprobs within 1e-5
-  relative, and stop at the first read after the last row finished.
-* A tensor `pos` with the int8 or lane cache raises; the step loop
-  reads the stop flag at its cadence; launches made while a thread
-  captures a graph go to the graph's record.
+* A beam step at a tensor `pos` over the int8 and the lane caches
+  equals the int-`pos` step bit for bit (logits and cache) and JAX
+  `decoder_forward` within 1e-5 relative L2 (dense cross-KV).
+* `greedy_decode_features`, `beam_decode_features` (its three cache
+  modes) and `generate_tokens` run eagerly at the card's stop cadence
+  (`graphed=False`, STOP_EVERY patched to 3 and to max_len) give JAX's
+  tokens and lengths (greedy: sum_logprobs within 1e-5 relative; beam:
+  the finished sets equal, scores within 1e-3), and stop at the first
+  read after the last row finished (beam: every item saturated).
+* The step loop reads the stop flag at its cadence; launches made while
+  a thread captures a graph go to the graph's record.
 * `cuda`-marked, skipped here: on the card the graphed loops equal the
   eager step function bit for bit, and the launch counts include the
   replays.
@@ -35,12 +39,14 @@ from test_torch_llama import DIMS as LDIMS
 from test_torch_llama import TDIMS as LTDIMS
 from test_torch_llama import jax_params, jax_tpu_route  # noqa: F401
 from test_torch_quant import rel_l2
+from turbo_whisper_workspace_tpu.decode import beam as jbeam
 from turbo_whisper_workspace_tpu.decode import greedy as jgreedy
 from turbo_whisper_workspace_tpu.decode import rules as jrules
 from turbo_whisper_workspace_tpu.decode import tokenizer as jtok
 from turbo_whisper_workspace_tpu.llm import generate as jgen
 from turbo_whisper_workspace_tpu.models import llama as jlm
 from turbo_whisper_workspace_tpu.models import whisper as jwm
+from turbo_whisper_workspace_tpu_torch.decode import beam as tbeam
 from turbo_whisper_workspace_tpu_torch.decode import greedy as tgreedy
 from turbo_whisper_workspace_tpu_torch.decode import rules as trules
 from turbo_whisper_workspace_tpu_torch.decode import tokenizer as ttok
@@ -145,18 +151,57 @@ def test_whisper_step_at_tensor_pos_over_the_full_cache(whisper_setup, quantize)
 
 
 @pytest.mark.parametrize("mode", ["int8", "lanes"])
-def test_tensor_pos_with_the_int8_or_lane_cache_raises(whisper_setup, mode):
-    _, model = whisper_setup
-    feats = torch.zeros((2, WDIMS.n_audio_ctx, WDIMS.n_audio_state))
-    ckv = model.decoder.precompute_cross_kv(feats, quantize=True)
-    cache = twm.init_kv_cache(TWDIMS, 2, max_len=8, quantize=True)
-    kw = {}
+def test_beam_step_at_tensor_pos_over_the_int8_and_lane_caches(whisper_setup, mode):
+    """A beam-3 step at pos 5 over the regathered int8 cache and over the
+    lane cache, after a prefill of 4 tokens and a step at pos 4 (then a
+    regather: the beams continue beams 2, 0, 0), at a tensor pos: equal
+    to the same step at an int pos bit for bit, logits and cache, and to
+    JAX `decoder_forward` at a traced pos within STEP_TOL."""
+    params, model = whisper_setup
+    beam, b, total = 3, 2, 10
+    rng = np.random.default_rng(14)
+    feats = (rng.standard_normal((b, WDIMS.n_audio_ctx, WDIMS.n_audio_state)) * 0.3
+             ).astype(np.float32)
+    prefill = rng.integers(0, 50000, (b, 4))
+    steps = rng.integers(0, 50000, (2, b * beam, 1))
+    src = np.array([2, 0, 0])
+    ckv_t = model.decoder.precompute_cross_kv(torch.from_numpy(feats))
+    ckv_j = jwm.precompute_cross_kv(params, WDIMS, feats)
+    tcache = twm.init_kv_cache(TWDIMS, b, max_len=total, dtype=torch.float32, quantize=True)
+    model.decoder(torch.from_numpy(prefill), ckv_t, tcache, pos=0)
+    jcache = jwm.init_kv_cache(WDIMS, b, max_len=total, quantize=True)
+    _, jcache = jwm.decoder_forward(params, WDIMS, jnp.asarray(prefill), ckv_j, jcache, pos=0)
+    lane_maps = [None, None]
     if mode == "lanes":
-        cache = twm.beam_lane_cache(cache, beam=2)
-        kw = dict(beam=2, lane_map=torch.zeros((1, 2, 8), dtype=torch.int32))
-    with pytest.raises(ValueError, match="beam loop"):
-        model.decoder(torch.zeros((2, 1), dtype=torch.long), ckv, cache,
-                      pos=torch.tensor(3), **kw)
+        tcache, jcache = twm.beam_lane_cache(tcache, beam), jwm.beam_lane_cache(jcache, beam)
+        lane_maps = [np.zeros((b, beam, total), np.int32) for _ in range(2)]
+        lane_maps[0][:, :, 4] = np.arange(beam)
+        lane_maps[1][:, :, 4] = src
+        lane_maps[1][:, :, 5] = np.arange(beam)
+    else:
+        tcache = {key: x.repeat_interleave(beam, 1) for key, x in tcache.items()}
+        jcache = jax.tree.map(lambda x: jnp.repeat(x, beam, axis=1), jcache)
+    kw = [dict(beam=beam, lane_map=None if m is None else torch.from_numpy(m))
+          for m in lane_maps]
+    jkw = [dict(beam=beam, lane_map=None if m is None else jnp.asarray(m)) for m in lane_maps]
+    model.decoder(torch.from_numpy(steps[0]), ckv_t, tcache, pos=4, **kw[0])
+    _, jcache = jwm.decoder_forward(params, WDIMS, jnp.asarray(steps[0]), ckv_j, jcache,
+                                    pos=4, **jkw[0])
+    if mode == "int8":
+        rows = (np.arange(b)[:, None] * beam + src).reshape(-1)
+        tcache = {key: x[:, torch.from_numpy(rows)] for key, x in tcache.items()}
+        jcache = jax.tree.map(lambda x: x[:, rows], jcache)
+    caches = [{key: x.clone() for key, x in tcache.items()} for _ in range(2)]
+    tok = torch.from_numpy(steps[1])
+    ref, _ = model.decoder(tok, ckv_t, caches[0], pos=5, **kw[1])
+    got, _ = model.decoder(tok, ckv_t, caches[1], pos=torch.tensor(5), **kw[1])
+    assert got.shape == (b * beam, 1, WDIMS.n_vocab)
+    assert torch.equal(got, ref)
+    for key in caches[0]:
+        assert torch.equal(caches[1][key], caches[0][key]), key
+    jref, _ = jwm.decoder_forward(params, WDIMS, jnp.asarray(steps[1]), ckv_j, jcache,
+                                  pos=jnp.asarray(5), **jkw[1])
+    assert rel_l2(got.numpy(), jref) <= STEP_TOL
 
 
 @pytest.fixture(scope="module")
@@ -196,6 +241,71 @@ def test_greedy_at_the_card_cadence_matches_jax(greedy_setup, every, monkeypatch
     last = int(np.asarray(ref.lengths).max())
     assert last < GREEDY_LEN - 1
     assert timings["decode_forwards"] == min(-(-last // every) * every, GREEDY_LEN - 1)
+    assert timings["capture_s"] == 0.0
+
+
+BEAM_SIZE = 5
+# (quantize_cache, lane_cache): bf16 and int8 regathered, int8 lanes
+BEAM_MODES = {"bf16": (False, False), "int8": (True, False), "lanes": (True, True)}
+
+
+@pytest.fixture(scope="module")
+def beam_refs(greedy_setup):
+    """JAX beam search (beam 5) on greedy_setup's rows, per cache mode. With
+    the EOT row scaled every item holds K finished hypotheses before
+    max_len (after 11-13 selections), so the JAX loop stops on
+    saturation."""
+    model, ckv_t, prompt, _ = greedy_setup
+    params = jax.tree.map(np.array, jwm.init_params(WDIMS, jax.random.PRNGKey(0)))
+    params["decoder"]["token_emb"][SP_J.eot] *= 9.0
+    feats = (np.random.default_rng(1).standard_normal(
+        (6, WDIMS.n_audio_ctx, WDIMS.n_audio_state)) * 0.3).astype(np.float32)
+    ckv_j = jwm.precompute_cross_kv(params, WDIMS, feats[[row for row, _ in GREEDY_ROWS]],
+                                    quantize=True)
+    return {mode: jbeam.beam_decode_features(
+        params, WDIMS, ckv_j, jnp.asarray(prompt.numpy(), jnp.int32),
+        rules=jrules.DecodeRules(specials=SP_J), beam_size=BEAM_SIZE, max_len=GREEDY_LEN,
+        quantize_cache=q, lane_cache=lane) for mode, (q, lane) in BEAM_MODES.items()}
+
+
+@pytest.mark.parametrize("every", [3, GREEDY_LEN])
+@pytest.mark.parametrize("mode", list(BEAM_MODES))
+def test_beam_at_the_card_cadence_matches_jax(greedy_setup, beam_refs, mode, every,
+                                              monkeypatch):
+    model, ckv_t, prompt, _ = greedy_setup
+    ref = beam_refs[mode]
+    quantize_cache, lane_cache = BEAM_MODES[mode]
+    monkeypatch.setattr(tbeam, "STOP_EVERY", every)
+    timings = {}
+    got = tbeam.beam_decode_features(
+        model, ckv_t, prompt, rules=trules.DecodeRules(specials=SP_T),
+        beam_size=BEAM_SIZE, max_len=GREEDY_LEN, quantize_cache=quantize_cache,
+        lane_cache=lane_cache, graphed=False, timings=timings)
+    for field in ("tokens", "lengths", "all_tokens"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(ref, field)))
+    # scores: 1e-3 as tests/test_torch_decode.py holds beam search. The int8
+    # caches round each step's K/V rows from f32 projections whose last
+    # bits differ between torch and XLA; a row that lands on the other
+    # side of a .5 moves every later step's scores, which reach 2.7e-3
+    # (5e-5 relative) over these 11-13 selections, on the port's previous
+    # eager loop as on this one: there the limit adds 1e-4 relative
+    rtol = 1e-4 if quantize_cache else 0.0
+    for field in ("sum_logprobs", "avg_logprobs", "no_speech_probs", "all_scores"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(ref, field)), atol=1e-3, rtol=rtol)
+    # every slot holds a finished hypothesis (an alive fallback has no
+    # EOT), and the JAX loop ran n selections: the last item to saturate
+    # retired its K-th hypothesis at step n - 1, the longest of the
+    # finished sets (one retired at step s holds s sampled tokens, then EOT)
+    is_eot = np.asarray(ref.all_tokens)[:, :, prompt.shape[1]:] == SP_J.eot
+    assert is_eot.any(-1).all()
+    n = int(is_eot.argmax(-1).max()) + 1
+    assert n < GREEDY_LEN
+    # step 0's forward, then the steps up to the first read of the flag
+    # after the n-th selection
+    assert timings["decode_forwards"] == 1 + min(-(-(n - 1) // every) * every,
+                                                 GREEDY_LEN - 1)
     assert timings["capture_s"] == 0.0
 
 
@@ -328,6 +438,48 @@ def test_cuda_graphed_greedy_equals_the_eager_step(cuda_device, cross_s8):
     assert eager_counts[kernel] == 2 * (1 + steps), eager_counts
     assert graph_counts[kernel] == 2 * (1 + steps + 1), graph_counts
     assert sum(graph_counts.values()) == sum(eager_counts.values()) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BEAM_MODES))
+def test_cuda_graphed_beam_equals_the_eager_step(cuda_device, mode):
+    """Large-v3-turbo's head width (64) at 2 heads and 2 + 2 layers in
+    bf16, beam 5 over 4 windows in each self-KV cache mode: every field
+    of the graphed loop's result equals the eager step function's bit
+    for bit, and the launch counts hold the replays: the graphed run's
+    are the eager run's plus its warm-up step."""
+    dims = twm.WhisperDims(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    model = twm.init_params(dims, torch.Generator(cuda_device).manual_seed(0), torch.bfloat16)
+    feats = torch.randn((4, 1500, 128), generator=torch.Generator(cuda_device).manual_seed(1),
+                        device=cuda_device).to(torch.bfloat16)
+    ckv = model.decoder.precompute_cross_kv(feats, quantize=True)
+    sp = ttok.special_tokens_for_vocab(dims.n_vocab)
+    prompt = torch.tensor([sp.sot_sequence("en")] * 4, device=cuda_device)
+    quantize_cache, lane_cache = BEAM_MODES[mode]
+    kw = dict(rules=trules.DecodeRules(specials=sp), beam_size=5, max_len=40,
+              quantize_cache=quantize_cache, lane_cache=lane_cache)
+    runs = {}
+    for graphed in (False, True):
+        _reset()
+        timings = {}
+        res = tbeam.beam_decode_features(model, ckv, prompt, graphed=graphed,
+                                         timings=timings, **kw)
+        torch.cuda.synchronize()
+        runs[graphed] = (res, _counts(), timings)
+    (eager, eager_counts, eager_t), (graph, graph_counts, timings) = runs[False], runs[True]
+    for field in tbeam.BeamResult._fields:
+        assert torch.equal(getattr(graph, field), getattr(eager, field)), field
+    assert timings["capture_s"] > 0 and eager_t["capture_s"] == 0
+    steps = timings["decode_forwards"]
+    assert steps == eager_t["decode_forwards"] > 1
+    # cross-attention: the prefill's and one call a step, a launch a layer;
+    # self-attention over the int8 caches: the steps only (the prefill's
+    # is plain torch)
+    kernel = {"int8": "self_attention_int8", "lanes": "self_attention_int8_lanes"}.get(mode)
+    for counts, n in ((eager_counts, steps), (graph_counts, steps + 1)):
+        assert counts["cross_attention_int8"] == 2 * (1 + n), counts
+        if kernel:
+            assert counts[kernel] == 2 * n, counts
 
 
 @pytest.mark.cuda

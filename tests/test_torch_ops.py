@@ -363,9 +363,12 @@ def test_lanes_reference_matches_jax(valid_len):
     np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
 
 
-def lanes_mirror(q, kp, ks, vp, vs, lane_map, valid_len, ranks):
+def lanes_mirror(q, kp, ks, vp, vs, lane_map, valid_len, slice_t):
     """self_attention_int8_lanes's cluster arithmetic in its order, in
-    torch: positions [0, valid_len) split over `ranks` slices; in each,
+    torch: the cache's positions split into slices of `slice_t` (rank r
+    holds [r·S, (r+1)·S): the plan depends on T alone), each cut at
+    valid_len; a rank wholly past valid_len adds −inf to the max, 0 to
+    the sum and 0 to P·V, so it is left out here; in each rank's slice,
     the owned (lane, t) pairs, lane-major, with their owner masks; each
     pair scored once for all its owners (f32, × ks·d^-1/2·log2 e, −inf for
     the beams that do not own it); each rank's per-beam max m_r and sum of
@@ -375,7 +378,7 @@ def lanes_mirror(q, kp, ks, vp, vs, lane_map, valid_len, ranks):
     b, h, k, dh = q.shape
     kt = kp.shape[-1]
     t_len = kt // k
-    width = -(-valid_len // ranks)
+    width = slice_t
     scale = dh ** -0.5 * tatt.LOG2E
     lanes = torch.arange(k)
     out = torch.zeros((b, h, k, dh))
@@ -407,17 +410,18 @@ def lanes_mirror(q, kp, ks, vp, vs, lane_map, valid_len, ranks):
     return out.to(q.dtype)
 
 
-# (lanes plan) valid_len on the smoke run's paths (the prompt 3, mid-decode
-# 115, the last step 227, K = 8's 448) and the split's edges
-@pytest.mark.parametrize("valid_len", [1, 3, 31, 32, 33, 115, 227, 448, 1000, 1024])
-def test_lanes_plan_covers_valid_len(valid_len):
-    ranks, slice_t = tatt.lanes_plan(valid_len)
+# (lanes plan) the cache length T, which alone sizes the launch: the smoke
+# run's caches (227, K = 8's 448), short ones and the split's edges; the
+# ranks that lie past a smaller valid_len own no position
+@pytest.mark.parametrize("t_len", [1, 3, 31, 32, 33, 115, 227, 448, 1000, 1024])
+def test_lanes_plan_covers_valid_len(t_len):
+    ranks, slice_t = tatt.lanes_plan(t_len)
     assert 1 <= ranks <= tatt.CLUSTER_MAX_RANKS
-    assert ranks * slice_t >= valid_len > (ranks - 1) * slice_t   # no rank wholly past it
+    assert ranks * slice_t >= t_len > (ranks - 1) * slice_t       # no rank wholly past T
     assert slice_t <= tatt.LANES_MAX_T // tatt.CLUSTER_MAX_RANKS     # fits shared memory
-    if valid_len <= tatt.LANES_T_PER_RANK:
+    if t_len <= tatt.LANES_T_PER_RANK:
         assert ranks == 1
-    assert {115: (4, 29), 227: (8, 29)}.get(valid_len, (ranks, slice_t)) == (ranks, slice_t)
+    assert {115: (4, 29), 227: (8, 29)}.get(t_len, (ranks, slice_t)) == (ranks, slice_t)
 
 
 def _lane_map_kind(kind, lane_map):
@@ -438,11 +442,12 @@ LANE_MIRROR_CASES = [(k, t, valid, "random") for k in (1, 4, 8) for t in (16, 17
 
 @pytest.mark.parametrize("k,t,valid_len,kind", LANE_MIRROR_CASES)
 def test_lanes_cluster_order_matches_jax(k, t, valid_len, kind):
-    """The lanes cluster's order of operations (at its plan and split over
-    2 and 3 ranks) against the JAX package: the XLA twin at f32 within
-    1e-5, and the Pallas kernel in interpret mode on bf16 inputs within
-    test_lanes_reference_matches_jax's 2e-2. K·T is odd at T = 17 and
-    K = 1."""
+    """The lanes cluster's order of operations (at its plan for the
+    cache length T and T split over 2 and 3 ranks, the ranks past
+    valid_len owning nothing) against the JAX package: the XLA twin at
+    f32 within 1e-5, and the Pallas kernel in interpret mode on bf16
+    inputs within test_lanes_reference_matches_jax's 2e-2. K·T is odd at
+    T = 17 and K = 1."""
     q, kp, kps, vp, vps, lane_map = _lane_inputs(k=k, t=t)
     lane_map = _lane_map_kind(kind, lane_map)
     xla = np.asarray(jatt.self_attention_int8_lanes_xla(
@@ -451,12 +456,12 @@ def test_lanes_cluster_order_matches_jax(k, t, valid_len, kind):
     pallas = np.asarray(jatt.self_attention_int8_lanes(
         jnp.asarray(qb, jnp.bfloat16), kp, jnp.asarray(ksb, jnp.bfloat16), vp,
         jnp.asarray(vsb, jnp.bfloat16), lane_map, valid_len, interpret=True), np.float32)
-    for ranks in sorted({tatt.lanes_plan(valid_len)[0], min(2, valid_len), min(3, valid_len)}):
+    for slice_t in sorted({tatt.lanes_plan(t)[1], -(-t // 2), -(-t // 3)}):
         got = lanes_mirror(*map(torch.from_numpy, (q, kp, kps, vp, vps, lane_map)),
-                           valid_len, ranks)
+                           valid_len, slice_t)
         np.testing.assert_allclose(got.numpy(), xla, atol=1e-5, rtol=1e-5)
         got_bf16 = lanes_mirror(*_to_torch_bf16(qb, kp, ksb, vp, vsb, lane_map),
-                                valid_len, ranks)
+                                valid_len, slice_t)
         assert got_bf16.dtype == torch.bfloat16
         np.testing.assert_allclose(got_bf16.float().numpy(), pallas, atol=2e-2, rtol=2e-2)
 
@@ -527,6 +532,38 @@ def test_wrappers_run_plain_versions_on_cpu():
     assert tatt.launch_counts == {"flash_attention": 0, "cross_attention_int8": 0,
                                   "cross_attention_s8": 0, "self_attention_int8": 0,
                                   "self_attention_int8_lanes": 0}
+
+
+@pytest.mark.parametrize("kernel", ["self_attention_int8", "self_attention_int8_lanes"])
+def test_plain_versions_take_a_tensor_valid_len(kernel):
+    """valid_len as the one-element int32 tensor the kernels read from
+    device memory (the decoder's pos + 1 at a tensor pos): the plain
+    versions and the CPU wrappers equal the int valid_len bit for bit."""
+    args = [torch.from_numpy(x) for x in (_self_inputs() if kernel == "self_attention_int8"
+                                          else _lane_inputs())]
+    plain = getattr(tatt, f"{kernel}_reference")
+    for valid_len in (1, 11, 16):
+        at = torch.tensor([valid_len], dtype=torch.int32)
+        ref = plain(*args, valid_len)
+        assert torch.equal(plain(*args, at), ref)
+        assert torch.equal(getattr(tatt, kernel)(*args, at), ref)
+        assert torch.equal(plain(*args, at.view(())), ref)
+
+
+@pytest.mark.parametrize("valid_len,error", [
+    (0, "out of"), (17, "out of"), (torch.tensor([3]), "int32"),
+    (torch.tensor([3, 4], dtype=torch.int32), "one int32")])
+def test_device_valid_len_refuses_what_the_kernels_cannot_read(valid_len, error):
+    """The wrappers' key count before a launch: a host int is range-checked
+    against T and put on the device as int32; a tensor must already be one
+    int32 on q's device (its value is never read on the host: the
+    kernels clamp it to [1, T])."""
+    with pytest.raises(ValueError, match=error):
+        tatt._device_valid_len("k", valid_len, 16, torch.device("cpu"))
+    got = tatt._device_valid_len("k", 16, 16, torch.device("cpu"))
+    assert got.dtype == torch.int32 and got.tolist() == [16]
+    at = torch.tensor([99], dtype=torch.int32)
+    assert tatt._device_valid_len("k", at, 16, torch.device("cpu")) is at
 
 
 def test_kernel_sources_export_their_entry_points():
@@ -692,9 +729,10 @@ def _ancestry(gen, b, k, t, dev, prompt=3):
 @pytest.mark.parametrize("k,t", [(5, 227), (8, 448)])
 @pytest.mark.parametrize("valid_len", [1, 3, 115, None])
 def test_cuda_lanes_cluster_matches_plain_version(cuda_device, k, t, valid_len):
-    """self_attention_int8_lanes on its cluster (valid_len 115: 4 ranks;
-    T: 8) over a beam ancestry, K·T odd at T = 227, K = 8 at T = 448;
-    valid_len 1 and 3 (the prompt: lane 0 alone) on one rank."""
+    """self_attention_int8_lanes on its cluster (8 ranks at T = 227 and
+    448: at valid_len 1, 3 (the prompt: lane 0 alone) and 115 the ranks
+    past it own nothing) over a beam ancestry, K·T odd at T = 227, K = 8
+    at T = 448."""
     valid_len = t if valid_len is None else valid_len
     gen = torch.Generator(cuda_device).manual_seed(k)
     b, h = 2, 4
@@ -710,3 +748,47 @@ def test_cuda_lanes_cluster_matches_plain_version(cuda_device, k, t, valid_len):
     ref = tatt.self_attention_int8_lanes_reference(*args, valid_len).float()
     assert (out - ref).abs().max().item() <= 2e-2
     assert (out - ref).norm() <= 5e-3 * ref.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["self_attention_int8", "self_attention_int8_lanes"])
+def test_cuda_graph_replay_reads_valid_len_from_device_memory(cuda_device, kernel):
+    """One launch captured in a CUDA graph at valid_len 115 over the beam
+    path's T = 227, then 227 written into the device scalar and the graph
+    replayed: the output is the plain version's at 227 (the launch is
+    sized by T alone; the kernel reads the key count when it runs)."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    t, h = 227, 4
+    if kernel == "self_attention_int8":
+        kq, ks = twm._quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
+                                                   device=cuda_device), h)
+        vq, vs = twm._quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
+                                                   device=cuda_device), h)
+        args = (torch.randn(10, h, 1, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
+                kq, ks, vq, vs)
+    else:
+        b, k = 2, 5
+        kq, ks = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+                                                   device=cuda_device), h)
+        vq, vs = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+                                                   device=cuda_device), h)
+        args = (torch.randn(b, h, k, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
+                kq.permute(0, 1, 3, 2).reshape(b, h * 64, k * t).contiguous(), ks,
+                vq.permute(0, 2, 1, 3).reshape(b, k * t, h * 64).contiguous(), vs,
+                _ancestry(gen, b, k, t, cuda_device))
+    fn, plain = getattr(tatt, kernel), getattr(tatt, f"{kernel}_reference")
+    valid_len = torch.tensor([115], dtype=torch.int32, device=cuda_device)
+    fn(*args, valid_len)                  # the attribute and the library, before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, valid_len)
+    graph.replay()
+    torch.cuda.synchronize()
+    for n in (115, 227):
+        valid_len.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = plain(*args, n).float()
+        assert (out.float() - ref).abs().max().item() <= 2e-2, n
+        assert (out.float() - ref).norm() <= 5e-3 * ref.norm(), n

@@ -15,8 +15,11 @@
 // K rows and V rows of 64 bytes and their bf16 scales, and does ~4
 // operations per byte, so it is bound by HBM (3.35 TB/s): 12.1 MB, 3.7 µs
 // at valid_len 115 for the beam path's 800 (b, h). Only keys t <
-// valid_len need be read: valid_len is a kernel argument, not a device
-// tensor, so no host sync is needed to pass it.
+// valid_len need be read. valid_len is a device int32, as the TPU
+// kernel's scalar prefetch takes it: the beam step that a CUDA graph
+// replays moves it on the device, so the launch (grid, shared memory)
+// depends on the cache length T only, and each block reads valid_len on
+// entry and sizes its copies and loops from it.
 //
 // Design: the work is tiny (~6 M FMAs), so the time is a chain of
 // latencies; the kernel puts every byte of a (b, h) in flight at entry and
@@ -38,10 +41,11 @@
 // probabilities; the 8 keys of a warp meet by shuffles and the 4 warps in
 // shared memory. int8 bytes become floats exactly by the 2^23 trick
 // (cluster_attention.cuh). Keys t ≥ valid_len are never copied or read.
-// Shared memory is ~136 bytes a key and 1.1 KB (32.1 KB with the card's
-// 1 KB a block at valid_len 227, 7 blocks an SM; 61.6 KB at 448, 3), so
-// the beam path's 800 blocks run in one wave up to valid_len 227 and in
-// three at 448, where the K and V slabs alone take 56 KB a block.
+// Shared memory is laid out for all T keys, ~136 bytes a key and 1.1 KB
+// (32.1 KB with the card's 1 KB a block at T = 227, 7 blocks an SM;
+// 61.6 KB at T = 448, 3), so the beam path's 800 blocks run in one wave
+// at T = 227 and in three at T = 448 whatever valid_len is; only the
+// first valid_len rows of it are filled.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,9 +138,10 @@ self_attention_int8_kernel(const __nv_bfloat16* __restrict__ q,   // (B·H, Tq, 
                            const int8_t* __restrict__ vq,         // (B·H, T, 64)
                            const __nv_bfloat16* __restrict__ vs,  // (B·H, T)
                            __nv_bfloat16* __restrict__ o,         // (B·H, Tq, 64)
-                           int tq, int t_len, int valid_len) {
-    // K slab, V slab (valid_len × 64 each), ks, vs, then the row's f32
-    // scores / probabilities (valid_len)
+                           int tq, int t_len,
+                           const int* __restrict__ valid_len_at) {  // device int32
+    // K slab, V slab (T × 64 each), ks, vs, then the row's f32 scores /
+    // probabilities (T); the first valid_len rows of each are used
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ __align__(8) uint64_t bars[2];                 // K landed, V landed
     __shared__ float red[2][WARPS];
@@ -148,12 +153,14 @@ self_attention_int8_kernel(const __nv_bfloat16* __restrict__ q,   // (B·H, Tq, 
     const int sub = tid % KEY_LANES;  // this lane's 16 dims: 16·sub ..
     const int key = tid / KEY_LANES;  // its key of each pass
     const size_t bh = blockIdx.x;
-    const int slab = valid_len * D;
+    // clamped to [1, T]: no value reads outside the cache
+    const int valid_len = min(max(__ldg(valid_len_at), 1), t_len);
+    const int slab = valid_len * D;   // bytes of the K (and V) rows copied
     unsigned char* k_s = smem;
-    unsigned char* v_s = smem + slab;
-    unsigned char* ks_s = smem + 2 * slab;
-    unsigned char* vs_s = ks_s + scale_bytes(valid_len);
-    float* p_s = reinterpret_cast<float*>(vs_s + scale_bytes(valid_len));
+    unsigned char* v_s = smem + t_len * D;
+    unsigned char* ks_s = smem + 2 * t_len * D;
+    unsigned char* vs_s = ks_s + scale_bytes(t_len);
+    float* p_s = reinterpret_cast<float*>(vs_s + scale_bytes(t_len));
     const __nv_bfloat16* ks_row = ks + bh * t_len;
     const __nv_bfloat16* vs_row = vs + bh * t_len;
     const int ks_pad = (int)(reinterpret_cast<uintptr_t>(ks_row) % 16);
@@ -272,34 +279,40 @@ self_attention_int8_kernel(const __nv_bfloat16* __restrict__ q,   // (B·H, Tq, 
     }
 }
 
-size_t smem_bytes(int valid_len) {
-    return (size_t)2 * valid_len * D + 2 * (size_t)scale_bytes(valid_len) +
-           (size_t)valid_len * sizeof(float);
+size_t smem_bytes(int t_len) {
+    return (size_t)2 * t_len * D + 2 * (size_t)scale_bytes(t_len) +
+           (size_t)t_len * sizeof(float);
 }
 
 }  // namespace
 
 // q, o: (bh, tq, 64) bf16; kq, vq: (bh, t_len, 64) int8, 16-byte
 // aligned; ks, vs: (bh, t_len) bf16; bh = batch·n_head. All contiguous;
-// 1 ≤ valid_len ≤ min(t_len, 1536) (ops/attention.py:SELF_MAX_KEYS).
+// 1 ≤ t_len ≤ 1536 (ops/attention.py:SELF_MAX_KEYS). valid_len: one
+// int32 in device memory, read by the kernel (clamped to [1, t_len]).
 // Returns cudaGetLastError() after the launch.
 extern "C" int tww_self_attention_int8(const void* q, const void* kq, const void* ks,
                                        const void* vq, const void* vs, void* o, int bh,
-                                       int tq, int t_len, int valid_len, void* stream) {
-    const size_t smem = smem_bytes(valid_len);
+                                       int tq, int t_len, const void* valid_len,
+                                       void* stream) {
+    const size_t smem = smem_bytes(t_len);
     if (smem > MAX_SMEM - 2 * 1024) return (int)cudaErrorInvalidValue;
-    // ~1.1 KB of static shared memory beside the dynamic
-    if (smem > 46 * 1024) {
+    // ~1.1 KB of static shared memory beside the dynamic; the limit is
+    // raised once to each larger size, so a launch being captured into a
+    // CUDA graph after an eager one makes no attribute call
+    static size_t raised = 46 * 1024;
+    if (smem > raised) {
         const cudaError_t err = cudaFuncSetAttribute(
             self_attention_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (err != cudaSuccess) return (int)err;
+        raised = smem;
     }
     self_attention_int8_kernel<<<bh, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
         static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(vq),
         static_cast<const __nv_bfloat16*>(vs), static_cast<__nv_bfloat16*>(o), tq, t_len,
-        valid_len);
+        static_cast<const int*>(valid_len));
     return (int)cudaGetLastError();
 }
 

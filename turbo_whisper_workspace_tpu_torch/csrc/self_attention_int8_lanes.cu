@@ -32,13 +32,20 @@
 // each link a round trip or a barrier.
 //
 // Design: one thread-block cluster of C ≤ 8 blocks per (b, h), launched
-// with cudaLaunchKernelEx; rank r owns positions [r·S, (r+1)·S) of
-// [0, valid_len). The plan is make_plan below (about 32 positions a
-// rank), mirrored by ops/attention.py:lanes_plan; at valid_len 115 it is
-// C = 4, S = 29 (640 blocks at B = 8, H = 20), at 227 C = 8. A cluster,
-// not one block looping over chunks of pairs: the K = 8, T = 448 case
-// (3584 pairs, 473 KB) fits the cluster's shared memory at once (448
-// pairs a rank), and the ranks' loads are all in flight together.
+// with cudaLaunchKernelEx; rank r owns positions [r·S, (r+1)·S) of the
+// cache's T. The plan is make_plan below (about 32 positions a rank),
+// mirrored by ops/attention.py:lanes_plan, and depends on T only:
+// valid_len is a device int32, as the TPU kernel takes it, which the
+// beam step that a CUDA graph replays moves on the device. Each block
+// reads it on entry and takes positions [r·S, min((r+1)·S, valid_len));
+// a rank wholly past it owns no pair, publishes −inf and 0 to the
+// softmax and still reaches the three cluster barriers. At the beam
+// path's T = 227 the plan is C = 8, S = 29 (1280 blocks at B = 8,
+// H = 20), so at valid_len 115 half the ranks have nothing to do. A
+// cluster, not one block looping over chunks of pairs: the K = 8,
+// T = 448 case (3584 pairs, 473 KB) fits the cluster's shared memory at
+// once (448 pairs a rank), and the ranks' loads are all in flight
+// together.
 //   Owned pairs: each rank reads its lane_map[b, :, slice] and builds the
 // list of (lane, t) pairs some beam owns with their owner masks (warp
 // ballots, a prefix sum over the warps), lane-major: neighbouring pairs
@@ -102,12 +109,12 @@ struct Plan {
     int ranks, slice;
 };
 
-// mirrored by ops/attention.py:lanes_plan
-Plan make_plan(int valid_len) {
-    int ranks = (valid_len + T_PER_RANK - 1) / T_PER_RANK;
+// mirrored by ops/attention.py:lanes_plan; t_len is the cache length
+Plan make_plan(int t_len) {
+    int ranks = (t_len + T_PER_RANK - 1) / T_PER_RANK;
     ranks = ranks < 1 ? 1 : (ranks > MAX_RANKS ? MAX_RANKS : ranks);
-    const int slice = (valid_len + ranks - 1) / ranks;
-    return {(valid_len + slice - 1) / slice, slice};
+    const int slice = (t_len + ranks - 1) / ranks;
+    return {(t_len + slice - 1) / slice, slice};
 }
 
 // the packed K columns of the pairs, which the per-warp P·V partials
@@ -138,7 +145,8 @@ self_attention_int8_lanes_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H
                                  const __nv_bfloat16* __restrict__ vs,  // (B, H, K·T)
                                  const int* __restrict__ lane_map,      // (B, K, T)
                                  __nv_bfloat16* __restrict__ o,         // (B, H, K, 64)
-                                 int n_head, int beams, int t_len, int valid_len,
+                                 int n_head, int beams, int t_len,
+                                 const int* __restrict__ valid_len_at,  // device int32
                                  int slice) {
     // P = K·S pairs at most; arrays indexed by pair use the rank's count np
     extern __shared__ __align__(16) uint8_t smem[];
@@ -170,6 +178,8 @@ self_attention_int8_lanes_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H
     const size_t kt = (size_t)beams * t_len;
     const size_t width = (size_t)n_head * D;
     const int t0 = rank * slice;
+    // clamped to [1, T]: no value reads outside the cache
+    const int valid_len = min(max(__ldg(valid_len_at), 1), t_len);
     const int nt = max(0, min(slice, valid_len - t0));   // this rank's positions
 
     for (int i = tid; i < MAX_BEAMS * D; i += THREADS) {
@@ -403,23 +413,25 @@ self_attention_int8_lanes_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H
 // beams·t_len) int8; vp: (batch, beams·t_len, n_head·64) int8, 16-byte
 // aligned; ks, vs: (batch, n_head, beams·t_len) bf16; lane_map: (batch,
 // beams, t_len) int32 with values in [0, beams). All contiguous;
-// 1 ≤ beams ≤ 8; 1 ≤ valid_len ≤ t_len ≤ 1024. Returns
+// 1 ≤ beams ≤ 8; 1 ≤ t_len ≤ 1024. valid_len: one int32 in device
+// memory, read by the kernel (clamped to [1, t_len]). Returns
 // cudaGetLastError() after the launch (or the launch's own error).
 extern "C" int tww_self_attention_int8_lanes(const void* q, const void* kp, const void* ks,
                                              const void* vp, const void* vs,
                                              const void* lane_map, void* o, int batch,
                                              int n_head, int beams, int t_len,
-                                             int valid_len, void* stream) {
-    if (beams < 1 || beams > MAX_BEAMS || valid_len < 1 || valid_len > t_len || t_len > MAX_T)
+                                             const void* valid_len, void* stream) {
+    if (beams < 1 || beams > MAX_BEAMS || t_len < 1 || t_len > MAX_T)
         return (int)cudaErrorInvalidValue;
-    const Plan p = make_plan(valid_len);
+    const Plan p = make_plan(t_len);
     const cudaError_t err = launch_clusters(
         self_attention_int8_lanes_kernel, batch * n_head * p.ranks, THREADS, p.ranks,
         smem_bytes(beams, p.slice), STATIC_SMEM, (cudaStream_t)stream,
         static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kp),
         static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(vp),
         static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(lane_map),
-        static_cast<__nv_bfloat16*>(o), n_head, beams, t_len, valid_len, p.slice);
+        static_cast<__nv_bfloat16*>(o), n_head, beams, t_len,
+        static_cast<const int*>(valid_len), p.slice);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

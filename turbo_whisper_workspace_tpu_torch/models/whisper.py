@@ -279,60 +279,62 @@ class TextDecoder(nn.Module):
         return out.transpose(1, 2).reshape(b, tq, d)
 
     def _self_attention(self, li: int, q, k, v, cache: dict, pos: int | torch.Tensor,
-                        mask, beam: int, lane_map) -> torch.Tensor:
+                        valid_len: int | torch.Tensor, mask, beam: int,
+                        lane_map) -> torch.Tensor:
         """Layer li's self-attention, (B, T, D) → (B, T, D), after writing
         this call's K/V rows into the cache IN PLACE at [pos, pos+T) (the
-        JAX package returns an updated copy). Keys past pos+T are all
-        masked: at an int pos they are left out of the product; at a
-        tensor pos (one step over the bf16 cache) the product covers the
-        whole cache under `mask`, as the JAX function's does."""
+        JAX package returns an updated copy). Keys t ≥ valid_len = pos+T
+        are masked. At an int pos the bf16 cache's product leaves them
+        out; at a tensor pos (one step, the step a CUDA graph replays) the
+        rows go in by `index_copy_`, the bf16 product covers the whole
+        cache under `mask`, as the JAX function's does, and the int8
+        kernels read valid_len, a device int32, from device memory."""
         b, t, d = q.shape
         h = self.n_head
         dh = d // h
-        if torch.is_tensor(pos):
-            cache["k"][li].index_copy_(1, pos.view(1), k.to(cache["k"].dtype))
-            cache["v"][li].index_copy_(1, pos.view(1), v.to(cache["v"].dtype))
-            return mha(q, cache["k"][li].to(q.dtype), cache["v"][li].to(q.dtype), h,
-                       mask=mask)
-        n_keys = pos + t
         if "k_p" in cache:
             # lane cache: beam row b·K+k writes lane k of batch item b at pos
             br = b // beam
             kq, ks = _quantize_kv_rows(k, h)              # (B·K, H, 1, Dh), (B·K, H, 1)
             vq, vs = _quantize_kv_rows(v, h)
-            cache["k_p"][li, :, :, :, pos] = kq[:, :, 0].reshape(br, beam, d).transpose(1, 2)
-            cache["v_p"][li, :, :, pos] = vq[:, :, 0].reshape(br, beam, d)
-            cache["k_ps"][li, :, :, :, pos] = ks[:, :, 0].reshape(br, beam, h).transpose(1, 2)
-            cache["v_ps"][li, :, :, :, pos] = vs[:, :, 0].reshape(br, beam, h).transpose(1, 2)
+            _write_rows(cache["k_p"][li], 3, pos,
+                        kq[:, :, 0].reshape(br, beam, d).transpose(1, 2)[..., None])
+            _write_rows(cache["v_p"][li], 2, pos, vq[:, :, 0].reshape(br, beam, 1, d))
+            _write_rows(cache["k_ps"][li], 3, pos,
+                        ks[:, :, 0].reshape(br, beam, h).transpose(1, 2)[..., None])
+            _write_rows(cache["v_ps"][li], 3, pos,
+                        vs[:, :, 0].reshape(br, beam, h).transpose(1, 2)[..., None])
             # (L, B, ...) panels → one layer's contiguous (B, ...) views, no copies
             kt = beam * cache["k_p"].shape[-1]
             out = att.self_attention_int8_lanes(
                 q.reshape(br, beam, h, dh).transpose(1, 2).contiguous(),
                 cache["k_p"][li].reshape(br, d, kt), cache["k_ps"][li].reshape(br, h, kt),
                 cache["v_p"][li].reshape(br, kt, d), cache["v_ps"][li].reshape(br, h, kt),
-                lane_map, n_keys)
+                lane_map, valid_len)
             return out.transpose(1, 2).reshape(b, t, d)
         if "k_q" in cache:
             kq, ks = _quantize_kv_rows(k, h)              # (B, H, T, Dh), (B, H, T)
             vq, vs = _quantize_kv_rows(v, h)
-            cache["k_q"][li, :, :, pos:n_keys] = kq
-            cache["k_s"][li, :, :, pos:n_keys] = ks
-            cache["v_q"][li, :, :, pos:n_keys] = vq
-            cache["v_s"][li, :, :, pos:n_keys] = vs
+            for name, rows in (("k_q", kq), ("k_s", ks), ("v_q", vq), ("v_s", vs)):
+                _write_rows(cache[name][li], 2, pos, rows)
             qh = q.reshape(b, t, h, dh).transpose(1, 2)
             if t == 1:
                 out = att.self_attention_int8(
                     qh.contiguous(), cache["k_q"][li], cache["k_s"][li],
-                    cache["v_q"][li], cache["v_s"][li], n_keys)
+                    cache["v_q"][li], cache["v_s"][li], valid_len)
             else:
                 out = att.self_attention_int8_xla(
-                    qh, cache["k_q"][li, :, :, :n_keys], cache["k_s"][li, :, :, :n_keys],
-                    cache["v_q"][li, :, :, :n_keys], cache["v_s"][li, :, :, :n_keys], mask)
+                    qh, cache["k_q"][li, :, :, :valid_len], cache["k_s"][li, :, :, :valid_len],
+                    cache["v_q"][li, :, :, :valid_len], cache["v_s"][li, :, :, :valid_len],
+                    mask)
             return out.transpose(1, 2).reshape(b, t, d)
-        cache["k"][li, :, pos:n_keys] = k.to(cache["k"].dtype)
-        cache["v"][li, :, pos:n_keys] = v.to(cache["v"].dtype)
-        return mha(q, cache["k"][li, :, :n_keys].to(q.dtype),
-                   cache["v"][li, :, :n_keys].to(q.dtype), h, mask=mask)
+        _write_rows(cache["k"][li], 1, pos, k.to(cache["k"].dtype))
+        _write_rows(cache["v"][li], 1, pos, v.to(cache["v"].dtype))
+        if torch.is_tensor(pos):
+            return mha(q, cache["k"][li].to(q.dtype), cache["v"][li].to(q.dtype), h,
+                       mask=mask)
+        return mha(q, cache["k"][li, :, :valid_len].to(q.dtype),
+                   cache["v"][li, :, :valid_len].to(q.dtype), h, mask=mask)
 
     def forward(self, tokens: torch.Tensor, cross_kv: dict,
                 kv_cache: dict | None = None, pos: int | torch.Tensor = 0, beam: int = 1,
@@ -355,27 +357,28 @@ class TextDecoder(nn.Module):
         of cross_attention_int8 (the JAX package's TWW_CROSS_S8=1).
 
         pos may be a 0-dim int64 tensor on the tokens' device for one step
-        (T == 1, beam == 1) over the bf16 cache: the step a CUDA graph
-        replays, its position embedding, cache row and mask over the whole
-        cache all read from it. The int8 and lane caches take an int pos
-        (their kernels take the key count as a host int)."""
+        (T == 1, any beam) over any of the three caches: the step a CUDA
+        graph replays. Its position embedding, cache rows (`index_copy_`)
+        and key count all read from it: the bf16 cache is attended whole
+        under a mask, the int8 kernels get pos + 1 as a device int32."""
         b, t = tokens.shape
         use_cache = kv_cache is not None
         if not use_cache:
             pos = 0
+        mask = None
         if torch.is_tensor(pos):
-            if t != 1 or beam != 1 or "k" not in kv_cache:
-                raise ValueError(
-                    "a tensor pos takes one step (T == 1, beam == 1) over the bf16 "
-                    "cache; the int8 and lane caches take an int pos until "
-                    "self_attention_int8 and self_attention_int8_lanes read the key "
-                    "count from device memory (the beam loop's graph)")
+            if t != 1:
+                raise ValueError(f"a tensor pos takes one step (T == 1), got T={t}")
             x = self.token_emb[tokens] + self.pos_emb.index_select(0, pos.view(1))
-            key_pos = torch.arange(kv_cache["k"].shape[2], device=x.device)
-            mask = (key_pos <= pos)[None, None, None]
+            if "k" in kv_cache:
+                key_pos = torch.arange(kv_cache["k"].shape[2], device=x.device)
+                mask = (key_pos <= pos)[None, None, None]
+                valid_len = None           # the bf16 product reads the mask
+            else:
+                valid_len = (pos + 1).to(torch.int32).view(1)
         else:
             x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
-            mask = None
+            valid_len = pos + t
             if t > 1:
                 key_pos = torch.arange(pos + t, device=x.device)
                 q_pos = pos + torch.arange(t, device=x.device)
@@ -390,8 +393,8 @@ class TextDecoder(nn.Module):
             h = block.attn_ln(x)
             a = block.attn
             if use_cache:
-                attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos, mask,
-                                            beam, lane_map)
+                attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos,
+                                            valid_len, mask, beam, lane_map)
             else:
                 # teacher-forced: the keys are this call's, no cache is written
                 # (so autograd sees no in-place update)
@@ -521,6 +524,17 @@ def beam_lane_cache(cache_b: dict, beam: int) -> dict:
     v_ps = torch.zeros((l, b, h, beam, t), dtype=sdtype, device=dev)
     v_ps[:, :, :, 0] = cache_b["v_s"]
     return {"k_p": k_p, "v_p": v_p, "k_ps": k_ps, "v_ps": v_ps}
+
+
+def _write_rows(dst: torch.Tensor, dim: int, pos: int | torch.Tensor,
+                rows: torch.Tensor) -> None:
+    """rows into dst IN PLACE at positions [pos, pos + rows.shape[dim])
+    along `dim`: a slice at an int pos, `index_copy_` of the one row at a
+    0-dim tensor pos (no host read: the step a CUDA graph replays)."""
+    if torch.is_tensor(pos):
+        dst.index_copy_(dim, pos.view(1), rows)
+    else:
+        dst.narrow(dim, pos, rows.shape[dim]).copy_(rows)
 
 
 def _quantize_kv_rows(x: torch.Tensor, n_head: int):

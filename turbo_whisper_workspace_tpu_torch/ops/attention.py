@@ -369,33 +369,55 @@ def self_attention_int8_xla(q, kq, ks, vq, vs, mask: torch.Tensor) -> torch.Tens
     return torch.einsum("bhqk,bhkd->bhqd", weights.float(), vq.float()).to(q.dtype)
 
 
-def self_attention_int8_reference(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
+def self_attention_int8_reference(q, kq, ks, vq, vs,
+                                  valid_len: int | torch.Tensor) -> torch.Tensor:
     """Plain version with the TPU kernel's rounding points
     (_self_int8_kernel): f32 scores q·kq × ks·d^-1/2·log2 e, keys at
     t ≥ valid_len masked, exp2 softmax in f32, weights × vs rounded to
     q's dtype, f32 PV, one rounding to q's dtype.
-    q (B, H, Tq, Dh); kq, vq (B, H, T, Dh) int8; ks, vs (B, H, T)."""
+    q (B, H, Tq, Dh); kq, vq (B, H, T, Dh) int8; ks, vs (B, H, T);
+    valid_len an int or a one-element tensor on q's device (the mask is
+    built on the device: no host read)."""
     scale = q.shape[-1] ** -0.5 * LOG2E
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float())
     scores = scores * (ks.float()[:, :, None, :] * scale)
-    scores[..., valid_len:] = NEG_INF
+    scores = scores.masked_fill(torch.arange(kq.shape[2], device=q.device) >= valid_len,
+                                NEG_INF)
     p = torch.exp2(scores - scores.amax(-1, keepdim=True))
     w = p / p.sum(-1, keepdim=True)
     w = (w * vs.float()[:, :, None, :]).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", w.float(), vq.float()).to(q.dtype)
 
 
-SELF_MAX_KEYS = 1536         # valid_len whose K/V slabs one block holds in shared memory
+SELF_MAX_KEYS = 1536         # cache length T whose K/V slabs one block holds in shared memory
 
 
-def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
+def _device_valid_len(name: str, valid_len: int | torch.Tensor, t: int,
+                      device: torch.device) -> torch.Tensor:
+    """The key count as the kernels read it: one int32 in device memory
+    (the TPU kernels' scalar prefetch). A host int (an eager caller) goes
+    into a new tensor after a range check; a tensor (the beam step a CUDA
+    graph replays) is taken as it is, never read on the host: the kernel
+    clamps it to [1, T]."""
+    if not torch.is_tensor(valid_len):
+        if not 1 <= valid_len <= t:
+            raise ValueError(f"{name}: valid_len={valid_len} out of [1, T={t}]")
+        return torch.tensor([valid_len], dtype=torch.int32, device=device)
+    if valid_len.device != device or valid_len.dtype != torch.int32 or valid_len.numel() != 1:
+        raise ValueError(f"{name}: a tensor valid_len must be one int32 on {device}, got "
+                         f"{valid_len.dtype} {tuple(valid_len.shape)} on {valid_len.device}")
+    return valid_len
+
+
+def self_attention_int8(q, kq, ks, vq, vs, valid_len: int | torch.Tensor) -> torch.Tensor:
     """One decode step of self-attention over the int8 cache; returns
-    (B, H, Tq, 64). `valid_len` is a host int (keys t < valid_len count),
-    passed to the kernel as an argument.
+    (B, H, Tq, 64). Keys t < valid_len count: an int, or a one-element
+    int32 tensor on q's device, which the kernel reads from device memory.
 
     CUDA: csrc/self_attention_int8.cu, bf16 q and scales; kq and vq
     16-byte aligned (each (b, h)'s first valid_len rows are one bulk
-    copy); valid_len ≤ SELF_MAX_KEYS. CPU: the plain version."""
+    copy); T ≤ SELF_MAX_KEYS (the launch is sized by T alone). CPU: the
+    plain version."""
     if q.device.type == "cpu":
         return self_attention_int8_reference(q, kq, ks, vq, vs, valid_len)
     _check_cuda("self_attention_int8",
@@ -411,26 +433,28 @@ def self_attention_int8(q, kq, ks, vq, vs, valid_len: int) -> torch.Tensor:
             "self_attention_int8: expected q (B, H, Tq, 64), kq and vq (B, H, T, 64), "
             f"ks and vs (B, H, T); got {q.shape}, {kq.shape}, {vq.shape}, "
             f"{ks.shape}, {vs.shape}")
-    if not 1 <= valid_len <= min(t, SELF_MAX_KEYS) or tq < 1 or b * h < 1:
-        raise ValueError(f"self_attention_int8: valid_len={valid_len}, T={t}, "
+    if not 1 <= t <= SELF_MAX_KEYS or tq < 1 or b * h < 1:
+        raise ValueError(f"self_attention_int8: T={t} (at most {SELF_MAX_KEYS}), "
                          f"Tq={tq}, B·H={b * h} out of range")
+    valid_len = _device_valid_len("self_attention_int8", valid_len, t, q.device)
     out = torch.empty_like(q)
     build.launch("self_attention_int8", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
-                 vq.data_ptr(), vs.data_ptr(), out.data_ptr(), b * h, tq, t, valid_len,
-                 _stream(q.device))
+                 vq.data_ptr(), vs.data_ptr(), out.data_ptr(), b * h, tq, t,
+                 valid_len.data_ptr(), _stream(q.device))
     count_launch(launch_counts, "self_attention_int8")
     return out
 
 
 def self_attention_int8_lanes_reference(q, kq, ks, vq, vs, lane_map: torch.Tensor,
-                                        valid_len: int) -> torch.Tensor:
+                                        valid_len: int | torch.Tensor) -> torch.Tensor:
     """Plain version of the beam step over the lane cache, with the TPU
     kernel's rounding points (_bd_self_int8_kernel): for beam k, key
     column j = l·T + t counts only when lane l == lane_map[b, k, t] and
     t < valid_len; f32 scores × ks·d^-1/2·log2 e, exp2 softmax, weights ×
     vs rounded to q's dtype, f32 PV, one rounding to q's dtype.
     q (B, H, K, Dh); kq (B, H·Dh, K·T) and vq (B, K·T, H·Dh) int8 panels;
-    ks, vs (B, H, K·T); lane_map (B, K, T) int."""
+    ks, vs (B, H, K·T); lane_map (B, K, T) int; valid_len an int or a
+    one-element tensor on q's device (no host read)."""
     b, h, k, dh = q.shape
     kt = kq.shape[-1]
     t = kt // k
@@ -453,22 +477,24 @@ LANES_T_PER_RANK = 32        # positions a rank aims at before rounding
 LANES_MAX_T = 1024           # positions one cluster holds in shared memory
 
 
-def lanes_plan(valid_len: int) -> tuple[int, int]:
+def lanes_plan(t_len: int) -> tuple[int, int]:
     """self_attention_int8_lanes's launch plan → (ranks C, slice S): one
     cluster of C ≤ 8 blocks per (b, h), rank r holding positions
-    [r·S, (r+1)·S) of [0, valid_len), C·S ≥ valid_len and no rank wholly
-    past it. Only valid_len enters."""
-    ranks = min(CLUSTER_MAX_RANKS, max(1, -(-valid_len // LANES_T_PER_RANK)))
-    slice_t = -(-valid_len // ranks)
-    return -(-valid_len // slice_t), slice_t
+    [r·S, (r+1)·S) of the cache's [0, T), C·S ≥ T and no rank wholly past
+    it. Only the cache length T enters (a CUDA graph fixes the launch);
+    the ranks whose slice lies past valid_len own no position."""
+    ranks = min(CLUSTER_MAX_RANKS, max(1, -(-t_len // LANES_T_PER_RANK)))
+    slice_t = -(-t_len // ranks)
+    return -(-t_len // slice_t), slice_t
 
 
 def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
-                              valid_len: int) -> torch.Tensor:
+                              valid_len: int | torch.Tensor) -> torch.Tensor:
     """Beam-decode self-attention over the un-reordered lane cache;
     returns (B, H, K, 64). The kernel reads `lane_map` itself; the TPU
-    wrapper's additive (B, K, K·T) bias is not built. `valid_len` is a
-    host int.
+    wrapper's additive (B, K, K·T) bias is not built. `valid_len` is an
+    int or a one-element int32 tensor on q's device, which the kernel
+    reads from device memory.
 
     CUDA: csrc/self_attention_int8_lanes.cu, one thread-block cluster
     per (b, h) as `lanes_plan` says; bf16 q and scales, int32 lane_map,
@@ -491,14 +517,13 @@ def self_attention_int8_lanes(q, kq, ks, vq, vs, lane_map: torch.Tensor,
             "self_attention_int8_lanes: expected q (B, H, K, 64), kq (B, H·64, K·T), "
             "vq (B, K·T, H·64), ks and vs (B, H, K·T), lane_map (B, K, T); got "
             f"{q.shape}, {kq.shape}, {vq.shape}, {ks.shape}, {vs.shape}, {lane_map.shape}")
-    if (not 1 <= k <= MAX_BEAMS or not 1 <= valid_len <= t <= LANES_MAX_T
-            or b * h < 1):
+    if not 1 <= k <= MAX_BEAMS or not 1 <= t <= LANES_MAX_T or b * h < 1:
         raise ValueError(f"self_attention_int8_lanes: K={k} (at most {MAX_BEAMS}), "
-                         f"valid_len={valid_len}, T={t} (at most {LANES_MAX_T}), "
-                         f"B·H={b * h} out of range")
+                         f"T={t} (at most {LANES_MAX_T}), B·H={b * h} out of range")
+    valid_len = _device_valid_len("self_attention_int8_lanes", valid_len, t, q.device)
     out = torch.empty_like(q)
     build.launch("self_attention_int8_lanes", q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                  vq.data_ptr(), vs.data_ptr(), lane_map.data_ptr(), out.data_ptr(),
-                 b, h, k, t, valid_len, _stream(q.device))
+                 b, h, k, t, valid_len.data_ptr(), _stream(q.device))
     count_launch(launch_counts, "self_attention_int8_lanes")
     return out

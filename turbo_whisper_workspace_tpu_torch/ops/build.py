@@ -45,8 +45,8 @@ SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "cross_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cross_attention_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "self_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "self_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -71,7 +71,7 @@ def _local_decode(model: wm.Whisper, audio: torch.Tensor, prompt: torch.Tensor, 
     if beam_size > 1:
         return beam_mod.beam_decode_features(
             model, cross_kv, prompt, rules=rules, beam_size=beam_size, max_len=max_len,
-            sot_index=sot_index)
+            sot_index=sot_index, graphed=graphed)
     return greedy_mod.greedy_decode_features(
         model, cross_kv, prompt, rules=rules, max_len=max_len, sot_index=sot_index,
         graphed=graphed)
@@ -114,7 +114,7 @@ def make_tp_decode(model: wm.Whisper, mesh: DeviceMesh, *, rules: DecodeRules,
     Megatron column/row-parallel projections, H/tp heads, the KV caches
     at D/tp features (sharding.cache_spec). Whisper fits one card, so
     this is the capacity path; the DP decode is the throughput path. Its
-    greedy step runs eagerly (`graphed=False`): the row-parallel sums go
+    greedy and beam steps run eagerly (`graphed=False`): the row-parallel sums go
     through `mesh.all_reduce`, whose host-side counter (and, on one card,
     gloo) a CUDA graph's replay would skip."""
     return _make_decode(shard_params(model, mesh), mesh, rules=rules, beam_size=beam_size,
