@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products and convolutions;
-2. build: compiles the ten CUDA kernels from csrc/ (one nvcc each, in
-   parallel);
+2. build: compiles the fourteen CUDA kernels from csrc/ (one nvcc each,
+   in parallel);
 3. kernels against their plain PyTorch versions at large-v3-turbo shapes
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
    viewed as heads, as the encoder calls it; cross_attention_int8 B=8
@@ -105,17 +105,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bit-equal to its plain version at every shape; the quantizers on the
    card bit-equal to the same call on the CPU for one full-width weight;
    the model's prefill of a 512-token prompt and one decode step within
-   5e-2 relative L2 of the same model with the plain versions, with the
+   5e-2 relative L2 of the same model with the plain versions (of the
+   quantized matmuls and of the Llama layer's four kernels), with the
    hidden state's error after each layer printed, and as a control the
-   plain twin against itself with TF32 sums; a torch.profiler window
-   over one 1748-token prefill (device time by kernel); then, with the
-   counts zeroed, the stage end to end:
+   plain twin against itself with TF32 sums, each of the seven kernels
+   launched the number of times a layer calls it; a torch.profiler
+   window over one 1748-token prefill (device time by kernel); then, with
+   the counts zeroed, the stage end to end:
    TorchLlama injected with set_llm, and AudioProcessingPipeline's
    identify_speaker_names, generate_summary and extract_topics on a
    20-segment two-speaker conversation, timed (prefill ms, ms per decode
-   step, tokens/s); all three kernels must have been launched. Last, a
+   step, tokens/s); all three quantized-matmul kernels and the four
+   Llama-layer kernels (phase 15) must have been launched. Last, a
    torch.profiler window over three decode steps: host wall against
-   device busy time per step, launches per step, the heaviest kernels;
+   device busy time per step, kernels run and launches per step, the
+   heaviest kernels;
 9. the LLM-ops profiler path at full llama-3.2-3b width: s8_matmul and
    s8g4_matmul against their plain versions at the profiler's m = 1
    shapes (3072→3072, →1024, →8192, 8192→3072, the head 3072→128256), at
@@ -195,35 +199,62 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and for the lanes mode a step's profile (host wall, device busy, idle
    share, kernels run, cudaLaunchKernel and cudaGraphLaunch calls) as the
    difference of two loop lengths; the phase's peak memory; each mode
-   must launch its self-attention and cross-attention kernels.
+   must launch its self-attention and cross-attention kernels;
+15. the Llama layer's kernels (ops/llama_ops.py) at llama-3.1-8b width
+   against their plain versions, with the limits of phase 3 (max abs
+   error × max|ref|): llama_attention at a decode step over a 2004-row
+   cache (the summary call's 1748 + 256) at 1500 and 2003 cached
+   positions, every row past pos random, and at the 1748-token prefill
+   (its online softmax), with the plain version without the position
+   mask and with query head i reading kv head i % group in place of
+   i // group read above the limit; llama_norm_quant at a decode step in
+   each mode (residual add and norm, norm, quantizer alone; with the
+   grouped quantizer) and at the prefill, its xq equal to the plain
+   version's or off by 1 only in a group whose bf16 input differs
+   (counted); llama_rope_cache at both positions and the prefill, with
+   interleaved-pair reads in place of the half-split layout above the
+   limit and the cache rows written equal; llama_swiglu_quant at a decode
+   step with the quantizer and at the prefill; each timed single launch
+   and back to back beside its plain version, its bound, and the library
+   call where one exists (scaled_dot_product_attention with enable_gqa
+   and the mask; F.rms_norm, the norm alone); then GRAPH_CHECK_STEPS
+   replays of one 8B decode step captured by StepGraph against the eager
+   step function from the same state, logits, tokens and cache
+   bit-equal, with each kernel's launches a step. These comparisons'
+   launches are not counted in the kernels line: the four kernels' counts
+   there come from the LLM path of phases 8, 10 and 13.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 14, the TP ranks' included; every one of the ten kernels must have
-been launched), then as
+to 14, the TP ranks' included; every one of the fourteen kernels must
+have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
 
-    python3 chip_smoke.py --prefill-profile
+    python3 chip_smoke.py --llm-profile
 
-builds the kernels and runs only phase 8's prefill profile (no result
-line): copied into an older tree of the port, it measures that tree's
-prefill the same way.
+builds the kernels and runs the LLM at the Q4 point alone: phase 8's
+prefill profile, the decode step's profile eager and graphed, and
+phase 8's three stage calls (no result line); copied into an older tree
+of the port, it measures that tree the same way.
 
     python3 chip_smoke.py --before TREE
 
-times the kernels whose earlier design BEFORE_MS holds shape by shape
-(int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
+first runs `--llm-profile` in TREE, an unpacked earlier commit
+(`git archive <rev> | tar -x -C build/parent`; this file is copied
+there), and in this checkout, in turns (TREE, this, this, TREE); then
+times, among the kernels whose earlier design BEFORE_MS holds shape by
+shape (int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
 kernels by valid_len (an earlier tree's host-int interface called as
-such) built from TREE, an unpacked earlier commit
-(`git archive <rev> | tar -x -C build/parent`), against this checkout's,
-in turns at each shape (no result line): the source of those "before"
-times.
+such), those whose source differs in TREE, built from TREE's sources,
+against this checkout's, in turns at each shape (no result line): the
+source of those "before" times.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -299,6 +330,12 @@ REPLACES = {
     "int4_matmul_s8": "turbo_whisper_workspace_tpu/ops/quant.py:260",
     "s8_matmul": "scripts/profile_llm_ops.py:86",
     "s8g4_matmul": "scripts/profile_llm_ops.py:150",
+    # no Pallas kernel: the JAX package leaves this work to XLA inside its
+    # jitted Llama forward (the code's first line)
+    "llama_attention": "turbo_whisper_workspace_tpu/models/llama.py:156",
+    "llama_norm_quant": "turbo_whisper_workspace_tpu/models/llama.py:89",
+    "llama_rope_cache": "turbo_whisper_workspace_tpu/models/llama.py:95",
+    "llama_swiglu_quant": "turbo_whisper_workspace_tpu/models/llama.py:172",
 }
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
@@ -1256,22 +1293,25 @@ def check_quantizer(tq, dev) -> None:
 
 
 @contextlib.contextmanager
-def residual_stream(lm):
-    """Records the residual stream of each lm.forward run inside: the
-    value entering every RMSNorm, in call order ([2l] enters layer l,
+def residual_stream(lo):
+    """Records the residual stream of each models/llama.py:forward run
+    inside: the value every RMSNorm normalises (the residual sum its
+    llama_norm_quant call forms), in call order ([2l] enters layer l,
     [2l + 1] follows its attention, the last enters the final norm)."""
     seen = []
-    rms_norm = lm.rms_norm
+    norm_quant = lo.llama_norm_quant
 
-    def recording(x, p, eps):
-        seen.append(x.clone())
-        return rms_norm(x, p, eps)
+    def recording(*args, **kw):
+        out = norm_quant(*args, **kw)
+        if kw.get("norm", True):
+            seen.append(out[0].clone())
+        return out
 
-    lm.rms_norm = recording
+    lo.llama_norm_quant = recording
     try:
         yield seen
     finally:
-        lm.rms_norm = rms_norm
+        lo.llama_norm_quant = norm_quant
 
 
 def layer_errors(got: list, ref: list) -> str:
@@ -1279,7 +1319,7 @@ def layer_errors(got: list, ref: list) -> str:
     return " ".join(f"{rel_err(a, b):.2e}" for a, b in zip(got[2::2], ref[2::2]))
 
 
-def check_llm_model(tq, lm, params, dims, dev) -> None:
+def check_llm_model(tq, lo, lm, params, dims, dev) -> None:
     """The full-width model with its kernels against the same model with
     the plain versions: the prefill of a LLM_PROMPT-token prompt
     (int4_matmul, int8_matmul) and one decode step (int4_matmul_s8 and
@@ -1291,13 +1331,17 @@ def check_llm_model(tq, lm, params, dims, dev) -> None:
     prompt = torch.randint(0, dims.n_vocab, (1, LLM_PROMPT), generator=gen, device=dev)
     step = torch.randint(0, dims.n_vocab, (1, 1), generator=gen, device=dev)
     cache = lm.init_kv_cache(dims, 1, LLM_PROMPT + 8, dtype=torch.bfloat16, device=dev)
+
+    def counts():
+        return {**tq.launch_counts, **lo.launch_counts}
+
     with torch.no_grad():
-        before = dict(tq.launch_counts)
-        with residual_stream(lm) as hidden:
+        before = counts()
+        with residual_stream(lo) as hidden:
             logits, _ = lm.forward(params, dims, prompt, cache, pos=0)
-        launched = {n: tq.launch_counts[n] - before[n] for n in before}
+        launched = {n: c - before[n] for n, c in counts().items()}
         prefilled = {key: x.clone() for key, x in cache.items()}
-        with plain_kernels(tq), residual_stream(lm) as hidden_plain:
+        with plain_kernels(tq, lo), residual_stream(lo) as hidden_plain:
             logits_plain, _ = lm.forward(params, dims, prompt,
                                          {key: torch.zeros_like(x) for key, x in cache.items()})
         e_prefill = rel_err(logits, logits_plain)
@@ -1307,7 +1351,7 @@ def check_llm_model(tq, lm, params, dims, dev) -> None:
         # parts from the plain one only in the order of its f32 sums
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            with plain_kernels(tq), residual_stream(lm) as hidden_tf32:
+            with plain_kernels(tq, lo), residual_stream(lo) as hidden_tf32:
                 logits_tf32, _ = lm.forward(params, dims, prompt, {
                     key: torch.zeros_like(x) for key, x in cache.items()})
         finally:
@@ -1315,11 +1359,11 @@ def check_llm_model(tq, lm, params, dims, dev) -> None:
         e_tf32 = rel_err(logits_tf32, logits_plain)
         e_tf32_layers = layer_errors(hidden_tf32, hidden_plain)
         del logits, logits_plain, logits_tf32, hidden, hidden_plain, hidden_tf32
-        before = dict(tq.launch_counts)
-        with residual_stream(lm) as hidden:
+        before = counts()
+        with residual_stream(lo) as hidden:
             step_logits, _ = lm.forward(params, dims, step, cache, pos=LLM_PROMPT)
-        launched_step = {n: tq.launch_counts[n] - before[n] for n in before}
-        with plain_kernels(tq), residual_stream(lm) as hidden_plain:
+        launched_step = {n: c - before[n] for n, c in counts().items()}
+        with plain_kernels(tq, lo), residual_stream(lo) as hidden_plain:
             step_plain, _ = lm.forward(params, dims, step, prefilled, pos=LLM_PROMPT)
         e_step = rel_err(step_logits, step_plain)
         e_step_layers = layer_errors(hidden, hidden_plain)
@@ -1332,10 +1376,16 @@ def check_llm_model(tq, lm, params, dims, dev) -> None:
     print(f"  the same, decode step: {e_step_layers}")
     print(f"  control, the plain twin with TF32 sums vs the plain twin: prefill logits rel "
           f"err {e_tf32:.3e}; after each layer: {e_tf32_layers}")
-    n_proj = 7 * dims.n_layer
-    assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0}
+    n_proj, layers = 7 * dims.n_layer, dims.n_layer
+    # a layer: attention, RoPE, SwiGLU once; the norm twice (and the final
+    # norm), plus the out projection's quantizer at a decode step
+    assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0,
+                        "llama_attention": layers, "llama_norm_quant": 2 * layers + 1,
+                        "llama_rope_cache": layers, "llama_swiglu_quant": layers}
     # the decode step's head: int8_matmul's GEMV regime on the card
-    assert launched_step == {"int8_matmul": 1, "int4_matmul": 0, "int4_matmul_s8": n_proj}
+    assert launched_step == {"int8_matmul": 1, "int4_matmul": 0, "int4_matmul_s8": n_proj,
+                             "llama_attention": layers, "llama_norm_quant": 3 * layers + 1,
+                             "llama_rope_cache": layers, "llama_swiglu_quant": layers}
     assert e_prefill <= MODEL_TOL and e_step <= MODEL_TOL
 
 
@@ -1437,13 +1487,15 @@ def profile_decode(lm, params, dims, dev, card: str, prompt_len: int = 1500,
     events = prof.key_averages()
     kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")]
     busy = sum(device_us(e) for e in kernels) / steps / 1e3
+    run_ = sum(e.count for e in kernels) / steps
     launches = calls(events, "cudaLaunchKernel") / steps
     graph_launches = calls(events, "cudaGraphLaunch") / steps
     print(f"decode step profile ({LLM}, cache at {prompt_len} positions, "
           f"{'graphed' if graphed else 'eager'}): host wall "
           f"{wall * 1e3:.2f} ms per step, device busy {busy:.2f} ms per step "
-          f"({100 * (1 - busy / (wall * 1e3)):.0f}% idle), {launches:.0f} kernel launches "
-          f"and {graph_launches:.0f} graph launches per step [{card}]")
+          f"({100 * (1 - busy / (wall * 1e3)):.0f}% idle), {run_:.0f} kernels run, "
+          f"{launches:.0f} kernel launches and {graph_launches:.0f} graph launches per "
+          f"step [{card}]")
     for e in sorted(kernels, key=device_us, reverse=True)[:6]:
         print(f"  {device_us(e) / steps / 1e3:.3f} ms per step, {e.count // steps} calls: "
               f"{e.key[:90]}")
@@ -1496,12 +1548,10 @@ def llm_phase(att, dev, card: str):
     """Phase 8. Returns the three kernels' stats, the launches of the
     stage's run (counts zeroed just before it) and the TorchLlama, kept
     for phase 10."""
-    from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
-    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.config import LLMConfig
     from turbo_whisper_workspace_tpu_torch.models import llama as lm
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
-    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
-        AudioProcessingPipeline)
 
     qstats = check_quant_kernels(tq, dev, card)
     for name, s in qstats.items():
@@ -1515,9 +1565,32 @@ def llm_phase(att, dev, card: str):
     llm_cfg = LLMConfig()
     assert llm_cfg.model == LLM and llm_cfg.quantize_bits == 4, llm_cfg
     params, dims = llm_model(tq, lm, dev)
-    check_llm_model(tq, lm, params, dims, dev)
+    check_llm_model(tq, lo, lm, params, dims, dev)
     profile_prefill(lm, params, dims, dev, card)
 
+    tq.reset_launch_counts()
+    att.reset_launch_counts()
+    lo.reset_launch_counts()
+    llm = run_llm_stages(params, dims, dev, card)
+    counts = {**dict(tq.launch_counts), **dict(lo.launch_counts),
+              **{n: c for n, c in att.launch_counts.items() if c}}
+    print(f"launches on the LLM path: {counts}")
+    assert all(counts[name] > 0 for name in (*tq.launch_counts, *lo.launch_counts)), counts
+    profile_decode(lm, params, dims, dev, card)
+    return qstats, counts, llm
+
+
+def run_llm_stages(params, dims, dev, card: str):
+    """Phase 8's stage end to end: a TorchLlama of the model injected with
+    set_llm, then AudioProcessingPipeline's identify_speaker_names,
+    generate_summary and extract_topics on the 20-segment conversation,
+    each timed. Returns the TorchLlama (set_llm cleared)."""
+    from turbo_whisper_workspace_tpu_torch.config import LLMConfig, PipelineConfig
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
+        AudioProcessingPipeline)
+
+    llm_cfg = LLMConfig()
     llm = llm_helper.TorchLlama(params, dims, device=dev)
     llm_helper.set_llm(llm)
     llm_pipe = AudioProcessingPipeline(PipelineConfig(llm=llm_cfg), device=dev)
@@ -1525,8 +1598,6 @@ def llm_phase(att, dev, card: str):
     stages = (("identify_speaker_names", dict, llm_cfg.max_tokens_names),
               ("generate_summary", str, llm_cfg.max_tokens_summary),
               ("extract_topics", list, llm_cfg.max_tokens_topics))
-    tq.reset_launch_counts()
-    att.reset_launch_counts()
     for name, kind, max_tokens in stages:
         llm.last_generation = {}
         t0 = time.perf_counter()
@@ -1541,12 +1612,8 @@ def llm_phase(att, dev, card: str):
               f"{g['prefill_s'] * 1e3:.1f} ms; decode {g['decode_s'] * 1e3 / max(steps - 1, 1):.3f} "
               f"ms per step, {steps / g['decode_s']:.1f} tokens/s; wall {wall:.3f} s; "
               f"result {str(out)[:100]!r} [{card}]")
-    counts = {**dict(tq.launch_counts), **{n: c for n, c in att.launch_counts.items() if c}}
-    print(f"launches on the LLM path: {counts}")
-    assert all(tq.launch_counts[name] > 0 for name in tq.launch_counts), counts
     llm_helper.set_llm(None)
-    profile_decode(lm, params, dims, dev, card)
-    return qstats, counts, llm
+    return llm
 
 
 # ---------------------------------------------------------------------------
@@ -1769,8 +1836,11 @@ def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
 
     dialogue, truth = two_speaker_clip(75.0, seed=5)
     golden_want = json.load(open(os.path.join(REPO, "examples", "golden", "expected.json")))
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+
     att.reset_launch_counts()
     tq.reset_launch_counts()
+    lo.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir, ref_dir, rttm_dir = (os.path.join(tmp, d) for d in ("audio", "ref", "rttm"))
         for d in (audio_dir, ref_dir, rttm_dir):
@@ -1859,11 +1929,10 @@ def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
         cli.main(["preprocess", "-i", GOLDEN, "-o", out, "--denoise", "0.3", "--dynamic",
                   "--device", str(dev)])
         assert os.path.getsize(out) > 44
-    counts = {**{n: c for n, c in att.launch_counts.items() if c},
-              **{n: c for n, c in tq.launch_counts.items() if c}}
+    counts = {n: c for mod in (att, tq, lo) for n, c in mod.launch_counts.items() if c}
     print(f"launches on the tool-shell path: {counts}")
     for name in ("flash_attention", "cross_attention_int8", "int4_matmul", "int4_matmul_s8",
-                 "int8_matmul"):
+                 "int8_matmul", *lo.launch_counts):
         assert counts.get(name, 0) > 0, (name, counts)
     return counts
 
@@ -2325,16 +2394,17 @@ def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) 
     their entry points (counts zeroed before each, summed)."""
     from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
     from turbo_whisper_workspace_tpu_torch.llm import generate as gen_mod
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
 
     torch.cuda.reset_peak_memory_stats()
     counts: dict = {}
 
     def counted(fn):
         """fn() with the counts zeroed before; the launches join `counts`."""
-        att.reset_launch_counts()
-        tq.reset_launch_counts()
+        for mod in (att, tq, lo):
+            mod.reset_launch_counts()
         out = fn()
-        for name, c in {**att.launch_counts, **tq.launch_counts}.items():
+        for name, c in {**att.launch_counts, **tq.launch_counts, **lo.launch_counts}.items():
             counts[name] = counts.get(name, 0) + c
         return out
 
@@ -2448,7 +2518,7 @@ def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) 
     print(f"phase 13 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches of the graphed loops {counts} [{card}]")
     for name in ("cross_attention_int8", "cross_attention_s8", "int4_matmul_s8",
-                 "int8_matmul"):
+                 "int8_matmul", *lo.launch_counts):
         assert counts.get(name, 0) > 0, (name, counts)
     return counts
 
@@ -2526,6 +2596,277 @@ def beam_graph_phase(att, transcriber, windows: np.ndarray, dev, card: str) -> d
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the Llama layer's kernels
+
+LLAMA_KERNELS = ("llama_attention", "llama_norm_quant", "llama_rope_cache",
+                 "llama_swiglu_quant")
+LLM_CACHE = LLM_LONG_PROMPT + 256    # the summary call's cache: its prompt and max_tokens
+LLM_DECODE_POS = (1500, LLM_CACHE - 1)   # cached positions of the decode checks
+GRAPH_CHECK_STEPS = 3      # steps of the StepGraph replay held to the eager step
+
+
+def attention_variant(lo, q, ck, cv, pos, mask: bool = True, kv_of=None):
+    """The plain attention with one reading changed, the error the
+    relative check must catch: no position mask (every cache row seen),
+    or query head i reading kv head kv_of(i) (the cache expanded to one
+    kv head a query head)."""
+    b, t, h, dh = q.shape
+    s_len, kvh = ck.shape[1], ck.shape[-1] // dh
+    if kv_of is not None:
+        idx = torch.tensor([kv_of(i) for i in range(h)], device=q.device)
+        ck, cv = (c.reshape(b, s_len, kvh, dh)[:, :, idx].reshape(b, s_len, h * dh)
+                  for c in (ck, cv))
+        return lo.llama_attention_reference(q, ck, cv, pos)
+    assert not mask
+    kk, vv = (c.reshape(b, s_len, kvh, dh) for c in (ck, cv))
+    logits = torch.einsum("btkgd,bskd->bkgts", q.reshape(b, t, kvh, h // kvh, dh).float(),
+                          kk.float()) * dh ** -0.5
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgts,bskd->btkgd", w, vv).reshape(b, t, h * dh)
+
+
+def rope_interleaved(lo, q, k, v, ck, cv, cos, sin, pos):
+    """The plain RoPE reading each rotated pair from neighbouring dims
+    (2i, 2i + 1), the GPT-J layout, where Llama's half-split reads (i,
+    i + dh/2): the rotated q."""
+    dh = q.shape[-1]
+    perm = torch.cat([torch.arange(0, dh, 2), torch.arange(1, dh, 2)]).to(q.device)
+    inv = torch.argsort(perm)
+    return lo.llama_rope_cache_reference(q[..., perm], k[..., perm], v, ck.clone(), cv.clone(),
+                                         cos, sin, pos)[..., inv]
+
+
+def sdpa_gqa(q, ck, cv, mask):
+    """torch's scaled_dot_product_attention on the same inputs: (B, H, t,
+    Dh) queries over the cache's (B, kvh, S, Dh) views with enable_gqa and
+    the boolean position mask (t, S)."""
+    b, t, h, dh = q.shape
+    s_len, kvh = ck.shape[1], ck.shape[-1] // dh
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), ck.view(b, s_len, kvh, dh).transpose(1, 2),
+        cv.view(b, s_len, kvh, dh).transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+
+def check_payload(label: str, got: tuple, ref: tuple, h: torch.Tensor, h_ref: torch.Tensor,
+                  n_groups: int) -> int:
+    """The quantizer's (xq, xs) against the plain version's: xq equal, or
+    off by 1 only in a group whose bf16 input differs (the input's own
+    rounding, e.g. a last-bit rsqrt); returns the elements that differ."""
+    (xq, xs), (rq, rs) = got, ref
+    diff = (xq.int() - rq.int()).abs()
+    m, k = diff.shape
+    moved = diff.reshape(m, n_groups, -1).amax(-1) > 0
+    h_apart = (h.reshape(m, n_groups, -1) != h_ref.reshape(m, n_groups, -1)).any(-1)
+    n = int((diff > 0).sum())
+    print(f"  {label}: xq {n} of {diff.numel()} elements off by 1, in {int(moved.sum())} "
+          f"groups, every one with a bf16 input that differs; xs equal in "
+          f"{int((xs == rs).sum())} of {xs.numel()}")
+    assert int(diff.max()) <= 1 and not (moved & ~h_apart).any()
+    assert torch.equal(xs[~h_apart], rs[~h_apart])
+    return n
+
+
+def llama_kernels_phase(att, tq, llm, dev, card: str) -> dict:
+    """Phase 15. Returns the four kernels' stats, the rows of the
+    kernels line (decode at the first of LLM_DECODE_POS)."""
+    from turbo_whisper_workspace_tpu_torch.models import llama as lm
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+    from turbo_whisper_workspace_tpu_torch.utils.step_loop import StepGraph
+
+    gen = torch.Generator(dev).manual_seed(15)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    params, dims = llm.params, llm.dims
+    h, kvh, dh, d = dims.n_head, dims.n_kv_head, dims.head_dim, dims.d_model
+    group, eps = h // kvh, dims.norm_eps
+    n_groups, ff_groups = d // tq.GROUP4, dims.d_ff // tq.GROUP4
+    stats = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def row(name, label, fn, plain, args, n_bytes, n_ops, library=None):
+        """single launch, back-to-back, plain and library times, and the bound"""
+        r = timed(f"{name} {label}", lambda: fn(*args), lambda: plain(*args), n_bytes, n_ops,
+                  flush)
+        # input_copies, with the non-tensor arguments passed along
+        n = min(BACK_TO_BACK, max(2, math.ceil(
+            L2_BYTES / nbytes(*(a for a in args if torch.is_tensor(a)))) + 1))
+        copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                           for _ in range(n - 1)]
+        r["b2b_ms"] = back_to_back_ms(fn, copies, flush)
+        lib = None if library is None else time_ms(library, flush)
+        r["library_ms"] = lib
+        print(f"{name} {label}: single launch {r['ms']:.4f} ms, back-to-back "
+              f"{r['b2b_ms']:.4f} ms per launch ({BACK_TO_BACK} in a row over {len(copies)} "
+              f"copies), plain {r['plain_ms']:.4f} ms, library "
+              f"{'none' if lib is None else '%.4f ms' % lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{card}]")
+        del copies
+        return r
+
+    # llama_attention: a decode step at two cached positions (the cache's
+    # rows past pos random: the mask must drop them), the prefill
+    rows, errs = {}, {}
+    ck, cv = randn(1, LLM_CACHE, kvh * dh), randn(1, LLM_CACHE, kvh * dh)
+    for pos in LLM_DECODE_POS:
+        q = randn(1, 1, h, dh)
+        at = torch.tensor(pos, device=dev)
+        out = lo.llama_attention(q, ck, cv, at)
+        torch.cuda.synchronize()
+        dropped = {"i // group mapping (i % group)":
+                   attention_variant(lo, q, ck, cv, pos, kv_of=lambda i: i % group)}
+        if pos + 1 < LLM_CACHE:
+            dropped["position mask"] = attention_variant(lo, q, ck, cv, pos, mask=False)
+        label = (f"decode t=1 pos={pos} S={LLM_CACHE} (plan "
+                 f"{lo.attention_plan(1, group, LLM_CACHE)})")
+        errs[pos] = compare(f"llama_attention {label}", out,
+                            lo.llama_attention_reference(q, ck, cv, pos), dropped,
+                            relative_max=True)
+        mask = torch.arange(LLM_CACHE, device=dev)[None, :] <= pos
+        n = pos + 1                      # the keys a decode step reads
+        rows[pos] = row("llama_attention", label, lo.llama_attention,
+                        lo.llama_attention_reference, (q, ck, cv, at),
+                        nbytes(q, out) + 2 * n * kvh * dh * 2, 4 * h * n * dh,
+                        lambda: sdpa_gqa(q, ck, cv, mask))
+    t = LLM_LONG_PROMPT
+    q, pk, pv = randn(1, t, h, dh), randn(1, t, kvh * dh), randn(1, t, kvh * dh)
+    out = lo.llama_attention(q, pk, pv, 0)
+    torch.cuda.synchronize()
+    label = f"prefill t={t} (plan {lo.attention_plan(t, group, t)})"
+    errs["prefill"] = compare(
+        f"llama_attention {label}, online softmax", out,
+        lo.llama_attention_reference(q, pk, pv, 0),
+        {"position mask": attention_variant(lo, q, pk, pv, 0, mask=False),
+         "i // group mapping (i % group)":
+             attention_variant(lo, q, pk, pv, 0, kv_of=lambda i: i % group)},
+        relative_max=True)
+    mask = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+    rows["prefill"] = row("llama_attention", label, lo.llama_attention,
+                          lo.llama_attention_reference, (q, pk, pv, 0),
+                          nbytes(q, pk, pv, out), 4 * h * dh * t * (t + 1) // 2,
+                          lambda: sdpa_gqa(q, pk, pv, mask))
+    stats["llama_attention"] = kernel_row(rows[LLM_DECODE_POS[0]], errs)
+    del q, pk, pv, out, ck, cv
+
+    # llama_norm_quant: a decode step's three modes with the quantizer,
+    # the final norm, the prefill's norm
+    rows, errs, moved = {}, {}, 0
+    scale = (1 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
+    for m, mode, groups in ((1, 2, n_groups), (1, 1, n_groups), (1, 0, n_groups), (1, 2, 0),
+                            (t, 2, 0)):
+        x, delta = randn(m, d), randn(m, d)
+        args = (x, scale if mode else None, eps, delta if mode == 2 else None, groups,
+                mode != 0)
+        got, ref = lo.llama_norm_quant(*args), lo.llama_norm_quant_reference(*args)
+        torch.cuda.synchronize()
+        label = f"m={m} d={d} mode {mode}" + (f", {groups} groups" if groups else "")
+        dropped = ({"residual add": lo.llama_norm_quant_reference(x, scale, eps)[1]}
+                   if mode == 2 else {})
+        errs[label] = compare(f"llama_norm_quant {label}", got[1], ref[1], dropped,
+                              relative_max=True)
+        if mode == 2:
+            assert torch.equal(got[0], ref[0])
+        if groups:
+            moved += check_payload(label, got[2], ref[2], got[1], ref[1], groups)
+        outs = [got[1]] if mode else []
+        outs += [got[0]] if mode == 2 else []
+        outs += list(got[2]) if groups else []
+        n_bytes = nbytes(x, *([scale] if mode else []), *([delta] if mode == 2 else []), *outs)
+        lib = None          # F.rms_norm: the norm alone (no residual add, no quantizer)
+        if mode:
+            lib = lambda x=x: torch.nn.functional.rms_norm(x, (d,), scale, eps)   # noqa: E731
+        rows[label] = row("llama_norm_quant", label, lo.llama_norm_quant,
+                          lo.llama_norm_quant_reference, args, n_bytes, 0, lib)
+    print(f"llama_norm_quant: xq elements off by 1 over the checks: {moved} [{card}]")
+    stats["llama_norm_quant"] = kernel_row(rows[f"m=1 d={d} mode 2, {n_groups} groups"], errs)
+
+    # llama_rope_cache: a decode row at both positions, the prefill
+    rows, errs = {}, {}
+    cos, sin = lm._rope_table(dims, dev)
+    for t_, pos in [(1, p) for p in LLM_DECODE_POS] + [(t, 0)]:
+        q, k, v = randn(1, t_, h, dh), randn(1, t_, kvh, dh), randn(1, t_, kvh, dh)
+        ck, cv = randn(1, LLM_CACHE, kvh * dh), randn(1, LLM_CACHE, kvh * dh)
+        rck, rcv = ck.clone(), cv.clone()
+        at = torch.tensor(pos, device=dev)
+        got = lo.llama_rope_cache(q, k, v, ck, cv, cos, sin, at)
+        ref = lo.llama_rope_cache_reference(q, k, v, rck, rcv, cos, sin, pos)
+        torch.cuda.synchronize()
+        label = f"t={t_} pos={pos}"
+        errs[label] = compare(f"llama_rope_cache {label}: q", got, ref,
+                              {"half-split layout (interleaved pairs)": rope_interleaved(
+                                  lo, q, k, v, ck, cv, cos, sin, pos)}, relative_max=True)
+        compare(f"llama_rope_cache {label}: the cache's k rows", ck, rck, {})
+        assert torch.equal(cv, rcv) and torch.equal(ck[:, :pos], rck[:, :pos])
+        n_bytes = 2 * nbytes(q, k, v) + 2 * t_ * (dh // 2) * 4
+        rows[label] = row("llama_rope_cache", label, lo.llama_rope_cache,
+                          lo.llama_rope_cache_reference, (q, k, v, ck, cv, cos, sin, at),
+                          n_bytes, 0)
+    stats["llama_rope_cache"] = kernel_row(rows[f"t=1 pos={LLM_DECODE_POS[0]}"], errs)
+
+    # llama_swiglu_quant: a decode step with the quantizer, the prefill
+    rows, errs, moved = {}, {}, 0
+    for m, groups in ((1, ff_groups), (t, 0)):
+        gate, up = randn(m, dims.d_ff), randn(m, dims.d_ff)
+        got = lo.llama_swiglu_quant(gate, up, groups)
+        ref = lo.llama_swiglu_quant_reference(gate, up, groups)
+        torch.cuda.synchronize()
+        label = f"m={m} f={dims.d_ff}" + (f", {groups} groups" if groups else "")
+        errs[label] = compare(f"llama_swiglu_quant {label}", got[0], ref[0],
+                              {"gate and up swapped": lo.llama_swiglu_quant_reference(
+                                  up, gate)[0]}, relative_max=True)
+        if groups:
+            moved += check_payload(label, got[1], ref[1], got[0], ref[0], groups)
+        n_bytes = nbytes(gate, up, got[0], *(got[1] if groups else ()))
+        rows[label] = row("llama_swiglu_quant", label, lo.llama_swiglu_quant,
+                          lo.llama_swiglu_quant_reference, (gate, up, groups), n_bytes, 0)
+    print(f"llama_swiglu_quant: xq elements off by 1 over the checks: {moved} [{card}]")
+    stats["llama_swiglu_quant"] = kernel_row(rows[f"m=1 f={dims.d_ff}, {ff_groups} groups"],
+                                             errs)
+    del gate, up, got, ref
+
+    # one StepGraph replay against the eager step function, bit-equal:
+    # logits and cache after GRAPH_CHECK_STEPS steps from the same state
+    prompt = torch.randint(1, dims.n_vocab, (1, LLM_LONG_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(16), device=dev)
+    cache = lm.init_kv_cache(dims, 1, LLM_CACHE, device=dev)
+    with torch.no_grad():
+        lm.forward(params, dims, prompt, cache, pos=0)
+        state = {"pos": torch.tensor(LLM_LONG_PROMPT, device=dev),
+                 "tok": prompt[:, -1:].clone(),
+                 "logits": torch.zeros(1, dims.n_vocab, device=dev)}
+
+        def step():
+            logits, _ = lm.forward(params, dims, state["tok"], cache, pos=state["pos"])
+            state["logits"].copy_(logits[:, 0])
+            state["tok"].copy_(logits[:, 0].argmax(-1, keepdim=True))
+            state["pos"].add_(1)
+
+        start = {n: x.clone() for n, x in {**state, **cache}.items()}
+        results = {}
+        for graphed in (False, True):
+            for n, x in {**state, **cache}.items():
+                x.copy_(start[n])
+            lo.reset_launch_counts()
+            run = StepGraph(step, state).replay if graphed else step
+            for _ in range(GRAPH_CHECK_STEPS):
+                run()
+            torch.cuda.synchronize()
+            results[graphed] = ({n: x.clone() for n, x in {**state, **cache}.items()},
+                                dict(lo.launch_counts))
+    same = all(torch.equal(results[True][0][n], results[False][0][n]) for n in start)
+    print(f"{LLM} step at a device position, {GRAPH_CHECK_STEPS} StepGraph replays against "
+          f"the eager step function from the same state: logits, tokens, position and "
+          f"cache bit-equal {same}; launches eager {results[False][1]}, graphed (warm-up "
+          f"step + replays) {results[True][1]} [{card}]")
+    assert same
+    per_step = {name: dims.n_layer for name in LLAMA_KERNELS}
+    per_step["llama_norm_quant"] = 3 * dims.n_layer + 1      # 2 norms + out's quantizer
+    assert results[False][1] == {n: c * GRAPH_CHECK_STEPS for n, c in per_step.items()}
+    del cache, start, results, state
+    return stats
+
+
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
     pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
     with wave.open(path, "wb") as w:
@@ -2548,11 +2889,13 @@ def synth_clip(seconds: float, seed: int) -> np.ndarray:
     return (0.2 * voice * env + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
 
-def prefill_profile_only() -> int:
-    """`chip_smoke.py --prefill-profile`: the build, then only
-    profile_prefill on the LLM at the Q4 point. It reads nothing newer
-    than the port's first LLM slice, so the same file measures an older
-    tree of the port beside this one."""
+def llm_profile_only() -> int:
+    """`chip_smoke.py --llm-profile`: the build, then the LLM at the Q4
+    point: profile_prefill, profile_decode eager and graphed, and phase
+    8's three stage calls, timed (no result line). It reads nothing newer
+    than the port's graphed LLM step (llm/generate.py, utils/step_loop.py),
+    so the same file, copied into an older tree of the port, measures
+    that tree the same way (`--before`)."""
     from turbo_whisper_workspace_tpu_torch.models import llama as lm
     from turbo_whisper_workspace_tpu_torch.ops import build
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
@@ -2564,7 +2907,22 @@ def prefill_profile_only() -> int:
     dev = torch.device("cuda")
     params, dims = llm_model(tq, lm, dev)
     profile_prefill(lm, params, dims, dev, card)
+    for graphed in (False, True):
+        profile_decode(lm, params, dims, dev, card, graphed=graphed)
+    run_llm_stages(params, dims, dev, card)
     return 0
+
+
+def sources_differ(tree: str, name: str) -> bool:
+    """Whether kernel `name`'s source, or a shared header, differs between
+    TREE's csrc/ and this checkout's."""
+    def text(root, fname):
+        path = os.path.join(root, "turbo_whisper_workspace_tpu_torch", "csrc", fname)
+        return open(path).read() if os.path.exists(path) else None
+
+    headers = {os.path.basename(p) for root in (tree, REPO) for p in glob.glob(
+        os.path.join(root, "turbo_whisper_workspace_tpu_torch", "csrc", "*.cuh"))}
+    return any(text(tree, f) != text(REPO, f) for f in (f"{name}.cu", *headers))
 
 
 # the self-attention kernels' valid_lens in `--before`: both kernels'
@@ -2575,13 +2933,17 @@ BEFORE_VALID_LENS = {"self_attention_int8": (MID_DECODE, PROMPT + DECODE),
 
 
 def before_only(tree: str) -> int:
-    """`chip_smoke.py --before TREE`: every kernel that BEFORE_MS times
-    shape by shape, and the two self-attention kernels by valid_len, built
-    from the sources of TREE (an earlier commit of the repo, unpacked)
-    beside this checkout's, and timed single launch at each of its shapes
-    in turns (before, this, this, before; each checked against its plain
-    version). Prints the medians; no result line."""
+    """`chip_smoke.py --before TREE`, TREE an earlier commit of the repo,
+    unpacked: first this file's `--llm-profile` run in TREE (a copy of
+    this file put there) and in this checkout, in turns (before, this,
+    this, before; a process each); then every kernel that BEFORE_MS times
+    shape by shape, and the two self-attention kernels by valid_len, whose
+    source differs between the two trees, built from TREE's sources beside
+    this checkout's and timed single launch at each of its shapes in turns
+    (each checked against its plain version). Prints the medians; no
+    result line."""
     import ctypes
+    import shutil
 
     from turbo_whisper_workspace_tpu_torch.models import whisper as wm
     from turbo_whisper_workspace_tpu_torch.ops import attention as att
@@ -2589,11 +2951,21 @@ def before_only(tree: str) -> int:
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
 
+    tree = os.path.abspath(tree)
+    shutil.copy(os.path.abspath(__file__), os.path.join(tree, "chip_smoke.py"))
+    for which, root in (("the earlier tree", tree), ("this tree", REPO), ("this tree", REPO),
+                        ("the earlier tree", tree)):
+        print(f"--llm-profile of {which} ({root})", flush=True)
+        proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
+                               "--llm-profile"], cwd=root, timeout=900)
+        assert proc.returncode == 0, (which, proc.returncode)
     card = card_line()
     print(card)
     print(f"kernels built in {build.build_all():.1f} s")
     shapes = {name: list(ms) for name, ms in BEFORE_MS.items() if isinstance(ms, dict)}
     shapes.update(BEFORE_VALID_LENS)
+    shapes = {name: s for name, s in shapes.items() if sources_differ(tree, name)}
+    print(f"kernels whose source differs from the earlier tree's: {sorted(shapes) or 'none'}")
     src = os.path.join(tree, "turbo_whisper_workspace_tpu_torch", "csrc")
     out = os.path.join(REPO, "build", "torch_cuda", "before")
     os.makedirs(out, exist_ok=True)
@@ -2606,7 +2978,7 @@ def before_only(tree: str) -> int:
         assert proc.returncode == 0, f"nvcc failed on the earlier {name}:\n{log}"
     libs = {name: {"before": build.load(os.path.join(out, f"lib{name}.so"), name),
                    "this": build.library(name)} for name in shapes}
-    for name in BEFORE_VALID_LENS:
+    for name in (n for n in BEFORE_VALID_LENS if n in shapes):
         entry = getattr(libs[name]["before"], f"tww_{name}")
         with open(os.path.join(src, f"{name}.cu")) as f:
             host_int = "const void* valid_len" not in f.read()
@@ -2710,8 +3082,8 @@ def main(argv: list[str] | None = None) -> int:
     if "--tp-worker" in args:
         i = args.index("--tp-worker")
         return tp_worker(int(args[i + 1]), int(args[i + 2]), int(args[i + 3]), args[i + 4])
-    if "--prefill-profile" in args:
-        return prefill_profile_only()
+    if "--llm-profile" in args:
+        return llm_profile_only()
     if "--before" in args:
         return before_only(args[args.index("--before") + 1])
     from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
@@ -2911,6 +3283,10 @@ def main(argv: list[str] | None = None) -> int:
 
     # 14. the beam loop as a CUDA graph against its eager step function
     path_counts["beam graph loops"] = beam_graph_phase(att, tr, windows, dev, card)
+
+    # 15. the Llama layer's kernels against their plain versions, and the
+    # graphed step against the eager one
+    stats.update(llama_kernels_phase(att, tq, llm, dev, card))
 
     lines = []
     for name, s in stats.items():

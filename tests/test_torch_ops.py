@@ -569,7 +569,8 @@ def test_device_valid_len_refuses_what_the_kernels_cannot_read(valid_len, error)
 def test_kernel_sources_export_their_entry_points():
     """Every kernel the wrappers launch has a source with its C entry
     point and error string, and opens with the note naming the TPU
-    kernel it replaces."""
+    kernel it replaces (or, for the Llama layer's kernels, the JAX code
+    that XLA fuses)."""
     for name in build.SIGNATURES:
         src = pathlib.Path(build.source_path(name)).read_text()
         assert f'extern "C" int tww_{name}(' in src
@@ -577,16 +578,18 @@ def test_kernel_sources_export_their_entry_points():
         head = src.split("#include")[0]
         assert any(where in head for where in (
             "turbo_whisper_workspace_tpu/ops/attention.py",
-            "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py"))
+            "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py",
+            "turbo_whisper_workspace_tpu/models/llama.py"))
         assert "bound" in head and "Design" in head
-    # the wrappers (ops/attention.py, ops/quant.py, the profiler's two)
-    # pass as many arguments as the C signatures declare, and every
-    # kernel has one
+    # the wrappers (ops/attention.py, ops/quant.py, ops/llama_ops.py, the
+    # profiler's two) pass as many arguments as the C signatures declare,
+    # and every kernel has one
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as tllama
     from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as tprof
 
     calls = {}
-    for module in (tatt, tquant, tprof):
+    for module in (tatt, tquant, tllama, tprof):
         tree = ast.parse(pathlib.Path(module.__file__).read_text())
         calls.update({c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
                       if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"})

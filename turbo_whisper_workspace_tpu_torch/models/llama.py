@@ -17,6 +17,14 @@ host int (the prefill) or a 0-dim int64 tensor on the model's device (a
 decode step a CUDA graph replays: the RoPE rows, the cache row written
 and the attention mask all come from it, as the JAX function's traced
 `pos`).
+
+The layer's work beside the projections, which XLA fuses in the JAX
+program, runs as four kernels (`ops/llama_ops.py`) on the card: the
+residual add with RMSNorm and, where the next projections are int4 at
+m ≤ 8, the grouped int8 quantizer, whose (xq, xs) q, k and v (or gate
+and up) share; RoPE with the cache write; GQA attention over the cache;
+SwiGLU with the quantizer of the down projection's input. On the CPU
+their plain versions compute what this module computed before them.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import quant
+from ..ops import llama_ops, quant
 
 PROJECTIONS = ("q", "k", "v", "out", "gate", "up", "down")
 
@@ -99,9 +107,7 @@ def init_params(dims: LlamaDims, generator: torch.Generator,
 
 
 def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
-    xf = x.float()
-    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * scale).to(x.dtype) * p["scale"].to(x.dtype)
+    return llama_ops.rms_norm_reference(x, p["scale"], eps)
 
 
 def _rope_tables(positions: torch.Tensor, half: int, theta: float):
@@ -117,23 +123,27 @@ def _rope_tables(positions: torch.Tensor, half: int, theta: float):
 _ROPE_TABLES: dict = {}     # (half, theta, max_ctx, device) → (cos, sin) (max_ctx, half)
 
 
-def _rope_rows(dims: LlamaDims, positions: torch.Tensor):
-    """_rope_tables' (cos, sin) at `positions` (T,) on their device, as
-    rows of tables built once per (dims, device) over max_ctx positions:
-    no host→device copy per call, so a captured step holds none."""
+def _rope_table(dims: LlamaDims, device: torch.device):
+    """_rope_tables' (cos, sin) over max_ctx positions, (max_ctx, half)
+    f32, built once per (dims, device): no host→device copy per call, so
+    a captured step holds none."""
     half = dims.head_dim // 2
-    key = (half, dims.rope_theta, dims.max_ctx, positions.device)
+    key = (half, dims.rope_theta, dims.max_ctx, torch.device(device))
     if key not in _ROPE_TABLES:
-        cos, sin = _rope_tables(torch.arange(dims.max_ctx, device=positions.device), half,
+        cos, sin = _rope_tables(torch.arange(dims.max_ctx, device=device), half,
                                 dims.rope_theta)
         _ROPE_TABLES[key] = cos[0, :, 0], sin[0, :, 0]
-    return tuple(t.index_select(0, positions)[None, :, None, :] for t in _ROPE_TABLES[key])
+    return _ROPE_TABLES[key]
 
 
-def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+def _rope_rows(dims: LlamaDims, positions: torch.Tensor):
+    """_rope_tables' (cos, sin) at `positions` (T,) on their device, as
+    rows of _rope_table's tables."""
+    return tuple(t.index_select(0, positions)[None, :, None, :]
+                 for t in _rope_table(dims, positions.device))
+
+
+_apply_rope = llama_ops.apply_rope
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -166,44 +176,46 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
     if not use_cache:
         kv_cache = init_kv_cache(dims, b, max_len=t, dtype=dtype, device=device)
         pos = 0
-    cache_len = kv_cache["k"].shape[2]
     if not torch.is_tensor(pos) and pos + t > dims.max_ctx:
         raise ValueError(f"positions up to {pos + t} exceed max_ctx {dims.max_ctx}")
-    positions = pos + torch.arange(t, device=device)
-    key_pos = torch.arange(cache_len, device=device)
-    attn_mask = key_pos[None, :] <= positions[:, None]               # (t, cache_len)
-    group = h // kvh
-    rope = _rope_rows(dims, positions)                  # shared by every layer
+    cos, sin = _rope_table(dims, device)                # shared by every layer
+    eps = dims.norm_eps
 
+    def groups(block: dict, names: tuple) -> int:
+        """The groups of the int4 projections `names`, which share one
+        quantized input at m ≤ 8; 0 where they take x itself (m > 8, or
+        another weight format)."""
+        kinds = {block[n]["scale4"].shape[0] if "w_q4" in block[n] else 0 for n in names}
+        return kinds.pop() if b * t <= 8 and len(kinds) == 1 else 0
+
+    def project(x: torch.Tensor, wp: dict, act) -> torch.Tensor:
+        return quant.matmul_any(x, wp) if act is None else quant.matmul_any(x, wp, act=act)
+
+    delta = None                 # the last layer's output, added before the next norm
     for li, block in enumerate(params["blocks"]):
         ck, cv = kv_cache["k"][li], kv_cache["v"][li]                # (B, S, kvh·dh) views
-        hnorm = rms_norm(x, block["attn_norm"], dims.norm_eps)
-        q = quant.matmul_any(hnorm, block["q"]).reshape(b, t, h, dh)
-        k = quant.matmul_any(hnorm, block["k"]).reshape(b, t, kvh, dh)
-        v = quant.matmul_any(hnorm, block["v"]).reshape(b, t, kvh, dh)
-        q = _apply_rope(q, *rope)
-        k = _apply_rope(k, *rope)
+        x, hnorm, act = llama_ops.llama_norm_quant(x, block["attn_norm"]["scale"], eps, delta,
+                                                   groups(block, ("q", "k", "v")))
+        q = project(hnorm, block["q"], act).reshape(b, t, h, dh)
+        k = project(hnorm, block["k"], act).reshape(b, t, kvh, dh)
+        v = project(hnorm, block["v"], act).reshape(b, t, kvh, dh)
+        # k and v written in place, at the positions' rows
+        q = llama_ops.llama_rope_cache(q, k, v, ck, cv, cos, sin, pos)
+        attn = llama_ops.llama_attention(q, ck, cv, pos)               # (B, t, H·dh)
+        act = None
+        if groups(block, ("out",)):
+            act = llama_ops.llama_norm_quant(attn, None, eps, None, groups(block, ("out",)),
+                                             norm=False)[2]
+        delta = project(attn, block["out"], act)
 
-        # written in place, at the positions' rows
-        ck.index_copy_(1, positions, k.reshape(b, t, kvh * dh).to(ck.dtype))
-        cv.index_copy_(1, positions, v.reshape(b, t, kvh * dh).to(cv.dtype))
-        kk = ck.reshape(b, cache_len, kvh, dh).to(dtype)
-        vv = cv.reshape(b, cache_len, kvh, dh).to(dtype)
-        # GQA: query head i reads kv head i // group
-        q5 = q.reshape(b, t, kvh, group, dh)
-        logits = torch.einsum("btkgd,bskd->bkgts", q5.float(), kk.float()) * dh ** -0.5
-        logits = logits.masked_fill(~attn_mask, -1e30)
-        w = torch.softmax(logits, dim=-1).to(dtype)
-        attn = torch.einsum("bkgts,bskd->btkgd", w, vv)
-        x = x + quant.matmul_any(attn.reshape(b, t, h * dh), block["out"])
+        x, hnorm, act = llama_ops.llama_norm_quant(x, block["mlp_norm"]["scale"], eps, delta,
+                                                   groups(block, ("gate", "up")))
+        gate = project(hnorm, block["gate"], act)
+        up = project(hnorm, block["up"], act)
+        prod, act = llama_ops.llama_swiglu_quant(gate, up, groups(block, ("down",)))
+        delta = project(prod, block["down"], act)
 
-        hnorm = rms_norm(x, block["mlp_norm"], dims.norm_eps)
-        gate = quant.matmul_any(hnorm, block["gate"])
-        gate = gate * torch.sigmoid(gate)
-        up = quant.matmul_any(hnorm, block["up"])
-        x = x + quant.matmul_any(gate * up, block["down"])
-
-    x = rms_norm(x, params["norm"], dims.norm_eps)
+    _, x, _ = llama_ops.llama_norm_quant(x, params["norm"]["scale"], eps, delta)
     if "w" not in params["lm_head"]:        # int8 (or int4) quantized head
         logits = quant.matmul_any(x, params["lm_head"]).float()
     else:

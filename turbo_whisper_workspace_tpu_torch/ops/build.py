@@ -39,8 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # kernel name → its C entry point's argument types (pointers and the
-# stream as c_void_p, so ctypes never narrows them to 32 bits)
+# stream as c_void_p, so ctypes never narrows them to 32 bits; floats as
+# c_float)
 SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "cross_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -52,6 +54,11 @@ SIGNATURES = {
     "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "s8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "s8g4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "llama_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _F, _P],
+    "llama_norm_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "llama_rope_cache": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                         _P],
+    "llama_swiglu_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

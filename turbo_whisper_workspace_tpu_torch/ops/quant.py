@@ -447,12 +447,16 @@ def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
 # Routing
 
 
-def matmul_any(x: torch.Tensor, wp: dict) -> torch.Tensor:
+def matmul_any(x: torch.Tensor, wp: dict, act: tuple | None = None) -> torch.Tensor:
     """x (..., K) @ w for a dense {"w"}, int8 {"w_q", "scale"} or int4
     {"w_q4", "scale4"} param dict, with the JAX package's TPU route by
     the row count m after the leading dims are flattened:
 
-    * int4: m ≤ 8 → quant_act_grouped + int4_matmul_s8; m > 8 → int4_matmul;
+    * int4: m ≤ 8 → quant_act_grouped + int4_matmul_s8 (or `act`, x's
+      (xq, xs) already quantized, as the Llama layer's kernels give it
+      for the projections that share x: XLA's CSE gives the JAX program
+      one quantization for q, k and v, and one for gate and up);
+      m > 8 → int4_matmul;
     * int8: m ≤ 8 → the dequant matmul (plain torch, as XLA computes it
       in the JAX package) on the CPU, and on the card int8_matmul, whose
       GEMV regime computes the same function (W rounded to bf16 per
@@ -467,9 +471,13 @@ def matmul_any(x: torch.Tensor, wp: dict) -> torch.Tensor:
     k = x.shape[-1]
     xf = x.reshape(-1, k).contiguous()      # the kernels take dense rows
     m = xf.shape[0]
+    if act is not None and ("w_q4" not in wp or m > 8 or act[1].shape != (
+            m, wp["scale4"].shape[0])):
+        raise ValueError("matmul_any: a quantized input is for an int4 weight at m <= 8, "
+                         "in its groups")
     if "w_q4" in wp:
         if m <= 8:
-            xq, xs = quant_act_grouped(xf, wp["scale4"].shape[0])
+            xq, xs = act if act is not None else quant_act_grouped(xf, wp["scale4"].shape[0])
             out = int4_matmul_s8(xq, xs, wp["w_q4"], wp["scale4"]).to(x.dtype)
         else:
             out = int4_matmul(xf, wp["w_q4"], wp["scale4"])
