@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products and convolutions;
-2. build: compiles the fourteen CUDA kernels from csrc/ (one nvcc each,
+2. build: compiles the seventeen CUDA kernels from csrc/ (one nvcc each,
    in parallel);
 3. kernels against their plain PyTorch versions at large-v3-turbo shapes
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
@@ -50,8 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    two single-file requests through AudioProcessingPipeline.transcribe
    (the golden clip and a synthesized 75 s clip) and one batch call of
    Transcriber.transcribe that fills a bucket of 8 windows; the result
-   schema is checked and flash_attention and cross_attention_int8 must
-   have been launched during this phase;
+   schema is checked and flash_attention, cross_attention_int8 and the
+   decoder step's kernels (llama_attention over the bf16 self cache,
+   whisper_norm, whisper_kv_rows, whisper_logit_rules) must have been
+   launched during this phase; the model's plain twins here and in
+   phases 5-6 replace the wrappers of ops/attention.py, ops/llama_ops.py
+   and ops/whisper_ops.py;
 5. the beam path (TranscriptionConfig(beam_size=5): int8 lane self-KV
    cache), same model: one beam step of the decoder over the lane cache
    and one over the regathered int8 cache, each against the same step
@@ -186,8 +190,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    x 200 steps, tokens bit-equal; each with its walls, capture ms, ms per
    step against the byte bound, and a step's profile (host wall, device
    busy, idle share, kernels run, cudaLaunchKernel and cudaGraphLaunch
-   calls) as the difference of two loop lengths; profile_decode on the
-   graphed LLM step; one sampled call of each loop at T = 0.6 (grammar or
+   calls) as the difference of two loop lengths, with each kernel's device
+   µs and calls a step by name; profile_decode on the graphed LLM step;
+   one sampled call of each loop at T = 0.6 (grammar or
    EOS padding, seeded); the phase's peak memory. The graphed runs'
    launches (replays counted) join the kernels line;
 14. the beam loop as a CUDA graph: beam_decode_features (beam 5) on phase
@@ -197,9 +202,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    regathered, bf16 regathered) and on the s8 cross route in lanes mode:
    every field of the result bit-equal; walls, capture ms, ms per step,
    and for the lanes mode a step's profile (host wall, device busy, idle
-   share, kernels run, cudaLaunchKernel and cudaGraphLaunch calls) as the
-   difference of two loop lengths; the phase's peak memory; each mode
-   must launch its self-attention and cross-attention kernels;
+   share, kernels run, cudaLaunchKernel and cudaGraphLaunch calls, each
+   kernel's device µs and calls a step by name) as the difference of two
+   loop lengths; the phase's peak memory; each mode must launch its
+   self-attention and cross-attention kernels;
 15. the Llama layer's kernels (ops/llama_ops.py) at llama-3.1-8b width
    against their plain versions, with the limits of phase 3 (max abs
    error × max|ref|): llama_attention at a decode step over a 2004-row
@@ -222,10 +228,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step function from the same state, logits, tokens and cache
    bit-equal, with each kernel's launches a step. These comparisons'
    launches are not counted in the kernels line: the four kernels' counts
-   there come from the LLM path of phases 8, 10 and 13.
+   there come from the LLM path of phases 8, 10 and 13 (llama_attention's
+   also from the Whisper paths);
+16. the Whisper decoder step's kernels (ops/whisper_ops.py, and
+   llama_attention at group 1) at large-v3-turbo's shapes against their
+   plain versions, with the limits of phase 3: whisper_norm (d = 1280)
+   over a greedy step's 8 rows, a beam step's 40 and a bucket's 12000
+   encoder rows, with and without the residual add, and its entry mode
+   at a device pos, x' bit-equal and h within one bf16 ulp of
+   F.layer_norm's (counted), the norm without the residual add above the
+   limit; whisper_kv_rows into the bf16 cache (8 rows, t = 1 and the
+   prompt's 3), the int8 cache (40 rows) and the lanes (8 × 5 beams) at
+   T = 227, at a host and a device pos, every payload and scale bit-equal,
+   the lanes written into lane 0 in place of lane k above the limit;
+   whisper_logit_rules over 51866 logits, a greedy step's 8 rows (plain,
+   at the first step, sampled at T = 0.6 on the same Gumbel draws) and a
+   beam step's 40 (cand = alive + log_softmax), tokens equal, the
+   probabilities and the token's log-probability within the limits, the
+   rows whose timestamp forcing flipped counted (none allowed), the
+   rules without the pairing bans and with the begin mask at a later
+   step above the limit; llama_attention at B = 8 and 40, 20 heads of 64,
+   T = 227 at pos 115 and 226 (device pos), the prompt's t = 3 and a
+   40-token prompt (its prefill regime), without the position mask above
+   the limit; each timed single launch and back to back beside its plain
+   version, its bound and the library call where one exists
+   (F.layer_norm, the norm alone; scaled_dot_product_attention); then
+   the greedy step (bf16 self cache) and the beam-5 lanes step replayed
+   from a StepGraph against the eager step function, every field of the
+   result bit-equal; and C5: a head-dim-64 Llama (2048 wide, 32 heads
+   over 8, 4 layers, int4) through models/llama.py:forward, a 256-token
+   prefill and a decode step at a device pos, within 5e-2 relative L2
+   of its plain twin. These comparisons' launches are not counted in the
+   kernels line: the three kernels' counts there come from the Whisper
+   paths of phases 4-14.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 14, the TP ranks' included; every one of the fourteen kernels must
+to 14, the TP ranks' included; every one of the seventeen kernels must
 have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -238,12 +276,22 @@ prefill profile, the decode step's profile eager and graphed, and
 phase 8's three stage calls (no result line); copied into an older tree
 of the port, it measures that tree the same way.
 
+    python3 chip_smoke.py --whisper-profile
+
+builds the kernels and runs large-v3-turbo alone: phase 4's greedy and
+phase 5's beam-5 batch calls and phase 14's graphed beam-5 lanes decode
+(walls), and the by-kernel profiles of a graphed greedy step and a
+graphed beam-5 lanes step (no result line); copied into an older tree,
+it measures that tree the same way.
+
     python3 chip_smoke.py --before TREE
 
-first runs `--llm-profile` in TREE, an unpacked earlier commit
-(`git archive <rev> | tar -x -C build/parent`; this file is copied
-there), and in this checkout, in turns (TREE, this, this, TREE); then
-times, among the kernels whose earlier design BEFORE_MS holds shape by
+first runs `--llm-profile`, then `--whisper-profile`, in TREE, an
+unpacked earlier commit (`git archive <rev> | tar -x -C build/parent`;
+this file is copied there), and in this checkout, in turns (TREE, this,
+this, TREE); then phase 16's checks and times of the Whisper decoder
+step's kernels in this checkout; then times, among the kernels whose
+earlier design BEFORE_MS holds shape by
 shape (int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
 kernels by valid_len (an earlier tree's host-int interface called as
 such), those whose source differs in TREE, built from TREE's sources,
@@ -336,6 +384,10 @@ REPLACES = {
     "llama_norm_quant": "turbo_whisper_workspace_tpu/models/llama.py:89",
     "llama_rope_cache": "turbo_whisper_workspace_tpu/models/llama.py:95",
     "llama_swiglu_quant": "turbo_whisper_workspace_tpu/models/llama.py:172",
+    # nor here: XLA fuses this work inside the jitted Whisper decode loop
+    "whisper_norm": "turbo_whisper_workspace_tpu/models/whisper.py:182",
+    "whisper_kv_rows": "turbo_whisper_workspace_tpu/models/whisper.py:420",
+    "whisper_logit_rules": "turbo_whisper_workspace_tpu/decode/rules.py:87",
 }
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
@@ -445,6 +497,14 @@ def bound_ms(n_bytes: float, n_ops: float,
 
 def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def checked_plan(lo, t: int, group: int, s_len: int, pairs: int) -> tuple:
+    """llama_attention's plan for a label: ops/llama_ops.py's mirror,
+    asserted equal to the plan the built kernel launches."""
+    plan = lo.attention_plan(t, group, s_len, pairs)
+    assert plan == lo.kernel_plan(t, group, s_len, pairs), (plan, t, group, s_len, pairs)
+    return plan
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -663,7 +723,7 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     int8 payloads and bf16 scales made by the decoder's own quantizer
     from random K/V, valid_len a device int32 as the graphed beam step
     passes it. The row in the kernels line is the mid-decode one."""
-    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
 
     b, k, h, d = 8, BEAM, 20, 64
     t = PROMPT + DECODE
@@ -673,8 +733,8 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
         return torch.randn(*shape, generator=gen, device=dev)
 
     # self_attention_int8: the regathered cache of the B·K beam rows
-    kq, ks = wm._quantize_kv_rows(randn(b * k, t, h * d), h)      # (B·K, H, T, 64)
-    vq, vs = wm._quantize_kv_rows(randn(b * k, t, h * d), h)
+    kq, ks = wo.quantize_kv_rows(randn(b * k, t, h * d), h)      # (B·K, H, T, 64)
+    vq, vs = wo.quantize_kv_rows(randn(b * k, t, h * d), h)
     q = randn(b * k, h, 1, d).to(torch.bfloat16)
     args = (q, kq, ks, vq, vs)
     rows, errs = {}, {}
@@ -711,8 +771,8 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
         att.self_attention_int8_reference(q2, *args[1:], MID_DECODE),
         {"valid_len mask": att.self_attention_int8_reference(q2, *args[1:], t)})
     del kq, vq, ks, vs, args, q2
-    kq, ks = wm._quantize_kv_rows(randn(b * k, 448, h * d), h)
-    vq, vs = wm._quantize_kv_rows(randn(b * k, 448, h * d), h)
+    kq, ks = wo.quantize_kv_rows(randn(b * k, 448, h * d), h)
+    vq, vs = wo.quantize_kv_rows(randn(b * k, 448, h * d), h)
     args = (q, kq, ks, vq, vs)
     for valid in (224, 448):
         vl = device_int(valid, dev)
@@ -734,9 +794,9 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
     # self_attention_int8_lanes: lane panels of B items, K lanes each, at
     # the beam phase's K = 5 (the row in the kernels line: mid-decode) and
     # at K = 8 over Whisper's whole 448-position context
-    rows, errs = check_lanes(att, wm, dev, gen, flush, card, b, k, h, t,
+    rows, errs = check_lanes(att, wo, dev, gen, flush, card, b, k, h, t,
                              (PROMPT, MID_DECODE, t), redesigned=(MID_DECODE, t))
-    _, errs8 = check_lanes(att, wm, dev, gen, flush, card, b, 8, h, 448, (PROMPT, 224, 448))
+    _, errs8 = check_lanes(att, wo, dev, gen, flush, card, b, 8, h, 448, (PROMPT, 224, 448))
     errs.update({(8, valid): e for valid, e in errs8.items()})
     stats["self_attention_int8_lanes"] = kernel_row(rows[MID_DECODE], errs)
     return stats
@@ -756,7 +816,7 @@ def k_panel_sectors(lane_map: torch.Tensor, valid: int, h: int) -> tuple[int, in
     return int(bi.numel()), int(torch.unique(addr // 32).numel())
 
 
-def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: int,
+def check_lanes(att, wo, dev, gen, flush, card: str, b: int, k: int, h: int, t: int,
                 valids: tuple, redesigned: tuple = ()) -> tuple[dict, dict]:
     """self_attention_int8_lanes on lane panels of B items, K lanes each
     (made by the decoder's own quantizer from random K/V) over a random
@@ -769,8 +829,8 @@ def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    kq, ks = wm._quantize_kv_rows(randn(b, k * t, h * d), h)      # (B, H, K·T, 64)
-    vq, vs = wm._quantize_kv_rows(randn(b, k * t, h * d), h)
+    kq, ks = wo.quantize_kv_rows(randn(b, k * t, h * d), h)      # (B, H, K·T, 64)
+    vq, vs = wo.quantize_kv_rows(randn(b, k * t, h * d), h)
     kp = kq.permute(0, 1, 3, 2).reshape(b, h * d, k * t).contiguous()
     vp = vq.permute(0, 2, 1, 3).reshape(b, k * t, h * d).contiguous()
     del kq, vq
@@ -823,13 +883,40 @@ def check_lanes(att, wm, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
     return rows, errs
 
 
+# wrappers beyond a module's launch_counts names: whisper_norm's entry mode
+EXTRA_WRAPPERS = {"turbo_whisper_workspace_tpu_torch.ops.whisper_ops": ("whisper_embed_norm",)}
+
+
+def counters() -> tuple:
+    """The modules whose kernel wrappers count the Whisper paths' launches:
+    ops/attention.py, ops/llama_ops.py (llama_attention over the bf16
+    self cache) and ops/whisper_ops.py."""
+    from turbo_whisper_workspace_tpu_torch.ops import attention as att
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
+
+    return att, lo, wo
+
+
+def reset_counts(*modules) -> None:
+    """Zero the launch counts of `modules` (default: counters())."""
+    for mod in modules or counters():
+        mod.reset_launch_counts()
+
+
+def launches(*modules) -> dict:
+    """kernel name → launches counted in `modules` (default: counters())."""
+    return {n: c for mod in modules or counters() for n, c in mod.launch_counts.items()}
+
+
 @contextlib.contextmanager
 def plain_kernels(*modules):
     """Every kernel wrapper of the given modules (ops/attention.py,
-    ops/quant.py) replaced by its plain version, for a run that must
-    launch nothing."""
+    ops/quant.py, ops/llama_ops.py, ops/whisper_ops.py) replaced by its
+    plain version, for a run that must launch nothing; EXTRA_WRAPPERS
+    names the wrappers counted under another kernel's name."""
     kernels = {(mod, name): getattr(mod, name) for mod in modules
-               for name in mod.launch_counts}
+               for name in (*mod.launch_counts, *EXTRA_WRAPPERS.get(mod.__name__, ()))}
     counts = [dict(mod.launch_counts) for mod in modules]
     for mod, name in kernels:
         setattr(mod, name, getattr(mod, f"{name}_reference"))
@@ -856,7 +943,7 @@ def check_model(att, transcriber, audio: np.ndarray) -> None:
         cross_kv = model.decoder.precompute_cross_kv(feats, quantize=True)
         prompt = torch.tensor([transcriber._prompt_row("en")], device=dev)
         logits, _ = model.decoder(prompt, cross_kv)
-        with plain_kernels(att):
+        with plain_kernels(*counters()):
             feats_plain = model.encoder(mel)
             logits_plain, _ = model.decoder(prompt, cross_kv)
     e_feats, e_logits = rel_err(feats, feats_plain), rel_err(logits, logits_plain)
@@ -903,7 +990,7 @@ def check_beam_step(att, transcriber, audio: np.ndarray) -> None:
             launched = {n: att.launch_counts[n] - before[n] for n in before}
             assert launched[kernel] == n_layer, launched
             assert launched["cross_attention_int8"] == n_layer, launched
-            with plain_kernels(att):
+            with plain_kernels(*counters()):
                 logits_plain = run()
             e = rel_err(logits, logits_plain)
             print(f"full-width beam-{BEAM} step over the {kernel} cache vs its plain twin: "
@@ -937,7 +1024,7 @@ def check_s8_step(att, transcriber, audio: np.ndarray) -> None:
         before = dict(att.launch_counts)
         logits = run()
         launched = {n: att.launch_counts[n] - before[n] for n in before}
-        with plain_kernels(att):
+        with plain_kernels(*counters()):
             logits_plain = run()
     e = rel_err(logits, logits_plain)
     print(f"full-width decode step on the s8 route vs its plain twin: logits rel err "
@@ -1074,7 +1161,7 @@ def master_flow_phase(att, transcriber, dev, card: str):
                   f"merge {sum(r['processing_times']['merge'] for r in results):.6f} s; "
                   f"turns {[len(r['diarization_segments']) for r in results]} [{card}]")
 
-        att.reset_launch_counts()
+        reset_counts()
         for label, names in (("neural tier, first call", {}), ("neural tier", {}),
                              ("weight-free tier", dict(segmentation_model="none",
                                                        embedding_model="none"))):
@@ -1111,7 +1198,7 @@ def master_flow_phase(att, transcriber, dev, card: str):
               f"{t['diarization']:.3f} s ({75.0 / t['diarization']:.1f} audio-s/s), merge "
               f"{t['merge']:.6f} s, llm {t['llm']:.3f} s; "
               f"{len({s['speaker'] for s in res['diarization_segments']})} speakers [{card}]")
-    counts = dict(att.launch_counts)
+    counts = launches()
     print(f"launches on the master-flow path: {counts}")
     assert counts["flash_attention"] > 0 and counts["cross_attention_int8"] > 0, counts
     return counts, pipe
@@ -1838,9 +1925,7 @@ def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
     golden_want = json.load(open(os.path.join(REPO, "examples", "golden", "expected.json")))
     from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
 
-    att.reset_launch_counts()
-    tq.reset_launch_counts()
-    lo.reset_launch_counts()
+    reset_counts(*counters(), tq)
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir, ref_dir, rttm_dir = (os.path.join(tmp, d) for d in ("audio", "ref", "rttm"))
         for d in (audio_dir, ref_dir, rttm_dir):
@@ -1929,7 +2014,7 @@ def tool_shell_phase(att, tq, pipe, llm, dev, card: str) -> dict:
         cli.main(["preprocess", "-i", GOLDEN, "-o", out, "--denoise", "0.3", "--dynamic",
                   "--device", str(dev)])
         assert os.path.getsize(out) > 44
-    counts = {n: c for mod in (att, tq, lo) for n, c in mod.launch_counts.items() if c}
+    counts = {n: c for n, c in launches(*counters(), tq).items() if c}
     print(f"launches on the tool-shell path: {counts}")
     for name in ("flash_attention", "cross_attention_int8", "int4_matmul", "int4_matmul_s8",
                  "int8_matmul", *lo.launch_counts):
@@ -1975,7 +2060,7 @@ def serving_phase(att, pipe, dev, card: str) -> dict:
         check_result_schema(res, golden_s, enriched)
         assert isinstance(res["text"], str) and res["language"]
 
-    att.reset_launch_counts()
+    reset_counts()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             dialogue_path = os.path.join(tmp, "dialogue.wav")
@@ -2026,7 +2111,7 @@ def serving_phase(att, pipe, dev, card: str) -> dict:
         httpd.server_close()
         llm_helper.set_llm(None)
         api.set_pipeline(None)
-    counts = {n: c for n, c in att.launch_counts.items() if c}
+    counts = {n: c for n, c in launches().items() if c}
     print(f"launches on the serving path: {counts}")
     for name in ("flash_attention", "cross_attention_int8"):
         assert counts.get(name, 0) > 0, (name, counts)
@@ -2089,11 +2174,11 @@ def tp_worker(rank: int, world: int, port: int, out_dir: str) -> int:
     mesh = make_mesh(model_parallel=world, device_type="cuda")
     fn = infer.make_tp_decode(model, mesh, rules=rules, max_len=TP_DECODE, quantize_kv=True)
     local = fn.model
-    att.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res, collectives = infer.count_collectives(fn, pcm, prompt)
     torch.cuda.synchronize()
-    out = {"wall": time.perf_counter() - t0, "launches": dict(att.launch_counts),
+    out = {"wall": time.perf_counter() - t0, "launches": launches(),
            "collectives": collectives, "tokens": res.tokens.tolist(),
            "lengths": res.lengths.tolist(),
            "heads": [local.encoder.blocks[0].n_head, local.decoder.n_head],
@@ -2217,35 +2302,67 @@ def train_check(att, mesh, dev, card: str) -> dict:
           f"(tolerance {GRAD_TOL})")
     assert all(e <= GRAD_TOL for e in errs), errs
     del q, k, v, g, ours, plain
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
+    ngen = torch.Generator(dev).manual_seed(8)      # leaves gen's train data as it was
+    x, delta, g = (torch.randn(TRAIN_BATCH * 1500, 1280, generator=ngen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+    w, b = (1 + 0.1 * torch.randn(1280, generator=ngen, device=dev)).to(torch.bfloat16), \
+        (0.1 * torch.randn(1280, generator=ngen, device=dev)).to(torch.bfloat16)
+    ours = [t.clone().requires_grad_() for t in (x, w, b, delta)]
+    plain = [t.clone().requires_grad_() for t in (x, w, b, delta)]
+    torch.autograd.backward(wo.whisper_norm(*ours[:3], 1e-5, ours[3]), [g, g])
+    torch.autograd.backward(wo.whisper_norm_reference(*plain[:3], 1e-5, plain[3]), [g, g])
+    errs = [rel_err(a.grad, b.grad) for a, b in zip(ours, plain)]
+    print(f"whisper_norm autograd route vs the plain version's autograd, {tuple(x.shape)} bf16 "
+          f"with the residual add: rel L2 dx {errs[0]:.3e}, dw {errs[1]:.3e}, db {errs[2]:.3e}, "
+          f"ddelta {errs[3]:.3e} (tolerance {GRAD_TOL})")
+    assert all(e <= GRAD_TOL for e in errs), errs
+    del x, delta, g, ours, plain
 
     dims = wm.WHISPER_CONFIGS["large-v3-turbo"]
-    model = wm.init_params(dims, torch.Generator(dev).manual_seed(1), dtype=torch.bfloat16)
-    init_fn, step_fn = train.make_train_step(model, mesh, learning_rate=TRAIN_LR)
-    local, opt = init_fn()
     with torch.no_grad():
         mel = mel_ops.log_mel_spectrogram(pcm_windows(TRAIN_BATCH, seed0=20).to(dev),
                                           num_mels=dims.n_mels)
     tokens = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_TOKENS), generator=gen, device=dev)
     mask = torch.ones(TRAIN_BATCH, TRAIN_TOKENS - 1, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    att.reset_launch_counts()
-    losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        local, opt, loss = step_fn(local, opt, mel, tokens, mask)
-        losses.append(float(loss))
-        walls.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = {n: c for n, c in att.launch_counts.items() if c}
+
+    def train_steps():
+        model = wm.init_params(dims, torch.Generator(dev).manual_seed(1), dtype=torch.bfloat16)
+        init_fn, step_fn = train.make_train_step(model, mesh, learning_rate=TRAIN_LR)
+        local, opt = init_fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            local, opt, loss = step_fn(local, opt, mel, tokens, mask)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {n: c for n, c in launches().items() if c}
+        del model, local, opt
+        torch.cuda.empty_cache()
+        return losses, walls, peak, counts
+
+    reset_counts()
+    losses, walls, peak, counts = train_steps()
     print(f"train step, large-v3-turbo bf16, batch {TRAIN_BATCH} x {TRAIN_TOKENS} tokens, "
           f"AdamW lr {TRAIN_LR}: losses {[round(x, 4) for x in losses]}, ms a step "
           f"{[round(w * 1e3, 1) for w in walls]}, peak memory {peak:.2f} GiB; launches "
           f"{counts} [{card}]")
+    with plain_kernels(wo):
+        plain_losses, plain_walls, plain_peak, _ = train_steps()
+    print(f"the same train steps with whisper_norm's plain version (the earlier route): losses "
+          f"{[round(x, 4) for x in plain_losses]}, ms a step "
+          f"{[round(w * 1e3, 1) for w in plain_walls]}, peak memory {plain_peak:.2f} GiB")
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    # the first step's forward differs from its plain twin only in the norms' roundings
+    assert abs(losses[0] - plain_losses[0]) <= 1e-2 * abs(plain_losses[0]), (losses, plain_losses)
     assert counts.get("flash_attention") == dims.n_audio_layer * TRAIN_STEPS, counts
-    del model, local, opt
-    torch.cuda.empty_cache()
+    # every norm of the forward launches its kernel (the backward recomputes in torch
+    # ops): two a block and ln_post in the encoder, the entry and three a layer in the decoder
+    n_norms = 2 * dims.n_audio_layer + 1 + 3 * dims.n_text_layer + 1
+    assert counts.get("whisper_norm") == n_norms * TRAIN_STEPS, counts
     return counts
 
 
@@ -2271,12 +2388,12 @@ def parallel_phase(att, transcriber, dev, card: str) -> dict:
         for beam in (1, BEAM):
             fn = infer.make_dp_decode(model, mesh, rules=transcriber.rules, beam_size=beam,
                                       max_len=DECODE, quantize_kv=True)
-            att.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             res, collectives = infer.count_collectives(fn, pcm, prompt)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            for name, c in att.launch_counts.items():
+            for name, c in launches().items():
                 path_counts["dp decode"][name] = path_counts["dp decode"].get(name, 0) + c
             full = infer.gather_dp(mesh, res)
             t0 = time.perf_counter()
@@ -2335,12 +2452,13 @@ def step_profile(run, short: int, long: int) -> dict:
     busy (kernel self time), kernels run, and cudaLaunchKernel and
     cudaGraphLaunch calls: torch.profiler windows over a run of `long`
     and one of `short` steps, their difference over long − short steps,
-    so the prefill, the warm-up and the capture cancel."""
+    so the prefill, the warm-up and the capture cancel. `by_kernel`:
+    each kernel's device µs and calls a step, the same difference."""
     from torch.profiler import ProfilerActivity, profile
 
     timings = run(long)
     wall = timings["loop_s"] / timings["decode_forwards"] * 1e3
-    read = {}
+    read, named = {}, {}
     for n in (short, long):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run(n)
@@ -2348,10 +2466,14 @@ def step_profile(run, short: int, long: int) -> dict:
         kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith("aten::")]
         read[n] = (sum(device_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels),
                    calls(events, "cudaLaunchKernel"), calls(events, "cudaGraphLaunch"))
-    busy, kernels, launches, graph_launches = (
+        named[n] = {e.key: (device_us(e), e.count) for e in kernels}
+    busy, kernels, n_launches, graph_launches = (
         (a - b) / (long - short) for a, b in zip(read[long], read[short]))
+    by_kernel = {key: tuple((a - b) / (long - short) for a, b in zip(
+        named[long][key], named[short].get(key, (0.0, 0)))) for key in named[long]}
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "kernels": kernels,
-            "launches": launches, "graph_launches": graph_launches}
+            "launches": n_launches, "graph_launches": graph_launches,
+            "by_kernel": {k: v for k, v in by_kernel.items() if v[1] > 0.5}}
 
 
 def print_step_profile(label: str, prof: dict, card: str) -> None:
@@ -2359,6 +2481,8 @@ def print_step_profile(label: str, prof: dict, card: str) -> None:
           f"{prof['busy_ms']:.3f} ms ({100 * prof['idle']:.1f}% idle), "
           f"{prof['kernels']:.1f} kernels run, {prof['launches']:.1f} cudaLaunchKernel and "
           f"{prof['graph_launches']:.1f} cudaGraphLaunch calls per step [{card}]")
+    for key, (us, n) in sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us:8.2f} us a step, {n:5.1f} calls: {key[:100]}")
 
 
 def in_turns(run) -> dict:
@@ -2401,10 +2525,9 @@ def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) 
 
     def counted(fn):
         """fn() with the counts zeroed before; the launches join `counts`."""
-        for mod in (att, tq, lo):
-            mod.reset_launch_counts()
+        reset_counts(*counters(), tq)
         out = fn()
-        for name, c in {**att.launch_counts, **tq.launch_counts, **lo.launch_counts}.items():
+        for name, c in launches(*counters(), tq).items():
             counts[name] = counts.get(name, 0) + c
         return out
 
@@ -2562,9 +2685,9 @@ def beam_graph_phase(att, transcriber, windows: np.ndarray, dev, card: str) -> d
         def run(graphed):
             if not graphed:
                 return decode(False)
-            att.reset_launch_counts()
+            reset_counts()
             out = decode(True)
-            for name, c in att.launch_counts.items():
+            for name, c in launches().items():
                 counts[name] = counts.get(name, 0) + c
             assert att.launch_counts["cross_attention_s8" if s8 else "cross_attention_int8"]
             assert kernel is None or att.launch_counts[kernel] > 0, (mode, att.launch_counts)
@@ -2719,7 +2842,7 @@ def llama_kernels_phase(att, tq, llm, dev, card: str) -> dict:
         if pos + 1 < LLM_CACHE:
             dropped["position mask"] = attention_variant(lo, q, ck, cv, pos, mask=False)
         label = (f"decode t=1 pos={pos} S={LLM_CACHE} (plan "
-                 f"{lo.attention_plan(1, group, LLM_CACHE)})")
+                 f"{checked_plan(lo, 1, group, LLM_CACHE, kvh)})")
         errs[pos] = compare(f"llama_attention {label}", out,
                             lo.llama_attention_reference(q, ck, cv, pos), dropped,
                             relative_max=True)
@@ -2733,7 +2856,7 @@ def llama_kernels_phase(att, tq, llm, dev, card: str) -> dict:
     q, pk, pv = randn(1, t, h, dh), randn(1, t, kvh * dh), randn(1, t, kvh * dh)
     out = lo.llama_attention(q, pk, pv, 0)
     torch.cuda.synchronize()
-    label = f"prefill t={t} (plan {lo.attention_plan(t, group, t)})"
+    label = f"prefill t={t} (plan {checked_plan(lo, t, group, t, kvh)})"
     errs["prefill"] = compare(
         f"llama_attention {label}, online softmax", out,
         lo.llama_attention_reference(q, pk, pv, 0),
@@ -2867,6 +2990,341 @@ def llama_kernels_phase(att, tq, llm, dev, card: str) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the Whisper decoder step's kernels
+
+WHISPER_KERNELS = ("llama_attention", "whisper_norm", "whisper_kv_rows", "whisper_logit_rules")
+WHISPER_ROWS = {"greedy": 8, f"beam-{BEAM}": 8 * BEAM, "encoder": 8 * 1500}
+STEP_CHECK_LEN = 16        # sampled tokens of the graphed-against-eager step check
+C5_DIMS = dict(n_vocab=128256, d_model=2048, n_layer=4, n_head=32, n_kv_head=8, d_ff=8192)
+C5_PROMPT = 256
+
+
+def timed_row(name: str, label: str, fn, plain, args: tuple, n_bytes: float, n_ops: float,
+              flush, card: str, library=None) -> dict:
+    """A kernel's single-launch, back-to-back, plain and library times
+    beside its bound (phase 15's measure, on any argument tuple: its
+    tensors cloned into copies over L2_BYTES)."""
+    r = timed(f"{name} {label}", lambda: fn(*args), lambda: plain(*args), n_bytes, n_ops, flush)
+    tensors = [a for a in args if torch.is_tensor(a)]
+    n = min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / max(nbytes(*tensors), 1)) + 1))
+    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                       for _ in range(n - 1)]
+    r["b2b_ms"] = back_to_back_ms(fn, copies, flush)
+    r["library_ms"] = None if library is None else time_ms(library, flush)
+    lib = "none" if library is None else f"{r['library_ms']:.4f} ms"
+    print(f"{name} {label}: single launch {r['ms']:.4f} ms, back-to-back {r['b2b_ms']:.4f} ms "
+          f"per launch ({BACK_TO_BACK} in a row over {len(copies)} copies), plain "
+          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}) [{card}]")
+    del copies
+    return r
+
+
+NEAR_ZERO = 2.0 ** -20     # an absolute floor: near 0 an O(1) term's f32 rounding
+                           # is many bf16 ulps of the value (and decides its sign)
+
+
+def within_one_ulp(got: torch.Tensor, ref: torch.Tensor) -> tuple[int, bool]:
+    """(elements that differ, whether each differs by at most one bf16
+    ulp at the larger of the two magnitudes, or by at most NEAR_ZERO)."""
+    g, r = got.float(), ref.float()
+    big = torch.maximum(g.abs(), r.abs())
+    _, exp = torch.frexp(big)
+    diff = (g - r).abs()
+    ok = (diff <= torch.ldexp(torch.ones_like(big), exp - 8)) | (diff <= NEAR_ZERO)
+    return int((got != ref).sum()), bool(ok.all())
+
+
+def check_whisper_norm(wo, dev, gen, flush, card: str) -> dict:
+    """whisper_norm at large-v3-turbo's d = 1280 over a greedy step's 8
+    rows, a beam step's 40 and a bucket's 12000 encoder rows, with and
+    without the residual add, and its entry mode at a device pos: x'
+    bit-equal, h within one bf16 ulp of F.layer_norm's (counted), the
+    norm without the residual add above the limit."""
+    d = 1280
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    rows, errs, moved, total = {}, {}, 0, 0
+    for label, m in WHISPER_ROWS.items():
+        x = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+        delta = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+        for dl in (delta, None):
+            args = (x, w, b, 1e-5, dl)
+            (xo, h), (rx, rh) = wo.whisper_norm(*args), wo.whisper_norm_reference(*args)
+            torch.cuda.synchronize()
+            key = f"{label} m={m} d={d}" + (", residual add" if dl is not None else "")
+            dropped = ({"residual add": wo.whisper_norm_reference(x, w, b, 1e-5)[1]}
+                       if dl is not None else {})
+            errs[key] = compare(f"whisper_norm {key}", h, rh, dropped, relative_max=True)
+            n_moved, ok = within_one_ulp(h, rh)
+            moved, total = moved + n_moved, total + h.numel()
+            assert torch.equal(xo, rx) and ok, key
+            n_bytes = nbytes(x, w, b, h, *((dl, xo) if dl is not None else ()))
+            rows[key] = timed_row("whisper_norm", key, wo.whisper_norm,
+                                  wo.whisper_norm_reference, args, n_bytes, 0, flush, card,
+                                  lambda x=x: torch.nn.functional.layer_norm(x, (d,), w, b))
+    # the entry: a greedy step's tokens at device position 200
+    tokens = torch.randint(0, 51866, (8, 1), generator=gen, device=dev)
+    temb = (0.02 * torch.randn(51866, d, generator=gen, device=dev)).to(torch.bfloat16)
+    pemb = (0.02 * torch.randn(448, d, generator=gen, device=dev)).to(torch.bfloat16)
+    at = torch.tensor(200, device=dev)
+    args = (tokens, temb, pemb, at, w, b, 1e-5)
+    (x, h), (rx, rh) = wo.whisper_embed_norm(*args), wo.whisper_embed_norm_reference(*args)
+    torch.cuda.synchronize()
+    errs["entry"] = compare("whisper_norm entry mode (embeddings at device pos 200, 8 rows)",
+                            h, rh, {"position 0 in place of 200": wo.whisper_embed_norm_reference(
+                                tokens, temb, pemb, 0, w, b, 1e-5)[1]}, relative_max=True)
+    assert torch.equal(x, rx) and within_one_ulp(h, rh)[1]
+    print(f"whisper_norm: h elements one bf16 ulp from F.layer_norm's: {moved} of {total} "
+          f"({100 * moved / total:.3f}%), none further (or within {NEAR_ZERO:.1e}); x' "
+          f"bit-equal [{card}]")
+    return kernel_row(rows[f"greedy m=8 d={d}, residual add"], errs)
+
+
+def kv_rows_lane0(wo, k, v, cache: dict, layer: int, pos, h: int, beam: int) -> None:
+    """The plain row writer with every beam row writing lane 0 in place of
+    lane k (the last beam's rows win there): the error the lane check must
+    catch."""
+    lane0 = {"k_p": cache["k_p"][:, :, :, :1], "v_p": cache["v_p"][:, :, :1],
+             "k_ps": cache["k_ps"][:, :, :, :1], "v_ps": cache["v_ps"][:, :, :, :1]}
+    wo.whisper_kv_rows_reference(k[beam - 1::beam], v[beam - 1::beam], lane0, layer, pos, h, 1)
+
+
+def check_whisper_kv_rows(wo, wm, dev, gen, flush, card: str) -> dict:
+    """whisper_kv_rows at large-v3-turbo's 20 heads of 64 and T = 227 into
+    layer 1 of each cache: bf16 (a greedy step's 8 rows, the prompt's 3),
+    int8 regathered (B·K = 40), lanes (8 items × 5 beams), at a host and
+    at a device pos: every payload and scale bit-equal to the plain
+    version's; in the lanes, lane 0 in place of lane k above the limit."""
+    h, dh, t_len = 20, 64, PROMPT + DECODE
+    dims = wm.WHISPER_CONFIGS["large-v3-turbo"]
+    rows, errs = {}, {}
+    for mode, n, t, beam in (("bf16", 8, 1, 1), ("bf16", 8, PROMPT, 1),
+                             ("int8", 8 * BEAM, 1, 1), ("lanes", 8 * BEAM, 1, BEAM)):
+        cache = wm.init_kv_cache(dims, n // beam, t_len, device=dev, quantize=mode != "bf16")
+        if mode == "lanes":
+            cache = wm.beam_lane_cache(cache, beam)
+        for pos in (MID_DECODE, torch.tensor(t_len - t, device=dev)):   # the last rows
+            k = torch.randn(n, t, h * dh, generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn(n, t, h * dh, generator=gen, device=dev).to(torch.bfloat16)
+            ref = {key: x.clone() for key, x in cache.items()}
+            wo.whisper_kv_rows(k, v, cache, 1, pos, h, beam)
+            wo.whisper_kv_rows_reference(k, v, ref, 1, pos, h, beam)
+            torch.cuda.synchronize()
+            p = int(pos)
+            label = f"{mode} rows={n} t={t} pos={p}{' (device)' if torch.is_tensor(pos) else ''}"
+            same = all(torch.equal(cache[key], ref[key]) for key in cache)
+            dropped = ""
+            if mode == "lanes":
+                wrong = {key: x.clone() for key, x in cache.items()}
+                kv_rows_lane0(wo, k, v, wrong, 1, pos, h, beam)
+                miss = rel_err(wrong["v_p"][1, :, :, p], ref["v_p"][1, :, :, p])
+                dropped = f"; lane 0 in place of lane k: {miss:.3e} (limit {KERNEL_REL_TOL})"
+                assert miss > KERNEL_REL_TOL, miss
+            print(f"whisper_kv_rows {label}: every payload and scale bit-equal {same}{dropped}")
+            assert same, label
+            errs[label] = (0.0, 0.0)
+            # the rows written: bf16 as they are, or int8 with a bf16 scale a head
+            out_bytes = (2 * nbytes(k) if mode == "bf16"
+                         else 2 * (k.numel() + n * t * h * 2))
+            rows[label] = timed_row("whisper_kv_rows", label, wo.whisper_kv_rows,
+                                    wo.whisper_kv_rows_reference, (k, v, cache, 1, pos, h, beam),
+                                    nbytes(k, v) + out_bytes, 0, flush, card)
+        del cache
+    return kernel_row(rows[f"bf16 rows=8 t=1 pos={MID_DECODE}"], errs)
+
+
+def rules_inputs(sp, rows: int, gen, dev) -> tuple:
+    """(logits, last, penult, floor) of `rows` decode rows: logits of
+    scale 3 with the timestamp mass raised on every third row (the
+    forcing test then goes both ways); the previous two tokens (text,
+    text), (timestamp, text: text banned), (timestamp, timestamp:
+    timestamps banned) and (text, timestamp) in turn; floors among the
+    first 100 timestamps."""
+    tsb = sp.timestamp_begin
+    logits = torch.randn(rows, sp.n_vocab, generator=gen, device=dev) * 3
+    logits[::3, tsb:] += 4.0
+    i = torch.arange(rows, device=dev)
+    last = torch.where((i % 4 == 1) | (i % 4 == 2), tsb + 5 + i % 50, 220 + i)
+    penult = torch.where(i % 4 >= 2, tsb + 3 + i % 40, 300 + i)
+    floor = torch.randint(tsb, tsb + 100, (rows,), generator=gen, device=dev)
+    return logits, last, penult, floor
+
+
+def check_whisper_logit_rules(wo, rules, dev, gen, flush, card: str) -> dict:
+    """whisper_logit_rules at large-v3-turbo's vocabulary over a greedy
+    step's 8 rows (argmax, the token's log-probability; at the first step
+    with the begin mask; sampled at T = 0.6 on the same Gumbel draws) and
+    a beam step's 40 (cand = alive + log_softmax): tokens equal, the
+    probabilities exp(cand − add) and the log-probabilities within the
+    limits, the rows whose timestamp forcing flipped counted (none
+    allowed); the rules without the pairing bans, and with the begin mask
+    at a later step, above the limit."""
+    sp = rules.specials
+    tsb = sp.timestamp_begin
+    sm, bm = rules.static_mask(dev), rules.begin_mask(dev)
+    rows, errs, flips = {}, {}, 0
+    for label, n, is_begin, sampled in (("greedy", 8, False, False),
+                                        ("greedy, first step", 8, True, False),
+                                        (f"greedy, T = {SAMPLED_T}", 8, False, True),
+                                        (f"beam-{BEAM}", 8 * BEAM, False, False)):
+        logits, last, penult, floor = rules_inputs(sp, n, gen, dev)
+        noise = (-torch.log(torch.empty_like(logits).exponential_(generator=gen))
+                 if sampled else None)
+        add = torch.randn(n, generator=gen, device=dev) * 5
+        args = (logits, rules, is_begin, last, penult, floor, sm, bm, noise, SAMPLED_T, add)
+        got, ref = wo.whisper_logit_rules(*args), wo.whisper_logit_rules_reference(*args)
+        torch.cuda.synchronize()
+        forced = [(c[:, :tsb] <= -1e29).all(-1) for c in (got[2], ref[2])]   # −1e30 filled
+        flips += int((forced[0] != forced[1]).sum())
+
+        def probs(out):
+            return torch.exp(out[2] - add[:, None])
+
+        dropped = {}
+        if not is_begin:
+            dropped["begin mask at a later step"] = probs(wo.whisper_logit_rules_reference(
+                logits, rules, True, last, penult, floor, sm, bm, noise, SAMPLED_T, add))
+            text = torch.full_like(last, 220)
+            dropped["pairing bans"] = probs(wo.whisper_logit_rules_reference(
+                logits, rules, False, text, text, floor, sm, bm, noise, SAMPLED_T, add))
+        key = f"{label}, {n} rows"
+        errs[key] = compare(f"whisper_logit_rules {key}: probabilities exp(cand - add)",
+                            probs(got), probs(ref), dropped)
+        compare(f"whisper_logit_rules {key}: the token's log-probability", got[1], ref[1], {},
+                relative_max=True)
+        assert torch.equal(got[0], ref[0]), (key, got[0], ref[0])
+        n_bytes = nbytes(logits, sm, last, penult, floor, add, got[0], got[1], got[2],
+                         *((noise,) if sampled else ()), *((bm,) if is_begin else ()))
+        beam_args = args if label.startswith("beam") else args[:-1]
+        rows[key] = timed_row("whisper_logit_rules", key, wo.whisper_logit_rules,
+                              wo.whisper_logit_rules_reference, beam_args,
+                              n_bytes - (0 if label.startswith("beam") else nbytes(got[2], add)),
+                              0, flush, card)
+    print(f"whisper_logit_rules: rows whose timestamp forcing flipped against the plain "
+          f"version: {flips} [{card}]")
+    assert flips == 0
+    return kernel_row(rows["greedy, 8 rows"], errs)
+
+
+def check_whisper_attention(lo, dev, gen, flush, card: str) -> dict:
+    """llama_attention at the Whisper decoder's shapes (group 1, 20 heads
+    of 64, T = 227, rows past pos random): a greedy step (8 rows) at pos
+    115 and 226 and a beam step (40 rows) at 115, device pos, the prompt's
+    prefill (t = 3, host pos 0), and a 40-token prompt (the prefill
+    regime); without the position mask above the limit; timed beside
+    scaled_dot_product_attention on the same inputs."""
+    h, dh, t_len = 20, 64, PROMPT + DECODE
+    rows, errs = {}, {}
+    for n, t, pos in ((8, 1, MID_DECODE), (8, 1, t_len - 1), (8 * BEAM, 1, MID_DECODE),
+                      (8, PROMPT, 0), (8, 40, 0)):
+        q = torch.randn(n, t, h, dh, generator=gen, device=dev).to(torch.bfloat16)
+        ck, cv = (torch.randn(n, t_len, h * dh, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        at = torch.tensor(pos, device=dev) if t == 1 else pos
+        out = lo.llama_attention(q, ck, cv, at)
+        torch.cuda.synchronize()
+        label = (f"Whisper B={n} t={t} pos={pos} S={t_len} H={h} Dh={dh} (plan "
+                 f"{checked_plan(lo, t, 1, t_len, n * h)})")
+        dropped = ({"position mask": attention_variant(lo, q, ck, cv, pos, mask=False)}
+                   if pos + t < t_len else {})
+        errs[label] = compare(f"llama_attention {label}", out,
+                              lo.llama_attention_reference(q, ck, cv, pos), dropped,
+                              relative_max=True)
+        mask = (torch.arange(t_len, device=dev)[None, :]
+                <= pos + torch.arange(t, device=dev)[:, None])
+        keys = pos + t                  # the keys the kernel reads (the last row's)
+        rows[label] = timed_row("llama_attention", label, lo.llama_attention,
+                                lo.llama_attention_reference, (q, ck, cv, at),
+                                nbytes(q, out) + 2 * n * keys * h * dh * 2,
+                                4 * n * h * t * keys * dh, flush, card,
+                                lambda: sdpa_gqa(q, ck, cv, mask))
+    return rows
+
+
+def check_whisper_steps(transcriber, windows: np.ndarray, dev, card: str) -> None:
+    """The greedy step (bf16 self cache) and the beam-5 lanes step, each
+    replayed STEP_CHECK_LEN times from a StepGraph (graphed=True) against
+    the eager step function (graphed=False) from the same inputs: every
+    field of the result bit-equal, and the step's kernels launched."""
+    from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod
+    from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
+
+    model, rules = transcriber.model, transcriber.rules
+    with torch.no_grad():
+        cross_kv = transcriber._encode_windows(windows)
+    prompt = torch.tensor([transcriber._prompt_row("en")] * len(windows), device=dev)
+    runs = {
+        "greedy (bf16 self cache)": lambda g: greedy_mod.greedy_decode_features(
+            model, cross_kv, prompt, rules=rules, max_len=STEP_CHECK_LEN, graphed=g),
+        f"beam-{BEAM} (int8 lanes)": lambda g: beam_mod.beam_decode_features(
+            model, cross_kv, prompt, rules=rules, beam_size=BEAM, max_len=STEP_CHECK_LEN,
+            quantize_cache=True, lane_cache=True, graphed=g)}
+    for label, run in runs.items():
+        results = {}
+        for graphed in (False, True):
+            reset_counts()
+            results[graphed] = (run(graphed), launches())
+            torch.cuda.synchronize()
+        (eager, n_eager), (graph, n_graph) = results[False], results[True]
+        same = all(torch.equal(a, b) for a, b in zip(eager, graph))
+        print(f"{label}, {STEP_CHECK_LEN} steps: the StepGraph replays' result bit-equal to "
+              f"the eager step function's {same}; launches eager "
+              f"{ {n: c for n, c in n_eager.items() if c} }, graphed (warm-up + replays) "
+              f"{ {n: c for n, c in n_graph.items() if c} } [{card}]")
+        assert same and all(n_graph[n] > 0 for n in ("whisper_norm", "whisper_kv_rows",
+                                                     "whisper_logit_rules")), n_graph
+
+
+def check_c5(tq, lo, dev, card: str) -> None:
+    """C5: a head-dim-64 Llama (2048 wide, 32 heads over 8, 4 layers,
+    random bf16 weights quantized at 4 bits on the card) through
+    models/llama.py:forward, a C5_PROMPT-token prefill and one decode step
+    at a device pos, against the same model with the plain versions."""
+    from turbo_whisper_workspace_tpu_torch.models import llama as lm
+
+    dims = lm.LlamaDims(**C5_DIMS)
+    assert dims.head_dim == 64
+    params = tq.quantize_tree(lm.init_params(dims, torch.Generator(dev).manual_seed(5),
+                                             torch.bfloat16, dev), bits=4)
+    gen = torch.Generator(dev).manual_seed(6)
+    prompt = torch.randint(0, dims.n_vocab, (1, C5_PROMPT), generator=gen, device=dev)
+    step = torch.randint(0, dims.n_vocab, (1, 1), generator=gen, device=dev)
+    errs = {}
+    with torch.no_grad():
+        caches = [lm.init_kv_cache(dims, 1, C5_PROMPT + 8, dtype=torch.bfloat16, device=dev)
+                  for _ in range(2)]
+        lo.reset_launch_counts()
+        got = lm.forward(params, dims, prompt, caches[0], pos=0)[0]
+        got_step = lm.forward(params, dims, step, caches[0],
+                              pos=torch.tensor(C5_PROMPT, device=dev))[0]
+        launched = dict(lo.launch_counts)
+        with plain_kernels(tq, lo):
+            ref = lm.forward(params, dims, prompt, caches[1], pos=0)[0]
+            ref_step = lm.forward(params, dims, step, caches[1], pos=C5_PROMPT)[0]
+        errs = {"prefill": rel_err(got, ref), "decode step": rel_err(got_step, ref_step)}
+    print(f"C5: Llama at head dim 64 ({C5_DIMS}, int4 body) vs its plain twin: prefill of "
+          f"{C5_PROMPT} tokens logits rel err {errs['prefill']:.3e}, decode step at a device "
+          f"pos {errs['decode step']:.3e} (tolerance {MODEL_TOL}); launches {launched} [{card}]")
+    assert launched["llama_attention"] == 2 * dims.n_layer, launched
+    assert all(e <= MODEL_TOL for e in errs.values()), errs
+    del params, caches
+
+
+def whisper_kernels_phase(att, tq, transcriber, windows: np.ndarray, dev, card: str) -> dict:
+    """Phase 16. Returns the three whisper_ops kernels' stats, the rows of
+    the kernels line (a greedy step's shapes)."""
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+
+    assert transcriber.rules.specials.n_vocab == wm.WHISPER_CONFIGS["large-v3-turbo"].n_vocab
+    stats = whisper_kernel_timings(dev, card)
+    check_whisper_steps(transcriber, windows, dev, card)
+    check_c5(tq, lo, dev, card)
+    return stats
+
+
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
     pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
     with wave.open(path, "wb") as w:
@@ -2913,6 +3371,108 @@ def llm_profile_only() -> int:
     return 0
 
 
+def whisper_profile_only() -> int:
+    """`chip_smoke.py --whisper-profile`: the build, then large-v3-turbo
+    (random bf16 weights from seed 0) through phase 4's batch call
+    (greedy, 8 windows) and phase 5's beam-5 batch call, twice each, phase
+    14's graphed beam-5 decode over the lane cache of those 8 windows
+    (DECODE steps), twice, and the by-kernel profiles of a graphed greedy
+    step (int8 cross-KV, bf16 self cache) and a graphed beam-5 lanes step
+    (no result line). It reads nothing newer than the port's graphed beam
+    loop (decode/beam.py's `graphed` and `timings`), so the same file,
+    copied into an older tree of the port, measures that tree the same
+    way (`--before`)."""
+    from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
+    from turbo_whisper_workspace_tpu_torch.config import PipelineConfig, TranscriptionConfig
+    from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod
+    from turbo_whisper_workspace_tpu_torch.decode import greedy as greedy_mod
+    from turbo_whisper_workspace_tpu_torch.ops import build
+    from turbo_whisper_workspace_tpu_torch.pipeline.audio_pipeline import (
+        AudioProcessingPipeline)
+    from turbo_whisper_workspace_tpu_torch.pipeline.transcriber import load_transcriber
+
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernels built in {build.build_all():.1f} s")
+    dev = torch.device("cuda")
+    tr = AudioProcessingPipeline(PipelineConfig(), device="cuda").load_transcription_model()
+    beam_tr = load_transcriber(tr.model, TranscriptionConfig(beam_size=BEAM), device="cuda")
+    golden, _ = audio_io.read_audio_file(GOLDEN)
+    with tempfile.TemporaryDirectory() as tmp:
+        long_path = os.path.join(tmp, "synth_75s.wav")
+        write_wav(long_path, synth_clip(75.0, seed=1))
+        batch = [audio_io.read_audio_file(long_path)[0], golden] + [
+            synth_clip(15.0, seed=s) for s in (2, 3, 4)]
+    total = sum(len(a) for a in batch) / 16000
+    for phase, label, t in ((4, "greedy", tr), (5, f"beam-{BEAM}", beam_tr)):
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            t.transcribe(batch)
+            walls.append(time.perf_counter() - t0)
+        print(f"{label} batch call (phase {phase}): {len(batch)} files, {total:.1f} s audio, "
+              f"{t.last_n_windows} windows, walls {walls[0]:.3f} and {walls[1]:.3f} s, "
+              f"{total / statistics.mean(walls):.2f} audio-s/s [{card}]")
+    windows = batch_windows(tr, batch)
+    with torch.no_grad():
+        cross_kv = tr._encode_windows(windows)
+    prompt = torch.tensor([tr._prompt_row("en")] * len(windows), device=dev)
+
+    def greedy(n):
+        timings = {}
+        greedy_mod.greedy_decode_features(tr.model, cross_kv, prompt, rules=tr.rules,
+                                          max_len=n, graphed=True, timings=timings)
+        torch.cuda.synchronize()
+        return timings
+
+    def beam(n):
+        timings = {}
+        beam_mod.beam_decode_features(tr.model, cross_kv, prompt, rules=tr.rules,
+                                      beam_size=BEAM, max_len=n, quantize_cache=True,
+                                      lane_cache=True, graphed=True, timings=timings)
+        torch.cuda.synchronize()
+        return {**timings, "decode_forwards": timings["decode_forwards"] - 1}   # the loop's
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        beam(DECODE)
+        walls.append(time.perf_counter() - t0)
+    print(f"beam-{BEAM} (int8 lanes) graphed decode (phase 14): {len(windows)} windows x "
+          f"{DECODE} steps, walls {walls[0]:.3f} and {walls[1]:.3f} s [{card}]")
+    print_step_profile("Whisper greedy (int8, graphed)",
+                       step_profile(greedy, *GRAPH_PROFILE["whisper"]), card)
+    print_step_profile(f"beam-{BEAM} (int8 lanes, graphed)", step_profile(beam, *BEAM_PROFILE),
+                       card)
+    return 0
+
+
+def whisper_kernel_timings(dev, card: str) -> dict:
+    """Phase 16's kernel checks and times at large-v3-turbo's shapes
+    (whisper_norm, whisper_kv_rows, whisper_logit_rules, llama_attention
+    at group 1), on random inputs: the three whisper_ops rows of the
+    kernels line."""
+    from turbo_whisper_workspace_tpu_torch.decode import rules as rules_mod
+    from turbo_whisper_workspace_tpu_torch.decode.tokenizer import special_tokens_for_vocab
+    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
+
+    gen = torch.Generator(dev).manual_seed(16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rules = rules_mod.DecodeRules(specials=special_tokens_for_vocab(
+        wm.WHISPER_CONFIGS["large-v3-turbo"].n_vocab))
+    stats = {"whisper_norm": check_whisper_norm(wo, dev, gen, flush, card),
+             "whisper_kv_rows": check_whisper_kv_rows(wo, wm, dev, gen, flush, card),
+             "whisper_logit_rules": check_whisper_logit_rules(wo, rules, dev, gen, flush, card)}
+    check_whisper_attention(lo, dev, gen, flush, card)
+    del flush
+    torch.cuda.empty_cache()
+    return stats
+
+
 def sources_differ(tree: str, name: str) -> bool:
     """Whether kernel `name`'s source, or a shared header, differs between
     TREE's csrc/ and this checkout's."""
@@ -2945,23 +3505,26 @@ def before_only(tree: str) -> int:
     import ctypes
     import shutil
 
-    from turbo_whisper_workspace_tpu_torch.models import whisper as wm
     from turbo_whisper_workspace_tpu_torch.ops import attention as att
     from turbo_whisper_workspace_tpu_torch.ops import build
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
 
     tree = os.path.abspath(tree)
     shutil.copy(os.path.abspath(__file__), os.path.join(tree, "chip_smoke.py"))
-    for which, root in (("the earlier tree", tree), ("this tree", REPO), ("this tree", REPO),
-                        ("the earlier tree", tree)):
-        print(f"--llm-profile of {which} ({root})", flush=True)
-        proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
-                               "--llm-profile"], cwd=root, timeout=900)
-        assert proc.returncode == 0, (which, proc.returncode)
+    for mode in ("--llm-profile", "--whisper-profile"):
+        for which, root in (("the earlier tree", tree), ("this tree", REPO),
+                            ("this tree", REPO), ("the earlier tree", tree)):
+            print(f"{mode} of {which} ({root})", flush=True)
+            proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"), mode],
+                                  cwd=root, timeout=900)
+            assert proc.returncode == 0, (which, mode, proc.returncode)
     card = card_line()
     print(card)
     print(f"kernels built in {build.build_all():.1f} s")
+    dev = torch.device("cuda")
+    whisper_kernel_timings(dev, card)
     shapes = {name: list(ms) for name, ms in BEFORE_MS.items() if isinstance(ms, dict)}
     shapes.update(BEFORE_VALID_LENS)
     shapes = {name: s for name, s in shapes.items() if sources_differ(tree, name)}
@@ -2986,7 +3549,6 @@ def before_only(tree: str) -> int:
             entry.argtypes = [a if a is not ctypes.c_void_p or i != len(entry.argtypes) - 2
                               else ctypes.c_int for i, a in enumerate(entry.argtypes)]
         libs[name]["host_int"] = host_int
-    dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(7)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
@@ -3000,14 +3562,14 @@ def before_only(tree: str) -> int:
         h, t = 20, PROMPT + DECODE
         if name == "self_attention_int8":
             bk = 8 * BEAM
-            kq, ks = wm._quantize_kv_rows(randn(bk, t, h * 64), h)
-            vq, vs = wm._quantize_kv_rows(randn(bk, t, h * 64), h)
+            kq, ks = wo.quantize_kv_rows(randn(bk, t, h * 64), h)
+            vq, vs = wo.quantize_kv_rows(randn(bk, t, h * 64), h)
             args = (randn(bk, h, 1, 64).to(torch.bfloat16), kq, ks, vq, vs)
             dims = (bk * h, 1, t)
         else:
             b = 8
-            kq, ks = wm._quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
-            vq, vs = wm._quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
+            kq, ks = wo.quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
+            vq, vs = wo.quantize_kv_rows(randn(b, BEAM * t, h * 64), h)
             args = (randn(b, h, BEAM, 64).to(torch.bfloat16),
                     kq.permute(0, 1, 3, 2).reshape(b, h * 64, BEAM * t).contiguous(), ks,
                     vq.permute(0, 2, 1, 3).reshape(b, BEAM * t, h * 64).contiguous(), vs,
@@ -3084,6 +3646,8 @@ def main(argv: list[str] | None = None) -> int:
         return tp_worker(int(args[i + 1]), int(args[i + 2]), int(args[i + 3]), args[i + 4])
     if "--llm-profile" in args:
         return llm_profile_only()
+    if "--whisper-profile" in args:
+        return whisper_profile_only()
     if "--before" in args:
         return before_only(args[args.index("--before") + 1])
     from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
@@ -3167,13 +3731,13 @@ def main(argv: list[str] | None = None) -> int:
               f"wall {wall:.3f} s, {total / wall:.2f} audio-s/s [{card}]")
 
     def read_counts(path: str, kernels: tuple) -> dict:
-        counts = dict(att.launch_counts)
+        counts = launches()
         print(f"launches on the {path} path: {counts}")
         assert all(counts[name] > 0 for name in kernels), (path, counts)
         return counts
 
     path_counts = {}
-    att.reset_launch_counts()
+    reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         long_path = os.path.join(tmp, "synth_75s.wav")
         write_wav(long_path, synth_clip(75.0, seed=1))
@@ -3184,26 +3748,28 @@ def main(argv: list[str] | None = None) -> int:
         batch = [audio_io.read_audio_file(long_path)[0], golden] + [
             synth_clip(15.0, seed=s) for s in (2, 3, 4)]
         batch_call(transcriber, batch, "greedy")
-    path_counts["greedy"] = read_counts("greedy", ("flash_attention", "cross_attention_int8"))
+    path_counts["greedy"] = read_counts("greedy", ("flash_attention", "cross_attention_int8",
+                                                   *WHISPER_KERNELS))
 
     # 5. beam path: beam 5 over the int8 lane self-KV cache, same model
     check_beam_step(att, transcriber, golden)
     beam_cfg = TranscriptionConfig(beam_size=BEAM)
     assert beam_cfg.quantize_self_kv and beam_cfg.max_decode_len == DECODE
     beam_tr = load_transcriber(transcriber.model, beam_cfg, device="cuda")
-    att.reset_launch_counts()
+    reset_counts()
     batch_call(beam_tr, batch, f"beam-{BEAM}")
     request(AudioProcessingPipeline(PipelineConfig(transcription=beam_cfg),
                                     transcriber=beam_tr, device="cuda"),
             beam_tr, GOLDEN, f"beam-{BEAM}")
     path_counts["beam"] = read_counts(
-        "beam", ("flash_attention", "cross_attention_int8", "self_attention_int8_lanes"))
+        "beam", ("flash_attention", "cross_attention_int8", "self_attention_int8_lanes",
+                 "whisper_norm", "whisper_kv_rows", "whisper_logit_rules"))
 
     # the same beam search called directly on a bucket's cross-KV, in each
     # cache mode (quantize_cache, lane_cache), in turns: ABCCBA
     modes = {"int8 lanes": ((True, True), ("self_attention_int8_lanes",)),
              "int8 regathered": ((True, False), ("self_attention_int8",)),
-             "bf16 regathered": ((False, False), ())}
+             "bf16 regathered": ((False, False), ("llama_attention",))}
     windows = np.stack([synth_clip(30.0, seed=s) for s in range(5, 13)])
     with torch.no_grad():
         cross_kv = beam_tr._encode_windows(windows)
@@ -3212,7 +3778,7 @@ def main(argv: list[str] | None = None) -> int:
     walls = {mode: [] for mode in modes}
     for mode in list(modes) + list(modes)[::-1]:
         (quantize_cache, lane_cache), kernels = modes[mode]
-        att.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = beam_mod.beam_decode_features(
             beam_tr.model, cross_kv, prompt, rules=beam_tr.rules, beam_size=BEAM,
@@ -3243,7 +3809,7 @@ def main(argv: list[str] | None = None) -> int:
                           (f"s8 beam-{BEAM}", TranscriptionConfig(beam_size=BEAM,
                                                                   cross_attention_s8=True))):
         s8_tr = load_transcriber(transcriber.model, s8_cfg, device="cuda")
-        att.reset_launch_counts()
+        reset_counts()
         batch_call(s8_tr, batch, label)
         path_counts[label] = read_counts(label, ("flash_attention", "cross_attention_s8"))
         assert path_counts[label]["cross_attention_int8"] == 0, path_counts[label]
@@ -3287,6 +3853,12 @@ def main(argv: list[str] | None = None) -> int:
     # 15. the Llama layer's kernels against their plain versions, and the
     # graphed step against the eager one
     stats.update(llama_kernels_phase(att, tq, llm, dev, card))
+
+    # 16. the Whisper decoder step's kernels against their plain versions,
+    # the graphed steps against the eager ones, and C5
+    del llm
+    torch.cuda.empty_cache()
+    stats.update(whisper_kernels_phase(att, tq, tr, windows, dev, card))
 
     lines = []
     for name, s in stats.items():

@@ -208,12 +208,28 @@ def test_decode_split_matches_plain_version(dtype, t, pos, ranks):
     (8, 4, 2004, ("decode", 32, 8, 251)),
     (9, 2, 24, ("prefill", 1)), (1748, 4, 1748, ("prefill", 28)), (5, 8, 64, ("prefill", 1))])
 def test_attention_plan(t, group, s_len, plan):
-    assert lo.attention_plan(t, group, s_len) == plan
+    """At the 8B LLM's 8 (b, kv head) pairs, which never cap the ranks."""
+    assert lo.attention_plan(t, group, s_len, 8) == plan
     if plan[0] == "decode":
         for pos in (0, 3, s_len - t):
             slices = lo.decode_slices(pos, t, plan[2])
             assert [k for sl in slices for k in sl] == list(range(pos + t))
             assert max(len(sl) for sl in slices) <= plan[3]
+
+
+@pytest.mark.parametrize("t,group,s_len,pairs,plan", [
+    (1, 4, 2004, 8, ("decode", 4, 8, 251)), (1, 4, 2004, 64, ("decode", 4, 4, 501)),
+    (1, 1, 227, 160, ("decode", 4, 1, 227)), (1, 1, 227, 800, ("decode", 4, 1, 227)),
+    (3, 1, 227, 8 * 20, ("decode", 4, 1, 227)), (1, 1, 448, 40, ("decode", 4, 6, 75))])
+def test_attention_plan_caps_the_ranks_by_pairs(t, group, s_len, pairs, plan):
+    """Where the (b, kv head) pairs fill the card alone (the Whisper
+    decoder's 20 heads at B = 8 or 40), the decode regime takes fewer
+    ranks; the 8B LLM's 8 pairs keep theirs."""
+    assert lo.attention_plan(t, group, s_len, pairs) == plan
+    for pos in (0, s_len - t):
+        slices = lo.decode_slices(pos, t, plan[2])
+        assert [k for sl in slices for k in sl] == list(range(pos + t))
+        assert max(len(sl) for sl in slices) <= plan[3]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -327,8 +343,29 @@ def _close(got, ref, tol=5e-3):
     assert rel_l2(_np(got.cpu()), _np(ref.cpu())) <= tol
 
 
+def test_every_whisper_head_dim_is_a_kernel_head_dim():
+    """The Whisper decoder's self-attention over the bf16 cache and a
+    2048-wide 32-head Llama (head dim 64) take llama_attention."""
+    from turbo_whisper_workspace_tpu_torch.models import whisper as twm
+
+    assert {d.n_text_state // d.n_text_head for d in twm.WHISPER_CONFIGS.values()} <= set(
+        lo.HEAD_DIMS)
+    assert 2048 // 32 in lo.HEAD_DIMS
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [16, 128])
+def test_cuda_attention_plan_is_the_kernels(cuda_device):
+    """attention_plan mirrors csrc/llama_attention.cu:make_plan: the
+    built library's plan (tww_llama_attention_plan) at the LLM's and the
+    Whisper decoder's shapes and around each regime's edges."""
+    cases = [(t, group, s_len, pairs) for t in (1, 2, 3, 8, 9, 40, 1748)
+             for group in (1, 2, 4, 8, 32) for s_len in (12, 227, 448, 520, 2004)
+             for pairs in (1, 8, 32, 40, 64, 160, 800) if t <= s_len]
+    assert all(lo.attention_plan(*c) == lo.kernel_plan(*c) for c in cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("t,pos", [(1, 0), (1, 300), (2, 50), (4, 200), (9, 0), (70, 100),
                                    (300, 0)])
 def test_cuda_attention_matches_plain_version(cuda_device, dh, t, pos):

@@ -23,6 +23,7 @@ from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
 from turbo_whisper_workspace_tpu_torch.ops import build
 from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.ops import mel as tmel
+from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as two
 
 
 @pytest.mark.parametrize("kind", ["float32", "int16"])
@@ -480,7 +481,7 @@ def test_quantize_kv_rows_bit_equal_to_jax():
     x = (np.random.default_rng(8).standard_normal((3, 7, 4 * 64)) * 2).astype(np.float32)
     x[0, 2] = 0.0                          # an all-zero row: the scale clamps at 1e-8
     xq_j, s_j = jwm._quantize_kv_rows(jnp.asarray(x), 4)
-    xq_t, s_t = twm._quantize_kv_rows(torch.from_numpy(x), 4)
+    xq_t, s_t = two.quantize_kv_rows(torch.from_numpy(x), 4)
     assert xq_t.shape == (3, 4, 7, 64) and xq_t.dtype == torch.int8
     assert s_t.dtype == torch.bfloat16
     np.testing.assert_array_equal(xq_t.numpy(), np.asarray(xq_j))
@@ -569,8 +570,8 @@ def test_device_valid_len_refuses_what_the_kernels_cannot_read(valid_len, error)
 def test_kernel_sources_export_their_entry_points():
     """Every kernel the wrappers launch has a source with its C entry
     point and error string, and opens with the note naming the TPU
-    kernel it replaces (or, for the Llama layer's kernels, the JAX code
-    that XLA fuses)."""
+    kernel it replaces (or, for the Llama layer's and the Whisper decoder
+    step's kernels, the JAX code that XLA fuses)."""
     for name in build.SIGNATURES:
         src = pathlib.Path(build.source_path(name)).read_text()
         assert f'extern "C" int tww_{name}(' in src
@@ -579,17 +580,20 @@ def test_kernel_sources_export_their_entry_points():
         assert any(where in head for where in (
             "turbo_whisper_workspace_tpu/ops/attention.py",
             "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py",
-            "turbo_whisper_workspace_tpu/models/llama.py"))
+            "turbo_whisper_workspace_tpu/models/llama.py",
+            "turbo_whisper_workspace_tpu/models/whisper.py",
+            "turbo_whisper_workspace_tpu/decode/rules.py"))
         assert "bound" in head and "Design" in head
-    # the wrappers (ops/attention.py, ops/quant.py, ops/llama_ops.py, the
-    # profiler's two) pass as many arguments as the C signatures declare,
-    # and every kernel has one
+    # the wrappers (ops/attention.py, ops/quant.py, ops/llama_ops.py,
+    # ops/whisper_ops.py, the profiler's two) pass as many arguments as
+    # the C signatures declare, and every kernel has one
     from turbo_whisper_workspace_tpu_torch.ops import llama_ops as tllama
     from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
+    from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as twhisper
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as tprof
 
     calls = {}
-    for module in (tatt, tquant, tllama, tprof):
+    for module in (tatt, tquant, tllama, twhisper, tprof):
         tree = ast.parse(pathlib.Path(module.__file__).read_text())
         calls.update({c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
                       if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"})
@@ -634,8 +638,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, tq):
         tatt.cross_attention_int8_reference(*args, seq_len=1500).float(),
         atol=2e-2, rtol=2e-2)
     # int8 self-KV cache at Tq query rows, and the lane cache at K = tq beams
-    kq, ks = twm._quantize_kv_rows(randn(6, 40, 4 * 64), 4)
-    vq, vs = twm._quantize_kv_rows(randn(6, 40, 4 * 64), 4)
+    kq, ks = two.quantize_kv_rows(randn(6, 40, 4 * 64), 4)
+    vq, vs = two.quantize_kv_rows(randn(6, 40, 4 * 64), 4)
     args = (randn(6, 4, tq, 64).to(torch.bfloat16), kq, ks, vq, vs)
     for valid_len in (1, 23, 40):
         torch.testing.assert_close(
@@ -643,8 +647,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, tq):
             tatt.self_attention_int8_reference(*args, valid_len).float(),
             atol=2e-2, rtol=2e-2)
     b, h, t = 2, 4, 40
-    kq, ks = twm._quantize_kv_rows(randn(b, tq * t, h * 64), h)   # (B, H, K·T, 64)
-    vq, vs = twm._quantize_kv_rows(randn(b, tq * t, h * 64), h)
+    kq, ks = two.quantize_kv_rows(randn(b, tq * t, h * 64), h)   # (B, H, K·T, 64)
+    vq, vs = two.quantize_kv_rows(randn(b, tq * t, h * 64), h)
     lane_map = torch.randint(0, tq, (b, tq, t), generator=gen, device=cuda_device,
                              dtype=torch.int32)
     lane_map[:, :, :3] = 0
@@ -671,9 +675,9 @@ def test_cuda_self_attention_int8_bulk_copies(cuda_device, t, valid_len, tq, mis
     max abs and 5e-3 relative L2 of the plain version; the keys past
     valid_len, dropped from the mask, read above it."""
     gen = torch.Generator(cuda_device).manual_seed(t + valid_len)
-    kq, ks = twm._quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
+    kq, ks = two.quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
                                                device=cuda_device), 20)
-    vq, vs = twm._quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
+    vq, vs = two.quantize_kv_rows(torch.randn(40, t, 20 * 64, generator=gen,
                                                device=cuda_device), 20)
     if misaligned:
         def shift(x):
@@ -739,9 +743,9 @@ def test_cuda_lanes_cluster_matches_plain_version(cuda_device, k, t, valid_len):
     valid_len = t if valid_len is None else valid_len
     gen = torch.Generator(cuda_device).manual_seed(k)
     b, h = 2, 4
-    kq, ks = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+    kq, ks = two.quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
                                                device=cuda_device), h)
-    vq, vs = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+    vq, vs = two.quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
                                                device=cuda_device), h)
     args = (torch.randn(b, h, k, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
             kq.permute(0, 1, 3, 2).reshape(b, h * 64, k * t).contiguous(), ks,
@@ -763,17 +767,17 @@ def test_cuda_graph_replay_reads_valid_len_from_device_memory(cuda_device, kerne
     gen = torch.Generator(cuda_device).manual_seed(3)
     t, h = 227, 4
     if kernel == "self_attention_int8":
-        kq, ks = twm._quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
+        kq, ks = two.quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
                                                    device=cuda_device), h)
-        vq, vs = twm._quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
+        vq, vs = two.quantize_kv_rows(torch.randn(10, t, h * 64, generator=gen,
                                                    device=cuda_device), h)
         args = (torch.randn(10, h, 1, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
                 kq, ks, vq, vs)
     else:
         b, k = 2, 5
-        kq, ks = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+        kq, ks = two.quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
                                                    device=cuda_device), h)
-        vq, vs = twm._quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
+        vq, vs = two.quantize_kv_rows(torch.randn(b, k * t, h * 64, generator=gen,
                                                    device=cuda_device), h)
         args = (torch.randn(b, h, k, 64, generator=gen, device=cuda_device).to(torch.bfloat16),
                 kq.permute(0, 1, 3, 2).reshape(b, h * 64, k * t).contiguous(), ks,

@@ -25,15 +25,19 @@
 // half), 25 µs at 989 TFLOP/s: bound by the tensor cores.
 //
 // Design: two regimes, make_plan below (mirrored by ops/llama_ops.py:
-// attention_plan).
+// attention_plan, which tww_llama_attention_plan lets the card check).
 //
 // Decode (t ≤ 8 and group·t ≤ 32 query rows a kv head, padded to 4, 8
 // or 32). One cluster of R ≤ 8 blocks per (b, kv head), R from S (about
 // 64 keys a rank, so 8 from S = 512 on): the group·t rows of a kv head
 // share every K and V byte, and 8 (b, kv head) pairs alone would fill 8
-// of 132 SMs. The n = pos + t visible keys are cut in R equal slices read
-// from pos on entry, so every rank has work (none is idle past pos but at
-// the first few positions) and the launch is the same at every step. A
+// of 132 SMs. R is capped at 264 / pairs (two blocks an SM): where the
+// pairs alone fill the card, as the Whisper decoder's 160 do at a greedy
+// step, more ranks only queue more clusters behind the first wave (4
+// ranks there: 21 µs a call against 11 with one; PERF.md §6). The n =
+// pos + t visible keys are cut in R equal slices read from pos on entry,
+// so every rank has work (none is idle past pos but at the first few
+// positions) and the launch is the same at every step. A
 // rank streams its K rows, then its V rows, through one ring of 64-key
 // tiles in 16-byte cp.async copies (4 stages, 64 KB in flight; rows
 // padded by 16 bytes). Scores: 4 lanes a key and 8 keys a warp at once,
@@ -83,6 +87,7 @@ constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int TILE = 64;                 // keys a ring stage holds
 constexpr int STAGES = 4;
 constexpr int KEYS_PER_RANK = 64;        // the plan's slice before the ranks are capped
+constexpr int WAVE_BLOCKS = 264;         // decode blocks in flight: two an SM of the H100's 132
 constexpr int DECODE_MAX_T = 8;
 constexpr int DECODE_MAX_ROWS = 32;
 constexpr int PRE_THREADS = 128;
@@ -94,10 +99,15 @@ struct Plan {
     int decode, rows_max, ranks, slice;  // decode: rows_max (4, 8 or 32), R, keys a rank at most
 };
 
-Plan make_plan(int t, int group, int s_len) {
+// pairs: the (batch, kv head) pairs, a cluster each; where they alone
+// fill the card (the Whisper decoder's 160 at a greedy step, 800 at a
+// beam step), fewer ranks take longer slices
+Plan make_plan(int t, int group, int s_len, int pairs) {
     if (t <= DECODE_MAX_T && group * t <= DECODE_MAX_ROWS) {
         int ranks = (s_len + KEYS_PER_RANK - 1) / KEYS_PER_RANK;
         ranks = ranks < 1 ? 1 : (ranks > MAX_RANKS ? MAX_RANKS : ranks);
+        const int fill = WAVE_BLOCKS / (pairs < 1 ? 1 : pairs);
+        ranks = ranks > fill ? (fill < 1 ? 1 : fill) : ranks;
         const int rows = group * t;
         return {1, rows <= 4 ? 4 : (rows <= 8 ? 8 : 32), ranks, (s_len + ranks - 1) / ranks};
     }
@@ -670,7 +680,7 @@ template <int DH>
 cudaError_t dispatch(const bf16* q, const bf16* ck, const bf16* cv, bf16* o, int batch, int t,
                      int n_head, int n_kv, int s_len, const long long* pos_at, int pos,
                      float scale, cudaStream_t stream) {
-    const Plan p = make_plan(t, n_head / n_kv, s_len);
+    const Plan p = make_plan(t, n_head / n_kv, s_len, batch * n_kv);
     if (!p.decode)
         return launch_prefill<DH>(q, ck, cv, o, batch, t, n_head, n_kv, s_len, pos_at, pos,
                                   scale, stream);
@@ -689,7 +699,7 @@ cudaError_t dispatch(const bf16* q, const bf16* ck, const bf16* cv, bf16* o, int
 // q: (batch, t, n_head, head_dim) bf16, the rotated queries; ck, cv:
 // (batch, s_len, n_kv·head_dim) bf16, one layer's cache, rows < pos + t
 // written; o: (batch, t, n_head·head_dim) bf16. All contiguous and
-// 16-byte aligned; head_dim 16 or 128; n_kv divides n_head;
+// 16-byte aligned; head_dim 16, 32, 64 or 128; n_kv divides n_head;
 // 1 ≤ t ≤ s_len. pos: an int64 in device memory at pos_at, or the host
 // int `pos` when pos_at is null; clamped to [0, s_len − t]. scale:
 // head_dim^-1/2 as the caller rounds it to f32. Returns
@@ -710,11 +720,24 @@ extern "C" int tww_llama_attention(const void* q, const void* ck, const void* cv
     cudaError_t err;
     switch (head_dim) {
         case 16: err = dispatch<16>(qq, kk, vv, oo, batch, t, n_head, n_kv, s_len, at, pos, scale, st); break;
+        case 32: err = dispatch<32>(qq, kk, vv, oo, batch, t, n_head, n_kv, s_len, at, pos, scale, st); break;
+        case 64: err = dispatch<64>(qq, kk, vv, oo, batch, t, n_head, n_kv, s_len, at, pos, scale, st); break;
         case 128: err = dispatch<128>(qq, kk, vv, oo, batch, t, n_head, n_kv, s_len, at, pos, scale, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The plan tww_llama_attention launches for these arguments, for the
+// Python mirror's check (ops/llama_ops.py:kernel_plan): out = {1, rows,
+// ranks, slice} in the decode regime, {0, q_tiles, 0, 0} in the prefill.
+extern "C" void tww_llama_attention_plan(int t, int group, int s_len, int pairs, int* out) {
+    const Plan p = make_plan(t, group, s_len, pairs);
+    out[0] = p.decode;
+    out[1] = p.decode ? p.rows_max : (t + PRE_ROWS - 1) / PRE_ROWS;
+    out[2] = p.ranks;
+    out[3] = p.slice;
 }
 
 extern "C" const char* tww_llama_attention_error(int code) {

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import whisper as wm
+from ..ops import whisper_ops as wo
 from ..utils.step_loop import run_steps
 from .rules import NEG_INF, DecodeRules, update_ts_floor
 
@@ -181,14 +182,15 @@ def beam_decode_features(
         s = state
         frozen = s["finished"]            # read below before the step updates it
         pos = s["step"] + p
-        masked = rules.apply(s["last_logits"], is_begin, s["last_tok"], s["penult_tok"],
-                             s["ts_floor"], static_mask, begin_mask)
+        # cand = alive_scores + log_softmax(rules.apply(last_logits)): one
+        # kernel on the card (ops/whisper_ops.py:whisper_logit_rules)
+        _, _, cand = wo.whisper_logit_rules(
+            s["last_logits"], rules, is_begin, s["last_tok"], s["penult_tok"], s["ts_floor"],
+            static_mask, begin_mask, add=s["alive_scores"].reshape(bk))   # (B·K, V)
         # top 2K candidates per item, enough to fill K alive (non-EOT)
         # beams even if K of them are EOT. Two-stage exact top-k: any
         # global top-2K candidate is in its own beam's top-2K, so per-beam
         # top-2K then a merge over the K·2K survivors selects the same set
-        logp = torch.log_softmax(masked, dim=-1)                  # (B·K, V)
-        cand = s["alive_scores"].reshape(bk, 1) + logp
         s1, i1 = _top_k(cand, 2 * k)                              # (B·K, 2K)
         top_scores, m2 = _top_k(s1.reshape(b, 2 * k * k), 2 * k)  # (B, 2K)
         src_beam = m2 // (2 * k)

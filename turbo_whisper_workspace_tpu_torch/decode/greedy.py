@@ -4,9 +4,10 @@ Port of turbo_whisper_workspace_tpu/decode/greedy.py. The JAX package
 runs the loop as one `lax.while_loop` inside one jit; here it is one
 step function over fixed shapes: the prompt's prefill and the first
 sample (with the begin mask) run eagerly, then each step is a decoder
-call at a device-resident position over the whole preallocated cache
-under a key mask, the token rules, the sample and the bookkeeping, all
-tensor ops updating static buffers in place (`utils/step_loop.py`). On
+call at a device-resident position over the whole preallocated cache,
+the token rules with the sample (`ops/whisper_ops.py:
+whisper_logit_rules`, one kernel on the card) and the bookkeeping, all
+updating static buffers in place (`utils/step_loop.py`). On
 a CUDA device that step is captured once per call into a CUDA graph and
 replayed, and the host reads the stop flag every STOP_EVERY steps; on
 the CPU it runs eagerly with the stop read every step. The loop ends
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import whisper as wm
+from ..ops import whisper_ops as wo
 from ..utils.step_loop import run_steps
 from .rules import DecodeRules, update_ts_floor
 
@@ -110,15 +112,13 @@ def greedy_decode_features(
 
     def sample(logits: torch.Tensor, is_begin: bool) -> None:
         """Sample token p + step from (B, V) logits into the state."""
-        masked = rules.apply(logits, is_begin, state["last_tok"], state["penult_tok"],
-                             state["ts_floor"], static_mask, begin_mask)
+        gumbel = None
         if temperature > 0.0:
-            gumbel = -torch.log(torch.empty_like(masked).exponential_(generator=generator))
-            next_tok = torch.argmax(masked + temperature * gumbel, dim=-1)
-        else:
-            next_tok = torch.argmax(masked, dim=-1)
-        logp = torch.log_softmax(masked, dim=-1)
-        tok_logp = logp.gather(-1, next_tok[:, None])[:, 0]
+            gumbel = -torch.log(torch.empty_like(logits).exponential_(generator=generator))
+        # the rules, the argmax of masked (+ T·gumbel) and its log_softmax
+        next_tok, tok_logp, _ = wo.whisper_logit_rules(
+            logits, rules, is_begin, state["last_tok"], state["penult_tok"], state["ts_floor"],
+            static_mask, begin_mask, gumbel, temperature)
 
         finished = state["finished"]
         next_tok = torch.where(finished, sp.eot, next_tok)
@@ -139,7 +139,7 @@ def greedy_decode_features(
                                   pos=state["step"] + (p - 1), cross_s8=cross_s8)
         sample(logits[:, 0], is_begin=False)
 
-    sample(prefill_logits[:, -1], is_begin=True)
+    sample(prefill_logits[:, -1].contiguous(), is_begin=True)
     del prefill_logits
     forwards = run_steps(step, state, max_len - 1, STOP_EVERY, graphed,
                          generator if temperature > 0.0 else None, timings)

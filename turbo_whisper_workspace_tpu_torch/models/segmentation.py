@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import mel as mel_ops
-from .whisper import LayerNorm, ResidualAttentionBlock, sinusoids
+from .whisper import LayerNorm, ResidualAttentionBlock, plain_norm, sinusoids
 
 # powerset for ≤3 simultaneous local speakers
 POWERSET = ((), (0,), (1,), (2,), (0, 1), (0, 2), (1, 2))
@@ -69,9 +69,10 @@ class Segmentation(nn.Module):
             x = F.gelu(self.conv2(x))
             x = x.transpose(1, 2)
             x = x + self.pos_emb.to(x.dtype)[: x.shape[1]]
+            delta = None
             for block in self.blocks:
-                x = block(x)
-            return self.head(self.ln(x)).float()
+                x, delta = block(x, delta)
+            return self.head(plain_norm(x, self.ln, delta)[1]).float()
 
 
 def init_params(dims: SegmentationDims, generator: torch.Generator,

@@ -17,8 +17,16 @@ caller passes `cross_s8=True`, `cross_attention_s8`: the JAX package's
 trace-time `TWW_CROSS_S8=1`, chosen here by
 `TranscriptionConfig.cross_attention_s8`), a decode step over the int8
 cache `self_attention_int8` and a beam step over the lane cache
-`self_attention_int8_lanes`; each launches its CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+`self_attention_int8_lanes`; the self-attention over the bf16 cache
+`ops.llama_ops.llama_attention` (group 1). The work XLA fuses around
+them in the JAX package takes `ops.whisper_ops`' kernels: every
+LayerNorm of the encoder and the decoder with the residual add before it
+(`whisper_norm`, the decoder's embeddings in its entry mode) and the
+cache writes with the int8 row quantizer (`whisper_kv_rows`). Each
+launches its CUDA kernel for CUDA tensors and runs its plain version for
+CPU tensors. In a forward that autograd records (a training step) the
+norms still launch their kernel, behind an autograd Function whose
+backward recomputes the plain version's torch ops.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as att
+from ..ops import llama_ops as lo
+from ..ops import whisper_ops as wo
 
 
 @dataclass(frozen=True)
@@ -105,8 +115,17 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return wo.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def fused_norm(x: torch.Tensor, ln: LayerNorm, delta: torch.Tensor | None = None):
+    """(x + delta, ln(x + delta)) by `whisper_norm` (x' is x without delta)."""
+    return wo.whisper_norm(x, ln.weight, ln.bias, ln.eps, delta)
+
+
+def plain_norm(x: torch.Tensor, ln: LayerNorm, delta: torch.Tensor | None = None):
+    """fused_norm's arithmetic in torch ops on every device."""
+    return wo.whisper_norm_reference(x, ln.weight, ln.bias, ln.eps, delta)
 
 
 def _plain_attention(q, k, v, n_head: int, mask=None) -> torch.Tensor:
@@ -179,12 +198,16 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp_ln = LayerNorm(d)
         self.mlp = MLP(d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Encoder block: unmasked self-attention + MLP."""
-        h = self.attn_ln(x)
+    def forward(self, x: torch.Tensor, delta: torch.Tensor | None = None,
+                norm=plain_norm) -> tuple[torch.Tensor, torch.Tensor]:
+        """Encoder block, unmasked self-attention + MLP, on the residual
+        stream x + delta (x alone without delta) → (x', delta'), whose sum
+        is the block's output: each residual add rides the next norm call
+        (`norm`, fused_norm's signature), the last one the caller's."""
+        x, h = norm(x, self.attn_ln, delta)
         a = self.attn
-        x = x + a.out(mha(a.q(h), a.k(h), a.v(h), self.n_head))
-        return x + self.mlp(self.mlp_ln(x))
+        x, h = norm(x, self.mlp_ln, a.out(mha(a.q(h), a.k(h), a.v(h), self.n_head)))
+        return x, self.mlp(h)
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +232,11 @@ class AudioEncoder(nn.Module):
         x = mel.to(self.conv1.weight.dtype)
         x = F.gelu(self.conv1(x))
         x = F.gelu(self.conv2(x))
-        x = x.transpose(1, 2) + self.pos_emb.to(x.dtype)
+        x = (x.transpose(1, 2) + self.pos_emb.to(x.dtype)).contiguous()
+        delta = None
         for block in self.blocks:
-            x = block(x)
-        return self.ln_post(x)
+            x, delta = block(x, delta, norm=fused_norm)
+        return fused_norm(x, self.ln_post, delta)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -282,29 +306,19 @@ class TextDecoder(nn.Module):
                         valid_len: int | torch.Tensor, mask, beam: int,
                         lane_map) -> torch.Tensor:
         """Layer li's self-attention, (B, T, D) → (B, T, D), after writing
-        this call's K/V rows into the cache IN PLACE at [pos, pos+T) (the
-        JAX package returns an updated copy). Keys t ≥ valid_len = pos+T
-        are masked. At an int pos the bf16 cache's product leaves them
-        out; at a tensor pos (one step, the step a CUDA graph replays) the
-        rows go in by `index_copy_`, the bf16 product covers the whole
-        cache under `mask`, as the JAX function's does, and the int8
-        kernels read valid_len, a device int32, from device memory."""
+        this call's K/V rows into the cache IN PLACE at [pos, pos+T)
+        (`whisper_kv_rows`; the JAX package returns an updated copy). Keys
+        t ≥ valid_len = pos+T are masked: the bf16 cache's attention
+        (`llama_attention`) reads pos, a host int or the 0-dim tensor of
+        the step a CUDA graph replays, and the int8 kernels read
+        valid_len, a device int32 at a tensor pos."""
         b, t, d = q.shape
         h = self.n_head
         dh = d // h
+        wo.whisper_kv_rows(k, v, cache, li, pos, h, beam)
         if "k_p" in cache:
-            # lane cache: beam row b·K+k writes lane k of batch item b at pos
-            br = b // beam
-            kq, ks = _quantize_kv_rows(k, h)              # (B·K, H, 1, Dh), (B·K, H, 1)
-            vq, vs = _quantize_kv_rows(v, h)
-            _write_rows(cache["k_p"][li], 3, pos,
-                        kq[:, :, 0].reshape(br, beam, d).transpose(1, 2)[..., None])
-            _write_rows(cache["v_p"][li], 2, pos, vq[:, :, 0].reshape(br, beam, 1, d))
-            _write_rows(cache["k_ps"][li], 3, pos,
-                        ks[:, :, 0].reshape(br, beam, h).transpose(1, 2)[..., None])
-            _write_rows(cache["v_ps"][li], 3, pos,
-                        vs[:, :, 0].reshape(br, beam, h).transpose(1, 2)[..., None])
             # (L, B, ...) panels → one layer's contiguous (B, ...) views, no copies
+            br = b // beam
             kt = beam * cache["k_p"].shape[-1]
             out = att.self_attention_int8_lanes(
                 q.reshape(br, beam, h, dh).transpose(1, 2).contiguous(),
@@ -313,10 +327,6 @@ class TextDecoder(nn.Module):
                 lane_map, valid_len)
             return out.transpose(1, 2).reshape(b, t, d)
         if "k_q" in cache:
-            kq, ks = _quantize_kv_rows(k, h)              # (B, H, T, Dh), (B, H, T)
-            vq, vs = _quantize_kv_rows(v, h)
-            for name, rows in (("k_q", kq), ("k_s", ks), ("v_q", vq), ("v_s", vs)):
-                _write_rows(cache[name][li], 2, pos, rows)
             qh = q.reshape(b, t, h, dh).transpose(1, 2)
             if t == 1:
                 out = att.self_attention_int8(
@@ -328,13 +338,7 @@ class TextDecoder(nn.Module):
                     cache["v_q"][li, :, :, :valid_len], cache["v_s"][li, :, :, :valid_len],
                     mask)
             return out.transpose(1, 2).reshape(b, t, d)
-        _write_rows(cache["k"][li], 1, pos, k.to(cache["k"].dtype))
-        _write_rows(cache["v"][li], 1, pos, v.to(cache["v"].dtype))
-        if torch.is_tensor(pos):
-            return mha(q, cache["k"][li].to(q.dtype), cache["v"][li].to(q.dtype), h,
-                       mask=mask)
-        return mha(q, cache["k"][li, :, :valid_len].to(q.dtype),
-                   cache["v"][li, :, :valid_len].to(q.dtype), h, mask=mask)
+        return lo.llama_attention(q.reshape(b, t, h, dh), cache["k"][li], cache["v"][li], pos)
 
     def forward(self, tokens: torch.Tensor, cross_kv: dict,
                 kv_cache: dict | None = None, pos: int | torch.Tensor = 0, beam: int = 1,
@@ -358,9 +362,13 @@ class TextDecoder(nn.Module):
 
         pos may be a 0-dim int64 tensor on the tokens' device for one step
         (T == 1, any beam) over any of the three caches: the step a CUDA
-        graph replays. Its position embedding, cache rows (`index_copy_`)
-        and key count all read from it: the bf16 cache is attended whole
-        under a mask, the int8 kernels get pos + 1 as a device int32."""
+        graph replays. Its position embedding (`whisper_embed_norm`),
+        cache rows (`whisper_kv_rows`) and key count all read from it:
+        `llama_attention` reads it for the bf16 cache, the int8 kernels
+        get pos + 1 as a device int32.
+
+        Each residual add rides the next norm's `whisper_norm` call (the
+        last one `ln`'s), as the encoder's do."""
         b, t = tokens.shape
         use_cache = kv_cache is not None
         if not use_cache:
@@ -369,19 +377,13 @@ class TextDecoder(nn.Module):
         if torch.is_tensor(pos):
             if t != 1:
                 raise ValueError(f"a tensor pos takes one step (T == 1), got T={t}")
-            x = self.token_emb[tokens] + self.pos_emb.index_select(0, pos.view(1))
-            if "k" in kv_cache:
-                key_pos = torch.arange(kv_cache["k"].shape[2], device=x.device)
-                mask = (key_pos <= pos)[None, None, None]
-                valid_len = None           # the bf16 product reads the mask
-            else:
-                valid_len = (pos + 1).to(torch.int32).view(1)
+            # the int8 kernels' key count; the bf16 cache's attention reads pos
+            valid_len = None if "k" in kv_cache else (pos + 1).to(torch.int32).view(1)
         else:
-            x = self.token_emb[tokens] + self.pos_emb[pos:pos + t]
             valid_len = pos + t
-            if t > 1:
-                key_pos = torch.arange(pos + t, device=x.device)
-                q_pos = pos + torch.arange(t, device=x.device)
+            if t > 1 and not (use_cache and "k" in kv_cache):    # the bf16 cache's reads pos
+                key_pos = torch.arange(pos + t, device=tokens.device)
+                q_pos = pos + torch.arange(t, device=tokens.device)
                 mask = (key_pos[None, :] <= q_pos[:, None])[None, None]
         if beam > 1 and t != 1:
             raise ValueError(f"beam={beam} decodes one step at a time, got T={t}")
@@ -389,8 +391,13 @@ class TextDecoder(nn.Module):
             raise ValueError("the lane cache needs lane_map and beam equal to its "
                              f"{kv_cache['k_p'].shape[3]} lanes, got beam={beam}")
 
+        ln0 = self.blocks[0].attn_ln
+        x, h = wo.whisper_embed_norm(tokens.contiguous(), self.token_emb, self.pos_emb, pos,
+                                     ln0.weight, ln0.bias, ln0.eps)
+        delta = None
         for li, block in enumerate(self.blocks):
-            h = block.attn_ln(x)
+            if li:
+                x, h = fused_norm(x, block.attn_ln, delta)
             a = block.attn
             if use_cache:
                 attn = self._self_attention(li, a.q(h), a.k(h), a.v(h), kv_cache, pos,
@@ -399,13 +406,13 @@ class TextDecoder(nn.Module):
                 # teacher-forced: the keys are this call's, no cache is written
                 # (so autograd sees no in-place update)
                 attn = mha(a.q(h), a.k(h), a.v(h), self.n_head, mask=mask)
-            x = x + a.out(attn)
+            x, h = fused_norm(x, block.cross_ln, a.out(attn))
             c = block.cross
-            x = x + c.out(self._cross_attention(c.q(block.cross_ln(x)), cross_kv, li, beam,
-                                                cross_s8))
-            x = x + block.mlp(block.mlp_ln(x))
+            x, h = fused_norm(x, block.mlp_ln,
+                              c.out(self._cross_attention(c.q(h), cross_kv, li, beam, cross_s8)))
+            delta = block.mlp(h)
 
-        x = self.ln(x).reshape(b * t, -1)
+        x = fused_norm(x, self.ln, delta)[1].reshape(b * t, -1)
         if x.is_cuda and x.dtype != torch.float32 and not x.requires_grad:
             # f32 logits from bf16 operands with f32 sums, as the JAX
             # einsum's preferred_element_type=f32; torch.mm's out_dtype
@@ -525,25 +532,3 @@ def beam_lane_cache(cache_b: dict, beam: int) -> dict:
     v_ps[:, :, :, 0] = cache_b["v_s"]
     return {"k_p": k_p, "v_p": v_p, "k_ps": k_ps, "v_ps": v_ps}
 
-
-def _write_rows(dst: torch.Tensor, dim: int, pos: int | torch.Tensor,
-                rows: torch.Tensor) -> None:
-    """rows into dst IN PLACE at positions [pos, pos + rows.shape[dim])
-    along `dim`: a slice at an int pos, `index_copy_` of the one row at a
-    0-dim tensor pos (no host read: the step a CUDA graph replays)."""
-    if torch.is_tensor(pos):
-        dst.index_copy_(dim, pos.view(1), rows)
-    else:
-        dst.narrow(dim, pos, rows.shape[dim]).copy_(rows)
-
-
-def _quantize_kv_rows(x: torch.Tensor, n_head: int):
-    """(B, T, D) → head-major int8 payload (B, H, T, Dh) and per-(B, H, T)
-    bf16 scales, both dense: divide by the f32 scale (clamped at 1e-8),
-    round half to even, and only then store the scale as bf16, as the JAX
-    function does."""
-    b, t, d = x.shape
-    xh = x.reshape(b, t, n_head, d // n_head).transpose(1, 2).float().contiguous()
-    s = (xh.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
-    xq = torch.clamp(torch.round(xh / s[..., None]), -127, 127).to(torch.int8)
-    return xq, s.to(torch.bfloat16)

@@ -59,6 +59,10 @@ SIGNATURES = {
     "llama_rope_cache": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                          _P],
     "llama_swiglu_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "whisper_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "whisper_kv_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "whisper_logit_rules": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -7,7 +7,10 @@ this module's four kernels compute:
 
 * `llama_attention`: GQA attention over the bf16 cache, the two einsums
   with the position mask and the f32 softmax (models/llama.py:156-168);
-  csrc/llama_attention.cu;
+  csrc/llama_attention.cu. The Whisper decoder's self-attention over its
+  bf16 cache (turbo_whisper_workspace_tpu/models/whisper.py:602-613,
+  `mha` under the key ≤ position mask) is the same function at group 1
+  and head dim 64: models/whisper.py calls it there too;
 * `llama_norm_quant`: the residual add, rms_norm (:89-92) and
   ops/quant.py:222 `quant_act_grouped`, which XLA computes once for the
   input q, k and v share and once for gate and up's; without the norm
@@ -30,6 +33,8 @@ read from device memory (a decode step a CUDA graph replays).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -45,7 +50,9 @@ DECODE_MAX_T = 8            # query rows a decode-regime step takes
 DECODE_MAX_ROWS = 32        # query rows a kv head (group · t) it takes
 KEYS_PER_RANK = 64          # a rank's slice of the cache before the ranks are capped
 MAX_RANKS = 8               # the portable cluster size
-HEAD_DIMS = (16, 128)       # the kernel's head dims: the Llama configs' 128, test-tiny's 16
+WAVE_BLOCKS = 264           # decode blocks in flight: two an SM of the H100's 132
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's head dims: the Llama configs' 128, test-tiny's
+                                # 16, a 2048-wide 32-head checkpoint's 64 (and Whisper's)
 
 
 def reset_launch_counts() -> None:
@@ -53,17 +60,32 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def attention_plan(t: int, group: int, s_len: int) -> tuple:
+def attention_plan(t: int, group: int, s_len: int, pairs: int) -> tuple:
     """llama_attention's regime: ("decode", rows, ranks, slice) for t ≤
     DECODE_MAX_T and group · t ≤ DECODE_MAX_ROWS (one cluster of `ranks`
-    blocks a (b, kv head), rows padded to 4, 8 or 32, at most `slice` keys
-    a rank: the launch depends on the cache length only), else
-    ("prefill", q_tiles) (blocks of 64 query rows a head)."""
+    blocks a (b, kv head), `pairs` = batch · n_kv of them, rows padded to
+    4, 8 or 32, at most `slice` keys a rank: the launch depends on the
+    cache length and the pairs only; ranks at most WAVE_BLOCKS // pairs),
+    else ("prefill", q_tiles) (blocks of 64 query rows a head). The
+    kernel's own plan is kernel_plan's."""
     if t <= DECODE_MAX_T and group * t <= DECODE_MAX_ROWS:
-        ranks = min(MAX_RANKS, max(1, -(-s_len // KEYS_PER_RANK)))
+        ranks = min(MAX_RANKS, max(1, -(-s_len // KEYS_PER_RANK)),
+                    max(1, WAVE_BLOCKS // max(pairs, 1)))
         rows = next(r for r in (4, 8, 32) if group * t <= r)
         return "decode", rows, ranks, -(-s_len // ranks)
     return "prefill", -(-t // 64)
+
+
+def kernel_plan(t: int, group: int, s_len: int, pairs: int) -> tuple:
+    """The plan csrc/llama_attention.cu launches for these arguments, in
+    attention_plan's form, read from the built library (the card's
+    machine): the check that the mirror is the kernel's plan."""
+    entry = build.library("llama_attention").tww_llama_attention_plan
+    entry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    entry.restype = None
+    out = (ctypes.c_int * 4)()
+    entry(t, group, s_len, pairs, ctypes.cast(out, ctypes.c_void_p))
+    return ("decode", *out[1:]) if out[0] else ("prefill", out[1])
 
 
 def decode_slices(pos: int, t: int, ranks: int) -> list[range]:
