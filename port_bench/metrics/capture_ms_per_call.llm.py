@@ -1,0 +1,9 @@
+"""The generation loops' CUDA graph captures a conversation (three model
+calls): the wall of the port's `step_loop.capture` spans over the traced
+conversations."""
+
+from port_bench.lib import spans
+
+
+def read(run):
+    return spans.per_call(spans.traced(run), "step_loop.capture", len(run.traced))

@@ -17,7 +17,9 @@ the steps a graphed run makes past the last row's EOT change nothing.
 Returned bookkeeping mirrors openai/whisper's DecodingResult fields the
 long-form fallbacks need (avg_logprob, no_speech_prob). `greedy_decode`
 and `detect_language` take log-mel input: the encoder, then the dense
-cross-KV, then the `*_features` function, as the JAX helpers do.
+cross-KV, then the `*_features` function, as the JAX helpers do. The
+span `greedy.prefill` covers the cache's set-up, the
+prompt's pass and the first sample; the loop's spans are `run_steps`'.
 
 Sampling at temperature T > 0 is gumbel-max, argmax(logits + T·G), with
 G drawn from the caller's `torch.Generator` (registered with the graph
@@ -33,6 +35,7 @@ import torch
 
 from ..models import whisper as wm
 from ..ops import whisper_ops as wo
+from ..utils import profiling
 from ..utils.step_loop import run_steps
 from .rules import DecodeRules, update_ts_floor
 
@@ -85,62 +88,65 @@ def greedy_decode_features(
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device).manual_seed(0)
 
-    cache = wm.init_kv_cache(dims, b, max_len=total, dtype=model.dtype,
-                             device=device, n_head=model.decoder.n_head)
-    static_mask = rules.static_mask(device)
-    begin_mask = rules.begin_mask(device)
+    # the prompt's pass and the first sample, with the cache and state they fill
+    with profiling.span("greedy.prefill"):
+        cache = wm.init_kv_cache(dims, b, max_len=total, dtype=model.dtype,
+                                 device=device, n_head=model.decoder.n_head)
+        static_mask = rules.static_mask(device)
+        begin_mask = rules.begin_mask(device)
 
-    # prefill the prompt in one pass
-    prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0,
-                                         cross_s8=cross_s8)
-    no_speech_probs = torch.softmax(prefill_logits[:, sot_index], dim=-1)[:, sp.no_speech]
+        # prefill the prompt in one pass
+        prefill_logits, cache = model.decoder(prompt, cross_kv, cache, pos=0,
+                                             cross_s8=cross_s8)
+        no_speech_probs = torch.softmax(prefill_logits[:, sot_index], dim=-1)[:, sp.no_speech]
 
-    # Pairing state looks at SAMPLED tokens only (openai/whisper): before
-    # anything is sampled, "last" is a non-timestamp sentinel and
-    # "penultimate" counts as a timestamp.
-    ts_sentinel = torch.full((b,), sp.timestamp_begin, dtype=torch.long, device=device)
-    state = {
-        "tokens": torch.cat([prompt, torch.full((b, max_len), sp.eot, dtype=prompt.dtype,
-                                                device=device)], 1),
-        "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
-        "last_tok": torch.zeros(b, dtype=torch.long, device=device),
-        "penult_tok": ts_sentinel.clone(),
-        "ts_floor": ts_sentinel.clone(),
-        "finished": torch.zeros(b, dtype=torch.bool, device=device),
-        "sum_logprobs": torch.zeros(b, dtype=torch.float32, device=device),
-    }
+        # Pairing state looks at SAMPLED tokens only (openai/whisper): before
+        # anything is sampled, "last" is a non-timestamp sentinel and
+        # "penultimate" counts as a timestamp.
+        ts_sentinel = torch.full((b,), sp.timestamp_begin, dtype=torch.long, device=device)
+        state = {
+            "tokens": torch.cat([prompt, torch.full((b, max_len), sp.eot, dtype=prompt.dtype,
+                                                    device=device)], 1),
+            "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
+            "last_tok": torch.zeros(b, dtype=torch.long, device=device),
+            "penult_tok": ts_sentinel.clone(),
+            "ts_floor": ts_sentinel.clone(),
+            "finished": torch.zeros(b, dtype=torch.bool, device=device),
+            "sum_logprobs": torch.zeros(b, dtype=torch.float32, device=device),
+        }
 
-    def sample(logits: torch.Tensor, is_begin: bool) -> None:
-        """Sample token p + step from (B, V) logits into the state."""
-        gumbel = None
-        if temperature > 0.0:
-            gumbel = -torch.log(torch.empty_like(logits).exponential_(generator=generator))
-        # the rules, the argmax of masked (+ T·gumbel) and its log_softmax
-        next_tok, tok_logp, _ = wo.whisper_logit_rules(
-            logits, rules, is_begin, state["last_tok"], state["penult_tok"], state["ts_floor"],
-            static_mask, begin_mask, gumbel, temperature)
+        def sample(logits: torch.Tensor, is_begin: bool) -> None:
+            """Sample token p + step from (B, V) logits into the state."""
+            gumbel = None
+            if temperature > 0.0:
+                gumbel = -torch.log(torch.empty_like(logits).exponential_(generator=generator))
+            # the rules, the argmax of masked (+ T·gumbel) and its log_softmax
+            next_tok, tok_logp, _ = wo.whisper_logit_rules(
+                logits, rules, is_begin, state["last_tok"], state["penult_tok"], state["ts_floor"],
+                static_mask, begin_mask, gumbel, temperature)
 
-        finished = state["finished"]
-        next_tok = torch.where(finished, sp.eot, next_tok)
-        state["sum_logprobs"].add_(torch.where(finished, 0.0, tok_logp))
-        finished.logical_or_(next_tok == sp.eot)
-        state["tokens"].index_copy_(1, (state["step"] + p).view(1), next_tok[:, None])
-        state["ts_floor"].copy_(update_ts_floor(state["ts_floor"], next_tok,
-                                                state["last_tok"], sp))
-        # penultimate stays the ts-sentinel while fewer than 2 tokens sampled
-        if not is_begin:
-            state["penult_tok"].copy_(state["last_tok"])
-        state["last_tok"].copy_(next_tok)
-        state["step"].add_(1)
+            finished = state["finished"]
+            next_tok = torch.where(finished, sp.eot, next_tok)
+            state["sum_logprobs"].add_(torch.where(finished, 0.0, tok_logp))
+            finished.logical_or_(next_tok == sp.eot)
+            state["tokens"].index_copy_(1, (state["step"] + p).view(1), next_tok[:, None])
+            state["ts_floor"].copy_(update_ts_floor(state["ts_floor"], next_tok,
+                                                    state["last_tok"], sp))
+            # penultimate stays the ts-sentinel while fewer than 2 tokens sampled
+            if not is_begin:
+                state["penult_tok"].copy_(state["last_tok"])
+            state["last_tok"].copy_(next_tok)
+            state["step"].add_(1)
 
-    def step() -> None:
-        """Feed the last sampled token at its position, sample the next."""
-        logits, _ = model.decoder(state["last_tok"][:, None], cross_kv, cache,
-                                  pos=state["step"] + (p - 1), cross_s8=cross_s8)
-        sample(logits[:, 0], is_begin=False)
+        def step() -> None:
+            """Feed the last sampled token at its position, sample the next."""
+            logits, _ = model.decoder(state["last_tok"][:, None], cross_kv, cache,
+                                      pos=state["step"] + (p - 1), cross_s8=cross_s8)
+            sample(logits[:, 0], is_begin=False)
 
-    sample(prefill_logits[:, -1].contiguous(), is_begin=True)
-    del prefill_logits
+        sample(prefill_logits[:, -1].contiguous(), is_begin=True)
+        del prefill_logits
+
     forwards = run_steps(step, state, max_len - 1, STOP_EVERY, graphed,
                          generator if temperature > 0.0 else None, timings)
     if timings is not None:

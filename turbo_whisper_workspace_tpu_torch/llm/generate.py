@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import llama as lm
+from ..utils import profiling
 from ..utils.step_loop import run_steps
 
 STOP_EVERY = 4      # graphed steps between the host's reads of the stop flag
@@ -61,9 +62,9 @@ def generate_tokens(
     graphed: bool | None = None,
 ) -> GenResult:
     """Prefill the prompt, then sample up to max_len tokens. `timings`,
-    when given, receives the prefill's and the decode loop's wall seconds
-    (each ending in a device sync), the number of decode forwards and the
-    graph's `capture_s` (inside `decode_s`).
+    when given, receives the prefill's (the `llm.prefill` span's) and the
+    decode loop's wall seconds (each ending in a device sync), the number
+    of decode forwards and the graph's `capture_s` (inside `decode_s`).
 
     graphed: None (the default) replays the step as a CUDA graph on a
     CUDA device and runs it eagerly, with the stop read every step, on
@@ -80,22 +81,23 @@ def generate_tokens(
     eos = torch.tensor(eos_tokens or (0,), dtype=prompt.dtype, device=device)
     pad_tok = int(eos_tokens[0]) if eos_tokens else 0
 
-    t0 = time.perf_counter()
-    cache = lm.init_kv_cache(dims, b, max_len=total, dtype=params["token_emb"].dtype,
-                             device=device)
-    prefill_logits, cache = lm.forward(params, dims, prompt, cache, pos=0)
-    last_logits = prefill_logits[:, -1].float()
-    del prefill_logits
-    state = {
-        "tokens": torch.cat([prompt, torch.full((b, max_len), pad_tok, dtype=prompt.dtype,
-                                                device=device)], 1),
-        "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
-        "last_tok": torch.zeros(b, dtype=prompt.dtype, device=device),
-        "finished": torch.zeros(b, dtype=torch.bool, device=device),
-    }
+    with profiling.span("llm.prefill", timed=timings is not None) as span:
+        cache = lm.init_kv_cache(dims, b, max_len=total, dtype=params["token_emb"].dtype,
+                                 device=device)
+        prefill_logits, cache = lm.forward(params, dims, prompt, cache, pos=0)
+        last_logits = prefill_logits[:, -1].float()
+        del prefill_logits
+        state = {
+            "tokens": torch.cat([prompt, torch.full((b, max_len), pad_tok, dtype=prompt.dtype,
+                                                    device=device)], 1),
+            "step": torch.zeros((), dtype=torch.long, device=device),    # tokens sampled
+            "last_tok": torch.zeros(b, dtype=prompt.dtype, device=device),
+            "finished": torch.zeros(b, dtype=torch.bool, device=device),
+        }
+        if timings is not None:
+            _sync(device)
     if timings is not None:
-        _sync(device)
-        timings["prefill_s"] = time.perf_counter() - t0
+        timings["prefill_s"] = span.seconds
     t0 = time.perf_counter()
 
     def sample_into_state(logits: torch.Tensor) -> None:

@@ -34,6 +34,7 @@ from collections import Counter
 import torch
 
 from ..config import LLMConfig
+from ..utils import profiling
 from ..utils.common_data import COMMON_NAMES
 
 logger = logging.getLogger(__name__)
@@ -62,7 +63,9 @@ class TorchLlama:
     no vocabulary files accompany the checkpoint; token 0 is EOS.
     Counterpart of the JAX package's TPULlama. `last_generation` holds
     the prompt and generated token counts and the prefill and decode
-    wall seconds of the last call."""
+    wall seconds of the last call. The span `llm.generate` covers the
+    generation and the tokens' copy back; the tokenizer's work is its
+    caller's."""
 
     is_dummy = False
 
@@ -83,13 +86,14 @@ class TorchLlama:
 
         ids = self.tokenizer.encode(prompt)[-(self.dims.max_ctx - max_tokens):]
         timings: dict = {}
-        res = generate_tokens(
-            self.params, self.dims,
-            torch.tensor([ids], dtype=torch.long, device=self.device),
-            max_len=max_tokens, temperature=float(temperature), timings=timings,
-        )
-        n = int(res.lengths[0])
-        out = res.tokens[0, len(ids):][:n].tolist()
+        with profiling.span("llm.generate"):
+            res = generate_tokens(
+                self.params, self.dims,
+                torch.tensor([ids], dtype=torch.long, device=self.device),
+                max_len=max_tokens, temperature=float(temperature), timings=timings,
+            )
+            n = int(res.lengths[0])
+            out = res.tokens[0, len(ids):][:n].tolist()
         self.last_generation = {"prompt_tokens": len(ids), "new_tokens": n, **timings}
         text = self.tokenizer.decode(out)
         for s in stop:

@@ -16,6 +16,11 @@ embedding crops the diarizer's), and the module-level `get_pipeline`
 cache. Its key is (model, beam size, device): the JAX key plus the
 device, so a CPU pipeline is never handed to a CUDA caller.
 
+Spans (`utils/profiling.py`): `pipeline.transcribe` over a single-file
+request, `audio.read` over each file's read and decode, and `llm.stage`
+over each enrichment stage (names, summary or topics), the outermost
+span of an LLM call.
+
 The Whisper model runs in bf16, as the JAX pipeline loads it. Weights
 come from `<models_dir>/whisper-<name>.npz` (the JAX package's
 checkpoint format) or the HF snapshot directory `<models_dir>/whisper-<name>/`
@@ -38,6 +43,7 @@ from ..config import PipelineConfig
 from ..llm import llm_helper
 from ..models import convert
 from ..models import whisper as wm
+from ..utils import profiling
 from .diarizer import SpeakerDiarizer
 from .transcriber import Transcriber, load_transcriber, resolve_device
 
@@ -46,6 +52,13 @@ logger = logging.getLogger(__name__)
 INIT_SEED = 0
 
 _PIPELINE_CACHE: dict = {}
+
+
+def _read_audio(path: str):
+    """`audio_io.read_audio_file`'s samples, under the span `audio.read`."""
+    with profiling.span("audio.read"):
+        audio, _ = audio_io.read_audio_file(path)
+    return audio
 
 
 def get_pipeline(config: PipelineConfig | None = None,
@@ -163,9 +176,10 @@ class AudioProcessingPipeline:
         "duration", "processing_times"}. initial_prompt → <|startofprev|>
         conditioning; task ("transcribe" or "translate") reaches the
         prompt's task token (None: the transcription config's task)."""
-        t = self.load_transcription_model()
-        audio, _ = audio_io.read_audio_file(audio_path)
-        return t.transcribe([audio], initial_prompt=initial_prompt, task=task)[0]
+        with profiling.span("pipeline.transcribe"):
+            t = self.load_transcription_model()
+            audio = _read_audio(audio_path)
+            return t.transcribe([audio], initial_prompt=initial_prompt, task=task)[0]
 
     def diarize(self, audio_path: str, num_speakers: int = 2,
                 threshold: float | None = None,
@@ -175,7 +189,7 @@ class AudioProcessingPipeline:
         num_speakers=0 → auto-estimate (`:393-397`)."""
         d = self.load_diarizer(segmentation_model=segmentation_model,
                                embedding_model=embedding_model)
-        audio, _ = audio_io.read_audio_file(audio_path)
+        audio = _read_audio(audio_path)
         if num_speakers == 0:
             num_speakers = d.estimate_num_speakers(audio)
         segs = d.process_audio(audio, num_speakers=num_speakers,
@@ -185,19 +199,22 @@ class AudioProcessingPipeline:
     # -- LLM enrichment: the LLM is loaded on the pipeline's device (an
     # injected one, llm_helper.set_llm, wins)
     def identify_speaker_names(self, merged_segments) -> dict:
-        return llm_helper.identify_speaker_names(
-            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
-            config=self.config.llm)
+        with profiling.span("llm.stage"):
+            return llm_helper.identify_speaker_names(
+                merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+                config=self.config.llm)
 
     def generate_summary(self, merged_segments) -> str:
-        return llm_helper.summarize_conversation(
-            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
-            config=self.config.llm)
+        with profiling.span("llm.stage"):
+            return llm_helper.summarize_conversation(
+                merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+                config=self.config.llm)
 
     def extract_topics(self, merged_segments) -> list[str]:
-        return llm_helper.extract_topics(
-            merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
-            config=self.config.llm)
+        with profiling.span("llm.stage"):
+            return llm_helper.extract_topics(
+                merged_segments, llm=llm_helper.get_llm(self.config.llm, self.device),
+                config=self.config.llm)
 
     # -- master flow ------------------------------------------------------
     def process_audio(
@@ -240,7 +257,7 @@ class AudioProcessingPipeline:
         enrich = self.config.llm.enabled if enrich is None else enrich
         times_total0 = time.time()
 
-        audios = [audio_io.read_audio_file(p)[0] for p in audio_paths]
+        audios = [_read_audio(p) for p in audio_paths]
 
         # 1) transcription (all files at once)
         t0 = time.time()

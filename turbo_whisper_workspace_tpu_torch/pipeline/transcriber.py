@@ -23,6 +23,13 @@ passes as it is (the JAX copy rescales it as if it were float). A
 second: `transcribe` takes a per-call `task`, which the SOT rows use
 before `config.task` (the JAX copy has no such argument, so its
 pipeline's `task` never reaches the prompt).
+
+Spans (`utils/profiling.py`), under `transcriber.transcribe`
+(`windows`): `transcriber.plan` (the chunk plans, the VAD gate, the
+stack and the staged copies), `transcriber.encode` per batch,
+`transcriber.detect`, and per temperature `transcriber.decode` and
+`transcriber.postprocess` (the copy to the host, the text, the
+thresholds and the gather for the retry), then `transcriber.merge`.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ..decode.rules import DecodeRules
 from ..decode.tokenizer import LANGUAGES, WhisperTokenizer
 from ..models import whisper as wm
 from ..ops import mel as mel_ops
+from ..utils import profiling
 
 LOGPROB_THRESHOLD = -1.0
 COMPRESSION_RATIO_THRESHOLD = 2.4
@@ -195,10 +203,11 @@ class Transcriber:
         """Language ID for every row of an already-encoded batch (one
         decoder step on the cached cross-KV; the encoder is not re-run)."""
         sp = self.tokenizer.specials
-        probs = greedy_mod.detect_language_features(
-            self.model, cross_kv, sp.sot, sp.sot + 1, sp.n_languages,
-            cross_s8=self.config.cross_attention_s8)
-        return [LANGUAGES[int(i)] for i in probs.argmax(-1).tolist()]
+        with profiling.span("transcriber.detect"):
+            probs = greedy_mod.detect_language_features(
+                self.model, cross_kv, sp.sot, sp.sot + 1, sp.n_languages,
+                cross_s8=self.config.cross_attention_s8)
+            return [LANGUAGES[int(i)] for i in probs.argmax(-1).tolist()]
 
     def detect_languages(self, first_windows: np.ndarray) -> list[str]:
         """Batched language ID on each file's first window."""
@@ -229,85 +238,89 @@ class Transcriber:
         prefix = self._prompt_prefix(
             initial_prompt if initial_prompt is not None else cfg.initial_prompt
         )
+        with profiling.span("transcriber.transcribe") as call:
+            with profiling.span("transcriber.plan"):
+                plans: list[longform.ChunkPlan] = []
+                for fi, audio in enumerate(audios):
+                    f_plans = longform.plan_chunks(
+                        len(audio), fi, chunk_s=cfg.chunk_length_s,
+                        stride_s=cfg.stride_length_s,
+                    )
+                    if cfg.vad_filter and len(f_plans) > 1:
+                        from .diarizer import FRAME_HZ, energy_vad
 
-        plans: list[longform.ChunkPlan] = []
-        for fi, audio in enumerate(audios):
-            f_plans = longform.plan_chunks(
-                len(audio), fi, chunk_s=cfg.chunk_length_s,
-                stride_s=cfg.stride_length_s,
-            )
-            if cfg.vad_filter and len(f_plans) > 1:
-                from .diarizer import FRAME_HZ, energy_vad
-
-                f_plans = longform.gate_plans_by_vad(
-                    f_plans, energy_vad(audio), frame_hz=FRAME_HZ,
-                    chunk_s=cfg.chunk_length_s,
+                        f_plans = longform.gate_plans_by_vad(
+                            f_plans, energy_vad(audio), frame_hz=FRAME_HZ,
+                            chunk_s=cfg.chunk_length_s,
+                        )
+                    plans.extend(f_plans)
+                self.last_n_windows = len(plans)  # observability (tests/bench)
+                windows = np.stack(
+                    [longform.slice_chunk(audios[p.file_index], p) for p in plans]
                 )
-            plans.extend(f_plans)
-        self.last_n_windows = len(plans)  # observability (tests/bench)
-        windows = np.stack(
-            [longform.slice_chunk(audios[p.file_index], p) for p in plans]
-        )
+                n_win = len(plans)
+                bsz = min(cfg.batch_size, 1 << (n_win - 1).bit_length() if n_win else 1)
+                # start every batch's host→device copy (int16, pinned) before the
+                # compute loop so the copies overlap the earlier batches' compute
+                staged = []
+                for lo in range(0, n_win, bsz):
+                    hi = min(lo + bsz, n_win)
+                    batch = windows[lo:hi]
+                    if hi - lo < bsz:
+                        pad = bsz - (hi - lo)
+                        batch = np.concatenate(
+                            [batch, np.zeros((pad, batch.shape[1]), np.float32)]
+                        )
+                    staged.append((lo, hi, stage_pcm(batch, self.device)))
+            call.set(windows=n_win)
 
-        # per-file language: pinned > detected from each batch's cross-KV
-        detect = languages is None and cfg.language is None and sp.multilingual
-        if languages is None:
-            languages = ([cfg.language or "en"] * len(audios) if not detect
-                         else [None] * len(audios))
-        languages = list(languages)
+            # per-file language: pinned > detected from each batch's cross-KV
+            detect = languages is None and cfg.language is None and sp.multilingual
+            if languages is None:
+                languages = ([cfg.language or "en"] * len(audios) if not detect
+                             else [None] * len(audios))
+            languages = list(languages)
 
-        # first window index of each file (plans are file-major)
-        first_win: dict[int, int] = {}
-        for wi, p in enumerate(plans):
-            first_win.setdefault(p.file_index, wi)
+            # first window index of each file (plans are file-major)
+            first_win: dict[int, int] = {}
+            for wi, p in enumerate(plans):
+                first_win.setdefault(p.file_index, wi)
 
-        n_win = len(plans)
-        bsz = min(cfg.batch_size, 1 << (n_win - 1).bit_length() if n_win else 1)
-        window_results: list[dict | None] = [None] * n_win
-        # issue every batch's host→device copy (int16, pinned) before the
-        # compute loop so the copies overlap the earlier batches' compute
-        staged = []
-        for lo in range(0, n_win, bsz):
-            hi = min(lo + bsz, n_win)
-            batch = windows[lo:hi]
-            if hi - lo < bsz:
-                pad = bsz - (hi - lo)
-                batch = np.concatenate(
-                    [batch, np.zeros((pad, batch.shape[1]), np.float32)]
+            window_results: list[dict | None] = [None] * n_win
+            for lo, hi, pcm_dev in staged:
+                with profiling.span("transcriber.encode"):
+                    cross_kv = self._encode_windows(pcm_dev)
+                if detect and any(
+                    languages[plans[w].file_index] is None for w in range(lo, hi)
+                ):
+                    row_langs = self._detect_language_rows(cross_kv)
+                    for w in range(lo, hi):
+                        fi = plans[w].file_index
+                        if languages[fi] is None and first_win[fi] == w:
+                            languages[fi] = row_langs[w - lo]
+                langs = [languages[plans[w].file_index] or "en"
+                         for w in range(lo, hi)]
+                langs += ["en"] * (bsz - (hi - lo))
+                self._decode_windows_with_fallback(
+                    cross_kv, langs, lo, hi, window_results, prefix=prefix, task=task
                 )
-            staged.append((lo, hi, stage_pcm(batch, self.device)))
-        for lo, hi, pcm_dev in staged:
-            cross_kv = self._encode_windows(pcm_dev)
-            if detect and any(
-                languages[plans[w].file_index] is None for w in range(lo, hi)
-            ):
-                row_langs = self._detect_language_rows(cross_kv)
-                for w in range(lo, hi):
-                    fi = plans[w].file_index
-                    if languages[fi] is None and first_win[fi] == w:
-                        languages[fi] = row_langs[w - lo]
-            langs = [languages[plans[w].file_index] or "en"
-                     for w in range(lo, hi)]
-            langs += ["en"] * (bsz - (hi - lo))
-            self._decode_windows_with_fallback(
-                cross_kv, langs, lo, hi, window_results, prefix=prefix, task=task
-            )
 
-        # merge windows per file
-        out = []
-        elapsed = time.time() - t0
-        for fi, audio in enumerate(audios):
-            f_plans = [p for p in plans if p.file_index == fi]
-            f_idx = [i for i, p in enumerate(plans) if p.file_index == fi]
-            duration = len(audio) / mel_ops.SAMPLE_RATE
-            segs = longform.merge_chunk_segments(
-                [window_results[i]["segments"] for i in f_idx], f_plans, duration
-            )
-            result = longform.segments_to_result(segs, duration)
-            result["segments"] = segs
-            result["language"] = languages[fi]
-            result["processing_times"] = {"transcription": elapsed}
-            out.append(result)
+            # merge windows per file
+            with profiling.span("transcriber.merge"):
+                out = []
+                elapsed = time.time() - t0
+                for fi, audio in enumerate(audios):
+                    f_plans = [p for p in plans if p.file_index == fi]
+                    f_idx = [i for i, p in enumerate(plans) if p.file_index == fi]
+                    duration = len(audio) / mel_ops.SAMPLE_RATE
+                    segs = longform.merge_chunk_segments(
+                        [window_results[i]["segments"] for i in f_idx], f_plans, duration
+                    )
+                    result = longform.segments_to_result(segs, duration)
+                    result["segments"] = segs
+                    result["language"] = languages[fi]
+                    result["processing_times"] = {"transcription": elapsed}
+                    out.append(result)
         return out
 
     def _decode_windows_with_fallback(
@@ -321,53 +334,55 @@ class Transcriber:
         pending = np.arange(hi - lo)
         cur_kv, cur_langs = cross_kv, langs
         for t_i, temp in enumerate(FALLBACK_TEMPERATURES):
-            res, p_len = self._decode_batch(
-                cur_kv, cur_langs, temperature=temp, prefix=prefix, task=task
-            )
-            tokens = res.tokens[:, p_len:].cpu().numpy()
-            lengths = res.lengths.cpu().numpy()
-            avg_lp = res.avg_logprobs.cpu().numpy()
-            no_sp = res.no_speech_probs.cpu().numpy()
+            with profiling.span("transcriber.decode"):
+                res, p_len = self._decode_batch(
+                    cur_kv, cur_langs, temperature=temp, prefix=prefix, task=task
+                )
+            with profiling.span("transcriber.postprocess"):
+                tokens = res.tokens[:, p_len:].cpu().numpy()
+                lengths = res.lengths.cpu().numpy()
+                avg_lp = res.avg_logprobs.cpu().numpy()
+                no_sp = res.no_speech_probs.cpu().numpy()
 
-            still_failed = []
-            for row, win_i in enumerate(pending):
-                sampled = tokens[row, : lengths[row]]
-                segs = self._window_segments(sampled)
-                text = "".join(s["text"] for s in segs)
-                silent = (
-                    no_sp[row] > NO_SPEECH_THRESHOLD
-                    and avg_lp[row] < LOGPROB_THRESHOLD
-                )
-                failed = (
-                    not silent
-                    and t_i < len(FALLBACK_TEMPERATURES) - 1
-                    and (
-                        avg_lp[row] < LOGPROB_THRESHOLD
-                        or compression_ratio(text) > COMPRESSION_RATIO_THRESHOLD
+                still_failed = []
+                for row, win_i in enumerate(pending):
+                    sampled = tokens[row, : lengths[row]]
+                    segs = self._window_segments(sampled)
+                    text = "".join(s["text"] for s in segs)
+                    silent = (
+                        no_sp[row] > NO_SPEECH_THRESHOLD
+                        and avg_lp[row] < LOGPROB_THRESHOLD
                     )
+                    failed = (
+                        not silent
+                        and t_i < len(FALLBACK_TEMPERATURES) - 1
+                        and (
+                            avg_lp[row] < LOGPROB_THRESHOLD
+                            or compression_ratio(text) > COMPRESSION_RATIO_THRESHOLD
+                        )
+                    )
+                    if failed:
+                        still_failed.append((row, win_i))
+                        continue
+                    window_results[lo + win_i] = {
+                        "segments": [] if silent else segs,
+                        "avg_logprob": float(avg_lp[row]),
+                        "no_speech_prob": float(no_sp[row]),
+                        "temperature": temp,
+                    }
+                if not still_failed:
+                    return
+                # keep the batch shape: the failed rows' cross-KV gathered to
+                # the front, row 0 repeated as padding; row i of the next
+                # decode is window pending[i]
+                rows = np.array([r for r, _ in still_failed])
+                gather_rows = np.zeros(bsz, np.int64)
+                gather_rows[: len(rows)] = rows
+                cur_langs = [cur_langs[r] for r in rows] + ["en"] * (
+                    bsz - len(rows)
                 )
-                if failed:
-                    still_failed.append((row, win_i))
-                    continue
-                window_results[lo + win_i] = {
-                    "segments": [] if silent else segs,
-                    "avg_logprob": float(avg_lp[row]),
-                    "no_speech_prob": float(no_sp[row]),
-                    "temperature": temp,
-                }
-            if not still_failed:
-                return
-            # keep the batch shape: the failed rows' cross-KV gathered to
-            # the front, row 0 repeated as padding; row i of the next
-            # decode is window pending[i]
-            rows = np.array([r for r, _ in still_failed])
-            gather_rows = np.zeros(bsz, np.int64)
-            gather_rows[: len(rows)] = rows
-            cur_langs = [cur_langs[r] for r in rows] + ["en"] * (
-                bsz - len(rows)
-            )
-            cur_kv = _gather_kv(cur_kv, gather_rows)
-            pending = np.array([w for _, w in still_failed])
+                cur_kv = _gather_kv(cur_kv, gather_rows)
+                pending = np.array([w for _, w in still_failed])
 
 
 def load_transcriber(

@@ -1,148 +1,159 @@
-"""Tracing / profiling: stage timers, device traces, kernel accounting.
+"""The port's tracer: program spans on torch.profiler's timeline.
 
-Port of turbo_whisper_workspace_tpu/utils/profiling.py:
+A span is on exactly while a `torch.profiler.profile` records (the
+benchmark's traced window, or `trace()` below); there is no other
+switch. With the profiler off, `span()` reads one flag and returns a
+shared no-op, unless the caller asks for its duration (`timed=True`:
+two clock reads, nothing recorded).
 
-* `StageTimer`: context-manager timers producing the reference's
-  processing_times dict (plus a realtime factor), copied;
-* `trace`: a torch.profiler capture (CPU and, where there is one, CUDA
-  activity) around a block, written as a Chrome trace into `log_dir`;
-* `speed_of_light`: roofline accounting for a callable, timed with CUDA
-  events around a device sync when its inputs live on a card, with
-  `time.perf_counter` on the CPU.
+With the profiler on, a span
 
-The peaks are one NVIDIA H100 SXM's, not the JAX package's TPU figures.
+* opens a `torch.profiler.record_function(name)` annotation (its C++
+  form, `_RecordFunctionFast`, where torch has it: a small fraction of
+  the Python form's cost, and its stamps lie closer to the span's own),
+  so it sits on the profiler's timeline and names the host work (and
+  the device's idle gaps) below it. Names are fixed strings: a span's
+  shadow on the device's timeline then bears the name of a host event;
+* appends a `SpanRecord` at its end: name, start and end in ns, its
+  parent span, its request and its attributes. Start and end are read
+  on the clock the profiler stamps its events with, the wall clock
+  (`time.time_ns`; `tests/test_torch_tracing.py` holds the two within
+  50 µs), so spans can be laid over the trace's events.
+
+The request of a span is its outermost open span's: a span opened with
+no span open in its context (a `contextvars` value, so each thread and
+each task has its own) starts a new request. Counts (windows, steps)
+are a span's attributes, given when it opens or by `set()` before it
+closes. `spans()` returns what was recorded and
+`clear_spans()` empties it; the record lives in memory, for whoever
+ended the trace to read.
+
+Where a loop keeps a `timings` dict, the span over the same interval is
+its clock (`Span.seconds`): one measurement, also with tracing off.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import itertools
 import os
 import tempfile
 import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-# NVIDIA H100 SXM data-sheet peaks (dense, no sparsity, at the 700 W
-# limit); a card set to a lower power limit reaches less
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES_S = 3.35e12
+# the profiler's clock (torch 2.11 and 2.13 stamp its events in wall-clock ns)
+clock_ns = time.time_ns
+_annotation = getattr(torch._C._profiler, "_RecordFunctionFast", None) or \
+    torch.profiler.record_function
+
+_records: list["SpanRecord"] = []
+_ids = itertools.count(1)
+_current: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
+    "turbo_whisper_span", default=None)
 
 
-class StageTimer:
-    """Accumulates named stage durations; produces the reference's
-    processing_times dict."""
+@dataclass(frozen=True)
+class SpanRecord:
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None       # the enclosing span's id
+    request: int             # the outermost enclosing span's id
+    attrs: dict = field(default_factory=dict)
 
-    def __init__(self):
-        self.times: dict[str, float] = {}
-        self._t0 = time.time()
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.times[name] = self.times.get(name, 0.0) + time.time() - t0
+class Span:
+    """One open span; `with span(...) as s` gives it."""
 
-    def finish(self) -> dict[str, float]:
-        self.times["total"] = time.time() - self._t0
-        return dict(self.times)
+    __slots__ = ("name", "attrs", "traced", "start_ns", "end_ns", "id", "parent",
+                 "request", "_rf", "_token")
 
-    def realtime_factor(self, audio_seconds: float) -> float:
-        total = self.times.get("total") or (time.time() - self._t0)
-        return total / audio_seconds if audio_seconds else 0.0
+    def __init__(self, name: str, attrs: dict, traced: bool):
+        self.name, self.attrs, self.traced = name, attrs, traced
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def __enter__(self) -> "Span":
+        if self.traced:
+            outer = _current.get()
+            self.id = next(_ids)
+            self.parent = None if outer is None else outer.id
+            self.request = self.id if outer is None else outer.request
+            self._token = _current.set(self)
+            self._rf = _annotation(self.name)
+            self._rf.__enter__()
+        self.start_ns = clock_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = clock_ns()
+        if not self.traced:
+            return
+        self._rf.__exit__(*exc)
+        _current.reset(self._token)
+        _records.append(SpanRecord(self.name, self.start_ns, self.end_ns, self.id, self.parent,
+                                   self.request, self.attrs))
+
+
+class _Off:
+    """The span while the profiler is off."""
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+def span(name: str, *, timed: bool = False, **attrs):
+    """A span named `name` (a fixed string) with `attrs`. Recorded only
+    while the profiler records; `timed` measures its `seconds` even
+    when it is not."""
+    traced = _autograd_profiler._is_profiler_enabled
+    if not (traced or timed):
+        return _OFF
+    return Span(name, attrs, traced)
+
+
+def spans() -> list[SpanRecord]:
+    """The spans recorded, in the order they ended."""
+    return list(_records)
+
+
+def clear_spans() -> None:
+    _records.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "twt_trace")):
     """torch.profiler capture of the block (CUDA activity too when a card
     is present); writes `<log_dir>/trace.json` (Chrome trace format, for
-    chrome://tracing or Perfetto) and yields the profiler."""
+    chrome://tracing or Perfetto), whose annotations include the
+    program's spans, and yields the profiler. `spans()` then holds the
+    block's spans."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@dataclass
-class KernelRoofline:
-    name: str
-    seconds: float
-    flops: float = 0.0
-    bytes_accessed: float = 0.0
-    peak_flops: float = PEAK_BF16_FLOPS
-    peak_bytes_s: float = PEAK_HBM_BYTES_S
-    extra: dict = field(default_factory=dict)
-
-    @property
-    def achieved_flops(self) -> float:
-        return self.flops / self.seconds if self.seconds else 0.0
-
-    @property
-    def achieved_bytes_s(self) -> float:
-        return self.bytes_accessed / self.seconds if self.seconds else 0.0
-
-    @property
-    def sol_time(self) -> float:
-        """Speed-of-light time: max of compute-bound and bandwidth-bound."""
-        return max(self.flops / self.peak_flops,
-                   self.bytes_accessed / self.peak_bytes_s)
-
-    @property
-    def sol_fraction(self) -> float:
-        return self.sol_time / self.seconds if self.seconds else 0.0
-
-    def report(self) -> str:
-        return (
-            f"{self.name}: {self.seconds * 1e3:.2f} ms | "
-            f"{self.achieved_flops / 1e12:.1f} TF/s "
-            f"({100 * self.achieved_flops / self.peak_flops:.0f}% peak) | "
-            f"{self.achieved_bytes_s / 1e9:.0f} GB/s "
-            f"({100 * self.achieved_bytes_s / self.peak_bytes_s:.0f}% peak) | "
-            f"SoL {100 * self.sol_fraction:.0f}%"
-        )
-
-
-def _first_tensor(x):
-    if isinstance(x, torch.Tensor):
-        return x
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for item in x:
-            t = _first_tensor(item)
-            if t is not None:
-                return t
-    return None
-
-
-def speed_of_light(name: str, fn, *args, flops: float = 0.0,
-                   bytes_accessed: float = 0.0, iters: int = 5) -> KernelRoofline:
-    """Time `fn(*args)` (one warm-up call, then `iters` calls) and report
-    roofline numbers. On a card: CUDA events around the calls and a sync
-    before reading them; on the CPU: the host clock."""
-    out = _first_tensor(fn(*args))
-    cuda = out is not None and out.is_cuda
-    if cuda:
-        torch.cuda.synchronize(out.device)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(iters):
-            fn(*args)
-        end.record()
-        end.synchronize()
-        seconds = start.elapsed_time(end) / 1e3 / iters
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        seconds = (time.perf_counter() - t0) / iters
-    return KernelRoofline(name=name, seconds=seconds, flops=flops,
-                          bytes_accessed=bytes_accessed)

@@ -28,15 +28,21 @@ launches nothing, so while a thread captures, its wrappers' counts go to
 the graph's record (`ops/attention.count_launch`), which every replay
 adds: `launch_counts` stays the number of kernels run on the card, with
 other threads' launches and replays kept apart from the capture.
+
+Spans (`utils/profiling.py`): `step_loop.capture` over a graph's
+warm-up, capture and instantiation, `step_loop.loop` from the first
+step to the last stop read (`steps`), and `step_loop.stop_read` over
+each read of the flag. The loop ends on a read, also after its last
+step, so no step it queued is still running on the card when its span
+closes. None is opened inside a step: a replay stays one graph launch.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from ..ops import attention as att
+from . import profiling
 
 
 class StepGraph:
@@ -47,34 +53,34 @@ class StepGraph:
 
     def __init__(self, step, state: dict, generator: torch.Generator | None = None):
         device = next(iter(state.values())).device
-        t0 = time.perf_counter()
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            # warm-up on the capture stream, then the state put back: the
-            # cache rows it wrote are written again, equal, by the first replay
-            saved = {name: t.clone() for name, t in state.items()}
-            rng = generator.get_state() if generator is not None else None
-            step()
-            for name, t in state.items():
-                t.copy_(saved[name])
-            if rng is not None:
-                generator.set_state(rng)
-            del saved
-            self.graph = torch.cuda.CUDAGraph()
-            if generator is not None:
-                self.graph.register_generator_state(generator)
-            # thread_local: another thread's allocations (a concurrent
-            # request of the server) do not break this capture
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            att.capture.record = self.launches = {}
-            try:
+        with profiling.span("step_loop.capture", timed=True) as span:
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                # warm-up on the capture stream, then the state put back: the
+                # cache rows it wrote are written again, equal, by the first replay
+                saved = {name: t.clone() for name, t in state.items()}
+                rng = generator.get_state() if generator is not None else None
                 step()
-            finally:
-                att.capture.record = None
-                self.graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.capture_s = time.perf_counter() - t0
+                for name, t in state.items():
+                    t.copy_(saved[name])
+                if rng is not None:
+                    generator.set_state(rng)
+                del saved
+                self.graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    self.graph.register_generator_state(generator)
+                # thread_local: another thread's allocations (a concurrent
+                # request of the server) do not break this capture
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                att.capture.record = self.launches = {}
+                try:
+                    step()
+                finally:
+                    att.capture.record = None
+                    self.graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(stream)
+        self.capture_s = span.seconds
 
     def replay(self) -> None:
         self.graph.replay()
@@ -94,20 +100,21 @@ class _StopFlag:
             self.event = torch.cuda.Event()
 
     def read(self) -> bool:
-        if self.pinned is None:
-            return bool(self.finished.all())
-        self.pinned.copy_(self.finished.all(), non_blocking=True)
-        self.event.record()
-        self.event.synchronize()
-        return bool(self.pinned)
+        with profiling.span("step_loop.stop_read"):
+            if self.pinned is None:
+                return bool(self.finished.all())
+            self.pinned.copy_(self.finished.all(), non_blocking=True)
+            self.event.record()
+            self.event.synchronize()
+            return bool(self.pinned)
 
 
 def run_steps(step, state: dict, n_steps: int, every: int, graphed: bool | None,
               generator: torch.Generator | None = None,
               timings: dict | None = None) -> int:
     """Call `step()` (or replay its graph) until every row of
-    `state["finished"]` is set, as read before the first step and after
-    every `every` steps, or `n_steps` steps ran. Returns the steps run.
+    `state["finished"]` is set, as read before the first step, after
+    every `every` steps and after the last, or `n_steps` steps ran. Returns the steps run.
     graphed: None graphs the step on a CUDA device and runs it eagerly
     on the CPU with the flag read every step; False runs it eagerly (at
     `every`); True graphs it (CUDA only). `timings`, when given,
@@ -130,17 +137,18 @@ def run_steps(step, state: dict, n_steps: int, every: int, graphed: bool | None,
         run = graph.replay
         if timings is not None:
             timings["capture_s"] = graph.capture_s
-    t0 = time.perf_counter()
     done = 0
-    while True:
-        n = min(every, n_steps - done)
-        for _ in range(n):
-            run()
-        done += n
-        if done == n_steps or flag.read():
-            break
-    if timings is not None:
-        if flag.finished.is_cuda:
+    with profiling.span("step_loop.loop", timed=timings is not None) as span:
+        while True:
+            n = min(every, n_steps - done)
+            for _ in range(n):
+                run()
+            done += n
+            if flag.read() or done == n_steps:
+                break
+        if timings is not None and flag.finished.is_cuda:
             torch.cuda.synchronize(flag.finished.device)
-        timings["loop_s"] = time.perf_counter() - t0
+        span.set(steps=done)
+    if timings is not None:
+        timings["loop_s"] = span.seconds
     return done
