@@ -96,7 +96,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    flash_attention and cross_attention_int8 must have been launched;
 8. the LLM enrichment path (llama-3.1-8b at full width, random bf16
    weights from seed 0 drawn on the card, then quantized there by
-   quantize_tree at quantize_bits=4: int4 body, int8 lm_head):
+   quantize_tree at quantize_bits=4: int4 body, int8 lm_head; handed to
+   a TorchLlama on the card and taken as it holds them, q|k|v and gate|up
+   fused):
    int8_matmul, int4_matmul and int4_matmul_s8 against their plain
    versions at each of the path's shapes and one small ragged shape
    each (int4_matmul also at the longest stage prompt's 1748 rows, and
@@ -113,7 +115,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    quantized matmuls and of the Llama layer's four kernels), with the
    hidden state's error after each layer printed, and as a control the
    plain twin against itself with TF32 sums, each of the seven kernels
-   launched the number of times a layer calls it; a torch.profiler
+   launched the number of times a layer calls it (the int4 body 4 a
+   layer: q|k|v, out, gate|up, down); a torch.profiler
    window over one 1748-token prefill (device time by kernel); then, with
    the counts zeroed, the stage end to end:
    TorchLlama injected with set_llm, and AudioProcessingPipeline's
@@ -132,7 +135,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    equal to int4_matmul_s8 on the same inputs), timed single launch and
    back to back, with torch._int_mm plus the rescale timed at M = 32 as
    the library context (it takes no M ≤ 16); s8g4_matmul also at
-   llama-3.1-8b's decode shapes (4096→14336, 14336→4096), equal to and
+   llama-3.1-8b's unfused gate and down shapes (4096→14336, 14336→4096),
+   equal to and
    timed beside int4_matmul_s8 on the same inputs; then, with the counts
    zeroed, profile_llm_ops.main --steps 8 --iters 2, whose JSON of ms
    per step is printed; both kernels must have been launched there;
@@ -394,19 +398,21 @@ LLM_PROMPT = 512           # tokens of the prefill the model check runs
 LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
 # phase 8's (M, K, N) per kernel: the LLM path's shapes at M = LLM_PROMPT
 # prefill rows or the decode step's M = 1 (and the route's largest, 8),
-# then one small ragged shape; the first is the kernels line's row.
-# int8_matmul also runs the head at the longest prompt's rows and at the
-# decode step's M = 1 (its GEMV regime, the m <= 8 route on the card).
-# int4_matmul also runs the gate/up shape at the longest prompt's rows,
-# and the ragged shape again at G = 16 (a fourth entry: the group size)
+# then one small ragged shape; the first is the kernels line's row. The
+# int4 body's shapes are those the path launches with its siblings fused:
+# gate|up 4096→28672 (first), q|k|v 4096→6144, out 4096→4096, down
+# 14336→4096. int8_matmul also runs the head at the longest prompt's rows
+# and at the decode step's M = 1 (its GEMV regime, the m <= 8 route on the
+# card). int4_matmul also runs gate|up at the longest prompt's rows, and
+# the ragged shape again at G = 16 (a fourth entry: the group size)
 QUANT_SHAPES = {
     "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_LONG_PROMPT, 4096, 128256),
                     (1, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
-    "int4_matmul": ((LLM_PROMPT, 4096, 14336), (LLM_LONG_PROMPT, 4096, 14336),
-                    (LLM_PROMPT, 14336, 4096), (LLM_PROMPT, 4096, 4096),
-                    (LLM_PROMPT, 4096, 1024), (3, 256, 1000), (3, 256, 1000, 16)),
-    "int4_matmul_s8": ((1, 4096, 14336), (1, 14336, 4096), (1, 4096, 4096), (1, 4096, 1024),
-                       (8, 4096, 14336), (8, 14336, 4096), (3, 256, 1000)),
+    "int4_matmul": ((LLM_PROMPT, 4096, 28672), (LLM_LONG_PROMPT, 4096, 28672),
+                    (LLM_PROMPT, 4096, 6144), (LLM_PROMPT, 4096, 4096),
+                    (LLM_PROMPT, 14336, 4096), (3, 256, 1000), (3, 256, 1000, 16)),
+    "int4_matmul_s8": ((1, 4096, 28672), (1, 4096, 6144), (1, 4096, 4096), (1, 14336, 4096),
+                       (8, 4096, 28672), (8, 14336, 4096), (3, 256, 1000)),
 }
 PROFILER = "llama-3.2-3b"
 # phase 9's (M, K, N) for both profiler kernels: llama-3.2-3b's m = 1
@@ -1299,7 +1305,7 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
     stats["int8_matmul"] = kernel_row(rows[first], errs)
     stats["int8_matmul"]["library_note"] = notes[first]
 
-    # int4_matmul: the body prefill's four shapes (gate/up, down, q/out, k/v), ragged
+    # int4_matmul: the body prefill's four shapes (gate|up, q|k|v, out, down), ragged
     rows, errs = {}, {}
     for m, k, n, *group in QUANT_SHAPES["int4_matmul"]:
         x = randn(m, k).to(torch.bfloat16)
@@ -1333,7 +1339,8 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
         del x, q, wq, sc, out, lo, hi, w_deq
     stats["int4_matmul"] = kernel_row(rows[QUANT_SHAPES["int4_matmul"][0]], errs)
 
-    # int4_matmul_s8: the decode step's four shapes (M = 1), the route's largest M, ragged
+    # int4_matmul_s8: the decode step's four shapes (M = 1: gate|up, q|k|v, out,
+    # down), the route's largest M, ragged
     rows, errs = {}, {}
     for m, k, n in QUANT_SHAPES["int4_matmul_s8"]:
         q = weight(k, n, 4)
@@ -1463,7 +1470,9 @@ def check_llm_model(tq, lo, lm, params, dims, dev) -> None:
     print(f"  the same, decode step: {e_step_layers}")
     print(f"  control, the plain twin with TF32 sums vs the plain twin: prefill logits rel "
           f"err {e_tf32:.3e}; after each layer: {e_tf32_layers}")
-    n_proj, layers = 7 * dims.n_layer, dims.n_layer
+    # the int4 body a layer: q|k|v, out, gate|up and down, the siblings fused
+    layers = dims.n_layer
+    n_proj = 4 * layers
     # a layer: attention, RoPE, SwiGLU once; the norm twice (and the final
     # norm), plus the out projection's quantizer at a decode step
     assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0,
@@ -1618,12 +1627,16 @@ def profile_prefill(lm, params, dims, dev, card: str,
 
 def llm_model(tq, lm, dev):
     """llama-3.1-8b at the Q4 point: random bf16 weights from seed 0
-    drawn on the card and quantized there."""
+    drawn on the card and quantized there, then as a TorchLlama on the
+    card holds them (the int4 siblings fused where the tree fuses)."""
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+
     dims = lm.LLAMA_CONFIGS[LLM]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = tq.quantize_tree(lm.init_params(dims, torch.Generator(dev).manual_seed(0),
                                              torch.bfloat16, dev), bits=4)
+    params = llm_helper.TorchLlama(params, dims, device=dev).params
     torch.cuda.synchronize()
     print(f"{LLM}: random bf16 weights (seed 0) drawn and quantized on the card in "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -2609,7 +2622,7 @@ def graph_phase(att, tq, transcriber, windows: np.ndarray, llm, dev, card: str) 
     for res, _ in runs[False] + runs[True]:
         assert torch.equal(res.tokens, eager.tokens) and torch.equal(res.lengths, eager.lengths)
     body = sum(nbytes(*(t for t in leaf.values())) for blk in params["blocks"]
-               for name, leaf in blk.items() if name in lm.PROJECTIONS)
+               for name, leaf in blk.items() if not name.endswith("_norm"))
     head = nbytes(*params["lm_head"].values())
     kv = (2 * dims.n_layer * dims.n_kv_head * dims.head_dim * 2
           * (LLM_LONG_PROMPT + LLM_GRAPH_STEPS // 2))

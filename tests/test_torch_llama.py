@@ -247,3 +247,158 @@ def test_params_from_hf_state_dict_matches_jax(dtype):
                 assert val.dtype == getattr(torch, dtype) and val.is_contiguous()
                 np.testing.assert_array_equal(
                     val.float().numpy(), np.asarray(ref["blocks"][name][key][li], np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Fused sibling projections (models/llama.py:fuse_siblings): q|k|v and
+# gate|up as one int4 weight each, the forward splitting the output
+
+GQA_DIMS = tlm.LlamaDims(n_vocab=256, d_model=256, n_layer=2, n_head=8, n_kv_head=2,
+                         d_ff=512, max_ctx=64)       # 4 query heads a kv head
+
+
+def gqa_int4_params(dtype=torch.bfloat16):
+    return tq.quantize_tree(tlm.init_params(GQA_DIMS, torch.Generator().manual_seed(0), dtype),
+                            bits=4)
+
+
+def prefill_and_step(params, dtype, batch):
+    """Logits of a 12-token prefill (m = 12·batch: int4_matmul) and of a
+    decode step after it (m = batch: int4_matmul_s8), and the cache."""
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, GQA_DIMS.n_vocab, (batch, 12), generator=gen)
+    step = torch.randint(0, GQA_DIMS.n_vocab, (batch, 1), generator=gen)
+    cache = tlm.init_kv_cache(GQA_DIMS, batch, 16, dtype=dtype)
+    prefill, _ = tlm.forward(params, GQA_DIMS, tokens, cache, pos=0)
+    logits, _ = tlm.forward(params, GQA_DIMS, step, cache, pos=12)
+    return prefill, logits, cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_fused_siblings_forward_equals_separate(dtype, batch):
+    """The prefill and a decode step at m = 1 and m = 4 give the same
+    logits and cache, bit for bit, with the siblings fused: each output
+    column's sums do not depend on the columns beside it."""
+    params = gqa_int4_params(dtype)
+    fused = tlm.fuse_siblings(gqa_int4_params(dtype))
+    assert all("qkv" in b and "gate_up" in b for b in fused["blocks"])
+    got = prefill_and_step(fused, dtype, batch)
+    ref = prefill_and_step(params, dtype, batch)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert all(torch.equal(got[2][n], ref[2][n]) for n in ("k", "v"))
+
+
+def test_fusion_holds_the_siblings_side_by_side_and_releases_them():
+    """After fusion a block holds q|k|v and gate|up, their columns side by
+    side, and no separate q, k, v, gate or up: nothing keeps those alive."""
+    import gc
+    import weakref
+
+    params = gqa_int4_params()
+    want = [{fused: {key: torch.cat([b[n][key] for n in names], dim=1)
+                     for key in ("w_q4", "scale4")} for fused, names in tlm.SIBLINGS.items()}
+            for b in params["blocks"]]
+    outs = [b["out"]["w_q4"] for b in params["blocks"]]
+    separate = [weakref.ref(b[n][key]) for b in params["blocks"]
+                for n in ("q", "k", "v", "gate", "up") for key in ("w_q4", "scale4")]
+    assert tlm.fuse_siblings(params) is params
+    gc.collect()
+    assert all(r() is None for r in separate)
+    for block, expect, out in zip(params["blocks"], want, outs):
+        assert set(block) == {"qkv", "out", "gate_up", "down", "attn_norm", "mlp_norm"}
+        for fused, weights in expect.items():
+            assert set(block[fused]) == {"w_q4", "scale4"}
+            assert all(torch.equal(block[fused][k], w) for k, w in weights.items())
+        assert block["out"]["w_q4"] is out
+    tlm.fuse_siblings(params)                       # a second call changes nothing
+    assert all(torch.equal(b["qkv"]["w_q4"], e["qkv"]["w_q4"])
+               for b, e in zip(params["blocks"], want))
+
+
+@pytest.mark.parametrize("case", ["dense", "int8", "mixed", "unequal_groups"])
+def test_blocks_of_other_formats_stay_separate(case):
+    """Only siblings that are all int4 with one group count fuse; the
+    forward of a partly fused dict equals the separate one's."""
+    dense = tlm.init_params(GQA_DIMS, torch.Generator().manual_seed(0), torch.bfloat16)
+    if case == "dense":
+        params = dense
+    elif case == "int8":
+        params = tq.quantize_tree(dense, bits=8)
+    else:
+        params = tq.quantize_tree(dense, bits=4)
+        block = params["blocks"][0]
+        if case == "mixed":           # q int8 beside int4 k and v
+            block["q"] = tq.quantize_int8(dense["blocks"][0]["q"]["w"])
+        else:                          # gate in groups of 128, up in groups of 64
+            block["up"] = tq.quantize_int4(dense["blocks"][0]["up"]["w"], group=64)
+    ref = prefill_and_step(params, torch.bfloat16, 1)
+    tlm.fuse_siblings(params)
+    first, second = params["blocks"]
+    if case in ("dense", "int8"):
+        assert not any(n in b for b in params["blocks"] for n in tlm.SIBLINGS)
+    elif case == "mixed":
+        assert {"q", "k", "v", "gate_up"} <= set(first) and "qkv" not in first
+        assert {"qkv", "gate_up"} <= set(second)
+    else:
+        assert {"qkv", "gate", "up"} <= set(first) and "gate_up" not in first
+        assert {"qkv", "gate_up"} <= set(second)
+    got = prefill_and_step(params, torch.bfloat16, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], ref[:2]))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("head", ["int8", "int4"])
+def test_decode_forward_calls_int4_matmul_s8_four_times_a_layer_fused(fused, head,
+                                                                      monkeypatch):
+    """A decode forward (m = 1) calls the W4A8 kernel's wrapper once for
+    q|k|v, out, gate|up and down: 4 a layer fused, 7 separate, and one
+    more for an int4 head. The count is taken where matmul_any looks the
+    wrapper up, on the quant module."""
+    params = gqa_int4_params()
+    if head == "int4":
+        params["lm_head"] = tq.quantize_int4(
+            tlm.init_params(GQA_DIMS, torch.Generator().manual_seed(0))["lm_head"]["w"])
+    if fused:
+        tlm.fuse_siblings(params)
+    cache = tlm.init_kv_cache(GQA_DIMS, 1, 16, dtype=torch.bfloat16)
+    tlm.forward(params, GQA_DIMS, torch.tensor([[3, 4, 5]]), cache, pos=0)
+    calls = []
+    kernel = tq.int4_matmul_s8
+    monkeypatch.setattr(tq, "int4_matmul_s8", lambda *a: calls.append(a[2].shape) or kernel(*a))
+    tlm.forward(params, GQA_DIMS, torch.tensor([[6]]), cache, pos=3)
+    per_layer = 4 if fused else 7
+    assert len(calls) == per_layer * GQA_DIMS.n_layer + (head == "int4")
+    if fused:
+        d, kv, f = GQA_DIMS.d_model, GQA_DIMS.n_kv_head * GQA_DIMS.head_dim, GQA_DIMS.d_ff
+        assert calls[:4] == [(d // 2, d + 2 * kv), (d // 2, d), (d // 2, 2 * f), (f // 2, d)]
+
+
+@pytest.mark.parametrize("batch,t", [(1, 1), (4, 1), (1, 12)])
+def test_fused_outputs_reach_the_layers_kernels_dense(batch, t, monkeypatch):
+    """q, k, v and gate, up reach RoPE and SwiGLU dense: at m = 1 as views
+    of the one fused output, copied by nothing; at m > 1 as copies of its
+    columns."""
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops
+
+    params = tlm.fuse_siblings(gqa_int4_params())
+    seen = []
+    rope, swiglu = llama_ops.llama_rope_cache, llama_ops.llama_swiglu_quant
+
+    def rope_spy(q, k, v, *args):
+        seen.append((q, k, v))
+        return rope(q, k, v, *args)
+
+    def swiglu_spy(gate, up, *args):
+        seen.append((gate, up))
+        return swiglu(gate, up, *args)
+
+    monkeypatch.setattr(llama_ops, "llama_rope_cache", rope_spy)
+    monkeypatch.setattr(llama_ops, "llama_swiglu_quant", swiglu_spy)
+    cache = tlm.init_kv_cache(GQA_DIMS, batch, 16, dtype=torch.bfloat16)
+    tlm.forward(params, GQA_DIMS, torch.full((batch, t), 5), cache, pos=0)
+    assert len(seen) == 2 * GQA_DIMS.n_layer
+    for parts in seen:
+        assert all(p.is_contiguous() for p in parts)
+        storages = {p.untyped_storage().data_ptr() for p in parts}
+        assert len(storages) == (1 if batch * t == 1 else len(parts))

@@ -426,3 +426,59 @@ def test_cuda_rope_cache_matches_plain_version(cuda_device):
         _close(got, ref, 1e-2)
         _close(ck, rck, 1e-2)
         assert torch.equal(cv, rcv)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_8b_decode_step_fused_equals_separate(cuda_device):
+    """The graphed m = 1 step at the 8B widths (two layers) from one
+    prefilled cache: fused siblings give the same logits, tokens and
+    cache, bit for bit, in 4 int4_matmul_s8 launches a layer in place of
+    7. The prefill runs with the separate weights on both sides: at m > 8
+    int4_matmul plans k and v apart from q|k|v, so their sums may round
+    otherwise there."""
+    import dataclasses
+
+    from turbo_whisper_workspace_tpu_torch.llm import llm_helper
+    from turbo_whisper_workspace_tpu_torch.utils.step_loop import StepGraph
+
+    dims = dataclasses.replace(tlm.LLAMA_CONFIGS["llama-3.1-8b"], n_layer=2, max_ctx=512)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    params = tq.quantize_tree(tlm.init_params(dims, gen, torch.bfloat16, cuda_device), bits=4)
+    fused = tlm.fuse_siblings({**params, "blocks": [dict(b) for b in params["blocks"]]})
+    assert all("q" in b and "qkv" in f for b, f in zip(params["blocks"], fused["blocks"]))
+    prompt = torch.randint(0, dims.n_vocab, (1, 300), generator=gen, device=cuda_device)
+    cache = tlm.init_kv_cache(dims, 1, 320, device=cuda_device)
+    with torch.no_grad():
+        tlm.forward(params, dims, prompt, cache, pos=0)
+    prefilled = {n: x.clone() for n, x in cache.items()}
+
+    def steps(p, n=6):
+        for name, x in cache.items():
+            x.copy_(prefilled[name])
+        state = {"tok": torch.zeros((1, 1), dtype=torch.long, device=cuda_device),
+                 "pos": torch.tensor(300, device=cuda_device),
+                 "logits": torch.zeros(1, dims.n_vocab, device=cuda_device)}
+
+        def step():
+            logits, _ = tlm.forward(p, dims, state["tok"], cache, pos=state["pos"])
+            state["logits"].copy_(logits[:, 0])
+            state["tok"].copy_(logits[:, 0].argmax(-1, keepdim=True))
+            state["pos"].add_(1)
+
+        with torch.no_grad():
+            graph = StepGraph(step, state)
+            before = tq.launch_counts["int4_matmul_s8"]
+            out = []
+            for _ in range(n):
+                graph.replay()
+                out.append(state["logits"].clone())
+        torch.cuda.synchronize()
+        return (torch.stack(out), {k: x.clone() for k, x in cache.items()},
+                (tq.launch_counts["int4_matmul_s8"] - before) // n)
+
+    ref, got = steps(params), steps(fused)
+    assert torch.equal(got[0], ref[0])
+    assert all(torch.equal(got[1][n], ref[1][n]) for n in ("k", "v"))
+    assert (ref[2], got[2]) == (7 * dims.n_layer, 4 * dims.n_layer)
+    llm = llm_helper.TorchLlama(params, dims, device=cuda_device)    # fuses in place
+    assert all(set(b) >= {"qkv", "gate_up"} and "q" not in b for b in llm.params["blocks"])

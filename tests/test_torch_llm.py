@@ -170,14 +170,15 @@ def test_get_llm_loads_checkpoint_like_jax(tmp_path, monkeypatch):
     got = tlh.get_llm(TLLMConfig(model="none"), device="cpu")
     assert isinstance(got, tlh.TorchLlama) and got.device.type == "cpu"
     assert got.dims.n_vocab == config["vocab_size"] and got.dims.n_layer == DIMS.n_layer
-    # the Q4 point: int4 body and int8 head, bit-equal to the JAX loader's
-    assert "w_q4" in got.params["blocks"][0]["q"] and "w_q" in got.params["lm_head"]
+    # the Q4 point: int4 body and int8 head, bit-equal to the JAX loader's;
+    # q|k|v and gate|up fused, the JAX loader's projections side by side
+    assert "w_q4" in got.params["blocks"][0]["qkv"] and "w_q" in got.params["lm_head"]
     for li, block in enumerate(got.params["blocks"]):
         for name, proj in block.items():
             for key, val in proj.items():
-                np.testing.assert_array_equal(
-                    val.float().numpy(), np.asarray(ref.params["blocks"][name][key][li],
-                                                    np.float32))
+                want = [np.asarray(ref.params["blocks"][n][key][li], np.float32)
+                        for n in tlm.SIBLINGS.get(name, (name,))]
+                np.testing.assert_array_equal(val.float().numpy(), np.concatenate(want, -1))
     tokens = np.random.default_rng(10).integers(0, DIMS.n_vocab, (1, 12))
     ref_logits, _ = jlm.forward(ref.params, ref.dims, jnp.asarray(tokens))
     got_logits, _ = tlm.forward(got.params, got.dims, torch.from_numpy(tokens))

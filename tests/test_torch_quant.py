@@ -223,6 +223,10 @@ def test_int4_s8_reference_matches_jax(m, n, group):
     (1, 14336, 4096, True, 8),     # 32 tiles: K split, a pair a warp, 224 blocks
     (1, 4096, 4096, True, 2),      # 32 tiles: 2 pairs a block, 4 warps a pair
     (1, 4096, 1024, True, 1),      # 8 tiles: 16 blocks a tile
+    (1, 4096, 6144, True, 2),      # q|k|v fused: 48 tiles, 2 pairs a block, 384 blocks
+    (1, 4096, 28672, True, 16),    # gate|up fused: 224 tiles, no split
+    (1, 3072, 5120, True, 2),      # llama-3.2-3b's q|k|v: 40 tiles, 240 blocks
+    (1, 3072, 16384, True, 12),    # its gate|up: 128 tiles, no split
     (3, 256, 1000, False, 1)])     # one pair: nothing to split
 def test_s8_plan_splits_k_only_to_fill_the_card(m, k, n, wide, pairs):
     n_groups = k // 128
@@ -379,6 +383,29 @@ def test_cuda_quant_kernels_match_plain_versions(cuda_device, m, k, n):
     xq, xs = tq.quant_act_grouped(x, k // 128)
     assert torch.equal(tq.int4_matmul_s8(xq, xs, q128["w_q4"], q128["scale4"]),
                        tq.int4_matmul_s8_reference(xq, xs, q128["w_q4"], q128["scale4"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,pairs", [((4096, 1024, 1024), 2), ((14336, 14336), 16)])
+def test_cuda_fused_int4_s8_launch_equals_separate_launches(cuda_device, widths, pairs):
+    """One launch over sibling weights side by side (the 8B layer's q|k|v,
+    whose plan splits K, and gate|up, whose plan does not) equals their
+    separate launches bit for bit: a column's s32 dots and their fold in
+    group order do not depend on the grid."""
+    k, groups = 4096, 32
+    gen = torch.Generator(cuda_device).manual_seed(len(widths))
+    x = torch.randn(1, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    xq, xs = tq.quant_act_grouped(x, groups)
+    parts = [tq.quantize_int4(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5)
+             for n in widths]
+    w_q4 = torch.cat([p["w_q4"] for p in parts], 1)
+    scale4 = torch.cat([p["scale4"] for p in parts], 1)
+    assert tq.s8_pairs_per_block(1, k, sum(widths), groups, True) == pairs
+    before = tq.launch_counts["int4_matmul_s8"]
+    got = tq.int4_matmul_s8(xq, xs, w_q4, scale4)
+    assert tq.launch_counts["int4_matmul_s8"] == before + 1
+    separate = [tq.int4_matmul_s8(xq, xs, p["w_q4"], p["scale4"]) for p in parts]
+    assert torch.equal(got, torch.cat(separate, 1))
 
 
 @pytest.mark.cuda

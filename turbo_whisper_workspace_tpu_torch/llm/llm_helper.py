@@ -65,19 +65,23 @@ class TorchLlama:
     the prompt and generated token counts and the prefill and decode
     wall seconds of the last call. The span `llm.generate` covers the
     generation and the tokens' copy back; the tokenizer's work is its
-    caller's."""
+    caller's. It takes `params` as its own and joins their int4 sibling
+    projections in place (`models/llama.py:fuse_siblings`): q, k and v,
+    and gate and up, then run as one matmul each. The caller's dict is
+    that same dict, and no longer holds the separate tensors."""
 
     is_dummy = False
 
     def __init__(self, params, dims, tokenizer=None,
                  device: torch.device | str = "cuda"):
         from ..decode.tokenizer import ByteFallbackTokenizer
+        from ..models.llama import fuse_siblings
         from ..pipeline.transcriber import resolve_device
 
-        self.params = params
         self.dims = dims
         self.tokenizer = tokenizer or ByteFallbackTokenizer()
         self.device = resolve_device(device)
+        self.params = fuse_siblings(params)
         self.last_generation: dict = {}
 
     def generate(self, prompt: str, max_tokens: int = 256,

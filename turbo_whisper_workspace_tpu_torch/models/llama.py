@@ -25,6 +25,12 @@ m ≤ 8, the grouped int8 quantizer, whose (xq, xs) q, k and v (or gate
 and up) share; RoPE with the cache write; GQA attention over the cache;
 SwiGLU with the quantizer of the down projection's input. On the CPU
 their plain versions compute what this module computed before them.
+
+Projections that read one input (q, k and v; gate and up) run as one
+matmul over their weights concatenated along N where `fuse_siblings`
+has joined them (`TorchLlama` does so): one launch of a kernel in
+place of three or two, its output split into each projection's columns
+(views at m = 1; at m > 1 dense copies, which the layer's kernels take).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import torch
 from ..ops import llama_ops, quant
 
 PROJECTIONS = ("q", "k", "v", "out", "gate", "up", "down")
+# a fused projection's name → the sibling projections it joins, in column order
+SIBLINGS = {"qkv": ("q", "k", "v"), "gate_up": ("gate", "up")}
 
 
 @dataclass(frozen=True)
@@ -159,13 +167,37 @@ def init_kv_cache(dims: LlamaDims, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def fuse_siblings(params: dict) -> dict:
+    """Joins each block's sibling projections (SIBLINGS) in place, where
+    all of them are int4 {"w_q4", "scale4"} of one K and one group count:
+    the block gets {"w_q4" (K/2, ΣN), "scale4" (K/G, ΣN)}, their columns
+    side by side, under the fused name and loses the separate ones. Dense,
+    int8 and mixed blocks keep theirs. A block at a time, so memory peaks
+    at one layer's siblings above the weights. The dict is changed, not
+    copied: whoever holds it holds the fused blocks. Returns params."""
+    for block in params["blocks"]:
+        for fused, names in SIBLINGS.items():
+            parts = [block.get(n) for n in names]
+            if not all(p is not None and set(p) == {"w_q4", "scale4"} and p["w_q4"].ndim == 2
+                       for p in parts):
+                continue
+            if len({(p["w_q4"].shape[0], p["scale4"].shape[0]) for p in parts}) != 1:
+                continue
+            block[fused] = {key: torch.cat([p[key] for p in parts], dim=1)
+                            for key in ("w_q4", "scale4")}
+            for n in names:
+                del block[n]
+    return params
+
+
 def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
             kv_cache: dict | None = None, pos: int | torch.Tensor = 0):
     """tokens (B, T) → (logits (B, T, vocab) f32, cache). Logits come for
     every position, as the JAX function computes them (the prefill's
     lm_head thus runs at m = B·T). With no cache a fresh one of length T
     is used and None is returned in its place. `pos` is an int or a 0-dim
-    int64 tensor on the tokens' device; positions past max_ctx raise."""
+    int64 tensor on the tokens' device; positions past max_ctx raise.
+    Blocks may hold fused siblings (`fuse_siblings`) or separate ones."""
     b, t = tokens.shape
     dtype = params["token_emb"].dtype
     h, kvh, dh = dims.n_head, dims.n_kv_head, dims.head_dim
@@ -191,14 +223,28 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
     def project(x: torch.Tensor, wp: dict, act) -> torch.Tensor:
         return quant.matmul_any(x, wp) if act is None else quant.matmul_any(x, wp, act=act)
 
+    widths = {"q": h * dh, "k": kvh * dh, "v": kvh * dh, "gate": dims.d_ff, "up": dims.d_ff}
+
+    def held(block: dict, fused: str) -> tuple:
+        """The names the block holds the siblings `fused` joins under."""
+        return (fused,) if fused in block else SIBLINGS[fused]
+
+    def project_siblings(x: torch.Tensor, block: dict, fused: str, act) -> list:
+        """The sibling projections of x: one matmul over the fused weight,
+        split by columns (at m = 1 dense views, copied by nothing), or one
+        matmul each."""
+        if fused not in block:
+            return [project(x, block[n], act) for n in SIBLINGS[fused]]
+        parts = project(x, block[fused], act).split([widths[n] for n in SIBLINGS[fused]], -1)
+        return [p.contiguous() for p in parts]
+
     delta = None                 # the last layer's output, added before the next norm
     for li, block in enumerate(params["blocks"]):
         ck, cv = kv_cache["k"][li], kv_cache["v"][li]                # (B, S, kvh·dh) views
         x, hnorm, act = llama_ops.llama_norm_quant(x, block["attn_norm"]["scale"], eps, delta,
-                                                   groups(block, ("q", "k", "v")))
-        q = project(hnorm, block["q"], act).reshape(b, t, h, dh)
-        k = project(hnorm, block["k"], act).reshape(b, t, kvh, dh)
-        v = project(hnorm, block["v"], act).reshape(b, t, kvh, dh)
+                                                   groups(block, held(block, "qkv")))
+        q, k, v = project_siblings(hnorm, block, "qkv", act)
+        q, k, v = q.reshape(b, t, h, dh), k.reshape(b, t, kvh, dh), v.reshape(b, t, kvh, dh)
         # k and v written in place, at the positions' rows
         q = llama_ops.llama_rope_cache(q, k, v, ck, cv, cos, sin, pos)
         attn = llama_ops.llama_attention(q, ck, cv, pos)               # (B, t, H·dh)
@@ -209,9 +255,8 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
         delta = project(attn, block["out"], act)
 
         x, hnorm, act = llama_ops.llama_norm_quant(x, block["mlp_norm"]["scale"], eps, delta,
-                                                   groups(block, ("gate", "up")))
-        gate = project(hnorm, block["gate"], act)
-        up = project(hnorm, block["up"], act)
+                                                   groups(block, held(block, "gate_up")))
+        gate, up = project_siblings(hnorm, block, "gate_up", act)
         prod, act = llama_ops.llama_swiglu_quant(gate, up, groups(block, ("down",)))
         delta = project(prod, block["down"], act)
 
