@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products and convolutions;
-2. build: compiles the seventeen CUDA kernels from csrc/ (one nvcc each,
+2. build: compiles the twenty-one CUDA kernels from csrc/ (one nvcc each,
    in parallel);
 3. kernels against their plain PyTorch versions at large-v3-turbo shapes
    in bf16 (flash_attention B=8 H=20 T=1500 on (B, T, H·64) projections
@@ -255,7 +255,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    T = 227 at pos 115 and 226 (device pos), the prompt's t = 3 and a
    40-token prompt (its prefill regime), without the position mask above
    the limit; each timed single launch and back to back beside its plain
-   version, its bound and the library call where one exists
+   version, its bound and the library call where one exists;
+17. the DeepSeek-V3 path (models/deepseek_v3.py) at Moonlight-16B-A3B's
+   widths: int4_matmul_s8 bit-equal to its plain version at phase 8's
+   shapes (its sweep is shared with int4_moe_s8 in csrc/int4_s8.cuh);
+   int4_moe_s8 bit-equal to its plain version at the decode step's
+   gate|up (8 rows, one input, split) and down (group 64), a split-K
+   plan and a ragged one (a repeated and an out-of-range id);
+   int4_group_matmul against its plain version with the limits of phase 3
+   over ~10500 rows loaded unevenly on the 66 experts (gate|up split, and
+   down); moe_route
+   against its plain version over 1, 8 and 1500 rows (ids equal but at
+   near-ties, which are counted; weights within 1e-6); mla_attention
+   against its plain version with the limits of phase 3 at device
+   positions 1800, 0 and 2047 of a 2048-row cache, a host position and
+   two head tiles, the cache row written bit-equal and nowhere else, the
+   position mask dropped above the limit, a graph replay at a new
+   position; both timed single and back to back beside their bounds (and
+   scaled_dot_product_attention on the absorbed rows); then the model at
+   3 layers (Q4) served by TorchLlama: a 1500-token prefill and a decode
+   step against the plain twin, the graphed generation against the eager
+   one, the kernels' launches a step.
    (F.layer_norm, the norm alone; scaled_dot_product_attention); then
    the greedy step (bf16 self cache) and the beam-5 lanes step replayed
    from a StepGraph against the eager step function, every field of the
@@ -267,11 +287,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paths of phases 4-14.
 
 Prints a `kernels` JSON line (launches summed over the runs of phases 4
-to 14, the TP ranks' included; every one of the seventeen kernels must
+to 14 and 17, the TP ranks' included; every one of the twenty-one kernels must
 have been launched), then as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is unavailable.
+
+    python3 chip_smoke.py --moe
+
+builds the kernels and runs phase 17 alone (no kernels line).
 
     python3 chip_smoke.py --llm-profile
 
@@ -392,7 +416,22 @@ REPLACES = {
     "whisper_norm": "turbo_whisper_workspace_tpu/models/whisper.py:182",
     "whisper_kv_rows": "turbo_whisper_workspace_tpu/models/whisper.py:420",
     "whisper_logit_rules": "turbo_whisper_workspace_tpu/decode/rules.py:87",
+    # no JAX code at all: the JAX package runs no DeepSeek-V3 model
+    "int4_moe_s8": "none (the JAX package has no mixture of experts)",
+    "mla_attention": "none (the JAX package has no latent attention)",
+    "moe_route": "none (the JAX package has no mixture of experts)",
+    "int4_group_matmul": "none (the JAX package has no mixture of experts)",
 }
+# phase 17: Moonlight-16B-A3B's widths at MOE_LAYERS layers (the dense
+# one and two expert layers), a MOE_PROMPT-token prefill (~140 rows an
+# expert) and the decode kernels at MOE_POS of a MOE_CACHE-row cache
+MOE = "moonlight-16b-a3b"
+MOE_LAYERS = 3
+MOE_PROMPT = 1500
+MOE_POS = 1800
+MOE_CACHE = 2048
+MOE_EXPERTS = 66           # 64 routed and 2 shared, stacked
+MOE_BIAS_STD = 0.02        # the router's selection bias in phase 17's model
 LLM = "llama-3.1-8b"
 LLM_PROMPT = 512           # tokens of the prefill the model check runs
 LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
@@ -3649,6 +3688,340 @@ def before_only(tree: str) -> int:
     return 0
 
 
+def moe_kernels(tq, dev, gen, flush, card: str) -> dict:
+    """Phase 17, the experts' kernel: int4_matmul_s8 (its sweep now in
+    csrc/int4_s8.cuh) bit-equal to its plain version at the Llama
+    shapes; int4_moe_s8 bit-equal to its plain version at the Moonlight
+    decode step's gate|up (8 rows over one quantized input, split into
+    gate and up) and down (group 64), a split-K plan (1 row) and a ragged
+    one with a repeated and an out-of-range id; timed."""
+    for m, k, n in QUANT_SHAPES["int4_matmul_s8"]:
+        w = tq.quantize_int4(torch.randn(k, n, generator=gen, device=dev) * k ** -0.5,
+                             group=min(128, k // 2))
+        xq, xs = tq.quant_act_grouped(torch.randn(m, k, generator=gen, device=dev),
+                                      w["scale4"].shape[0])
+        assert torch.equal(tq.int4_matmul_s8(xq, xs, w["w_q4"], w["scale4"]),
+                           tq.int4_matmul_s8_reference(xq, xs, w["w_q4"], w["scale4"])), (m, k, n)
+    print(f"int4_matmul_s8 (sweep in int4_s8.cuh): bit-equal to its plain version at "
+          f"{QUANT_SHAPES['int4_matmul_s8']}")
+    # label → (rows, x_div, K, N, split, group)
+    shapes = {"gate|up": (8, 8, 2048, 2816, True, 128), "down": (8, 1, 1408, 2048, False, 64),
+              "down, 1 row (split K)": (1, 1, 1408, 2048, False, 64),
+              "ragged": (3, 3, 256, 1000, False, 32)}
+    rows_out, moe_errs = {}, {}
+    for label, (rows, x_div, k, n, split, group) in shapes.items():
+        w = tq.quantize_int4(torch.randn(MOE_EXPERTS, k, n, generator=gen, device=dev)
+                             * k ** -0.5, group=group)
+        xq, xs = tq.quant_act_grouped(torch.randn(rows // x_div, k, generator=gen, device=dev),
+                                      k // group)
+        ids = torch.randperm(MOE_EXPERTS, generator=gen, device=dev)[:rows]
+        if label == "ragged":
+            ids = torch.tensor([5, 5, 99], device=dev)          # 99 reads expert 65
+        args = (xq, xs, w["w_q4"], w["scale4"], ids)
+        got = tq.int4_moe_s8(*args, x_div=x_div, split=split)
+        ref = tq.int4_moe_s8_reference(*args, x_div=x_div, split=split)
+        for a, b in zip(got if split else (got,), ref if split else (ref,)):
+            assert torch.equal(a, b), label
+        got, ref = (torch.cat(got, -1), torch.cat(ref, -1)) if split else (got, ref)
+        moe_errs[label] = ((got.float() - ref.float()).abs().max().item(), rel_err(got, ref))
+        wide = n % 16 == 0
+        pb = tq.s8_pairs_per_block(rows, k, n, k // group, wide, rows_per_block=1)
+        print(f"int4_moe_s8 {label}: rows {rows}, x_div {x_div}, {k}→{n}, group {group}, "
+              f"pairs a block {pb} of {k // group // 2}: bit-equal to its plain version")
+        if label in ("gate|up", "down"):
+            n_bytes = rows * (k // 2 * n + 4 * (k // group) * n) + nbytes(xq, xs) + 2 * rows * n
+            n_ops = 2.0 * rows * k * n
+            row = timed(f"int4_moe_s8 {label}", lambda: tq.int4_moe_s8(*args, x_div=x_div,
+                                                                       split=split),
+                        lambda: tq.int4_moe_s8_reference(*args, x_div=x_div, split=split),
+                        n_bytes, n_ops, flush, PEAK_INT8_OPS)
+            # back to back: each launch picks other experts of the 66 (190 MB of
+            # gate|up, over the L2), as the steps of a decode do
+            copies = [(xq, xs, w["w_q4"], w["scale4"],
+                       torch.randperm(MOE_EXPERTS, generator=gen, device=dev)[:rows])
+                      for _ in range(BACK_TO_BACK)]
+            b2b = back_to_back_ms(lambda *a: tq.int4_moe_s8(*a, x_div=x_div, split=split),
+                                  copies, flush)
+            print(f"int4_moe_s8 {label}: back-to-back {b2b:.4f} ms per launch, other experts "
+                  f"each launch [{card}]")
+            rows_out[label] = {**row, "back_to_back_ms": b2b}
+    stats = {"int4_moe_s8": kernel_row(rows_out["gate|up"], moe_errs)}
+    # the prefill's grouped product: ~12000 rows over the 66 experts, loaded
+    # as a 1500-token prompt routes them (uneven, some experts idle)
+    load = torch.distributions.Dirichlet(torch.full((64,), 0.3)).sample() * MOE_PROMPT * 6
+    counts = [int(c) for c in load.round().tolist()] + [MOE_PROMPT, MOE_PROMPT]
+    errs = {}
+    for label, (k, n, split, group) in {"gate|up": (2048, 2816, True, 128),
+                                        "down": (1408, 2048, False, 64)}.items():
+        w = tq.quantize_int4(torch.randn(MOE_EXPERTS, k, n, generator=gen, device=dev)
+                             * k ** -0.5, group=group)
+        x = torch.randn(sum(counts), k, generator=gen, device=dev).bfloat16()
+        args = (x, w["w_q4"], w["scale4"], counts)
+        got = tq.int4_group_matmul(*args, split=split)
+        ref = tq.int4_group_matmul_reference(*args, split=split)
+        got, ref = (torch.cat(got, -1), torch.cat(ref, -1)) if split else (got, ref)
+        # outputs of order 5 in bf16: an ulp there is 3e-2, so the max abs
+        # limit scales with max|ref|
+        errs[label] = compare(f"int4_group_matmul {label} {sum(counts)} rows, {k}→{n}", got,
+                              ref, {}, relative_max=True)
+        n_ops = 2.0 * sum(counts) * k * n
+        n_bytes = MOE_EXPERTS * (k // 2 * n + 4 * (k // group) * n) + 2 * sum(counts) * (k + n)
+        row = timed(f"int4_group_matmul {label}", lambda: tq.int4_group_matmul(*args, split=split),
+                    lambda: tq.int4_group_matmul_reference(*args, split=split), n_bytes, n_ops,
+                    flush)
+        if label == "gate|up":
+            stats["int4_group_matmul"] = row
+    stats["int4_group_matmul"] = kernel_row(stats["int4_group_matmul"], errs)
+    return stats
+
+
+def route_kernel(dev, gen, flush, card: str) -> dict:
+    """Phase 17, the router: moe_route against its plain version at
+    Moonlight's widths (2048 → 64, top 6, 2 shared) over 1, 8 and 1500
+    rows: the chosen sets equal on every row whose k-th and (k+1)-th
+    choice scores are not within 1e-5 (those are counted), ids in the
+    same order, the weights within 1e-6 relative; timed at one row. The
+    row's errors are the weights' over the rows whose ids agree, beside
+    the counts of near-ties and of rows whose ids differ."""
+    from turbo_whisper_workspace_tpu_torch.ops import moe_ops
+
+    w = (torch.randn(64, 2048, generator=gen, device=dev) * 2048 ** -0.5).bfloat16()
+    bias = torch.randn(64, generator=gen, device=dev) * 0.01
+    shared = torch.arange(64, 66, device=dev)
+    args, errs, near_ties, differ = None, {}, 0, 0
+    for rows in (1, 8, MOE_PROMPT):
+        h = torch.randn(rows, 2048, generator=gen, device=dev).bfloat16()
+        args = (h, w, bias, shared, 6, 2.446)
+        ids, wt = moe_ops.moe_route(*args)
+        ids_r, wt_r = moe_ops.moe_route_reference(*args)
+        choice = (torch.sigmoid(h.float() @ w.float().T) + bias).sort(-1, descending=True).values
+        near = (choice[:, 5] - choice[:, 6]) < 1e-5
+        same = (ids == ids_r).all(-1)
+        assert bool((same | near).all()), (rows, int((~same).sum()))
+        err = ((wt - wt_r).abs() / wt_r.abs()).masked_fill(~same[:, None], 0).max().item()
+        assert err <= 1e-6, err
+        if same.any():
+            errs[rows] = ((wt - wt_r)[same].abs().max().item(), rel_err(wt[same], wt_r[same]))
+        near_ties, differ = near_ties + int(near.sum()), differ + int((~same).sum())
+        print(f"moe_route {rows} rows: ids equal on {int(same.sum())} rows, near-ties "
+              f"{int(near.sum())}, weights max rel err {err:.2e}, (max abs, rel l2) "
+              f"{errs.get(rows)}")
+    h = args[0][:1]
+    n_bytes = nbytes(h, w, bias) + 8 * 8 * 2
+    row = timed("moe_route 1 row, 2048 → 64, top 6", lambda: moe_ops.moe_route(h, *args[1:]),
+                lambda: moe_ops.moe_route_reference(h, *args[1:]), n_bytes,
+                2.0 * 2048 * 64, flush)
+    return {"moe_route": {**kernel_row(row, errs), "near_ties": near_ties,
+                          "rows_ids_differ": differ}}
+
+
+def mla_inputs(gen, dev, b: int, h: int, s_len: int) -> tuple:
+    """mla_attention's inputs: q_lat (B, 1, H, 512), q_pe and k_pe as the
+    rope columns of a fused projection's rows (strided views), c_kv, and
+    a cache of random rows (the earlier positions)."""
+    bf16 = torch.bfloat16
+    q_lat = torch.randn(b, 1, h, 512, generator=gen, device=dev).to(bf16)
+    q = torch.randn(b, 1, h, 192, generator=gen, device=dev).to(bf16)
+    kv = torch.randn(b, 1, 576, generator=gen, device=dev).to(bf16)
+    cache = torch.randn(b, s_len, 576, generator=gen, device=dev).to(bf16)
+    return q_lat, q[..., 128:], kv[..., :512].contiguous(), kv[..., 512:], cache
+
+
+def mla_kernels(dev, gen, flush, card: str) -> dict:
+    """Phase 17, the latent attention: mla_attention against its plain
+    version (limits of phase 3) at B = 1, 16 heads, a 2048-row cache at
+    device positions 1800, 0 and 2047, a host position, and B = 2 at 32
+    heads (two head tiles); the cache written where the plain version
+    writes it, bit-equal, and nowhere else; the kernel without the
+    position mask (every row visible) above the limit; one launch
+    captured in a CUDA graph and replayed at another position; its
+    ranks held to the Python mirror; timed at position 1800."""
+    from turbo_whisper_workspace_tpu_torch.models import deepseek_v3 as ds
+    from turbo_whisper_workspace_tpu_torch.ops import mla_ops
+
+    dims = ds.DEEPSEEK_V3_CONFIGS[MOE]
+    cos, sin = ds._rope_table(dims, dev)
+    scale = dims.qk_head_dim ** -0.5
+    errs = {}
+    for b, h, pos in ((1, 16, MOE_POS), (1, 16, 0), (1, 16, MOE_CACHE - 1), (2, 32, 700),
+                      (1, 16, "host")):
+        q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, b, h, MOE_CACHE)
+        at = 900 if pos == "host" else pos
+        p = at if pos == "host" else torch.tensor(at, device=dev)
+        clusters = b * -(-h // mla_ops.HEADS_A_BLOCK)
+        assert mla_ops.ranks(MOE_CACHE, clusters) == mla_ops.kernel_ranks(MOE_CACHE, clusters)
+        c_got, c_ref = cache.clone(), cache.clone()
+        got = mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, c_got, p, scale)
+        ref = mla_ops.mla_attention_reference(q_lat, q_pe, c_kv, k_pe, cos, sin, c_ref, at,
+                                              scale)
+        assert torch.equal(c_got, c_ref), (b, h, pos)
+        dropped = {}
+        if 0 < at < MOE_CACHE - 1:
+            dropped["position mask"] = mla_ops.mla_attention_reference(
+                q_lat, q_pe, c_kv, k_pe, cos, sin, cache.clone(), MOE_CACHE - 1, scale)
+        errs[(b, h, pos)] = compare(f"mla_attention B={b} H={h} S={MOE_CACHE} pos {pos}", got,
+                                    ref, dropped)
+    # a graph replay reads the position from device memory
+    q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, MOE_CACHE)
+    p = torch.tensor(10, device=dev)
+    c_graph = cache.clone()
+    mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, c_graph.clone(), p, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, c_graph, p, scale)
+    p.fill_(MOE_POS)
+    graph.replay()
+    c_ref = cache.clone()
+    ref = mla_ops.mla_attention_reference(q_lat, q_pe, c_kv, k_pe, cos, sin, c_ref, MOE_POS,
+                                          scale)
+    assert torch.equal(c_graph, c_ref)
+    errs["graph"] = compare(f"mla_attention captured at pos 10, replayed at {MOE_POS}", out,
+                            ref, {})
+    # timed at the step's shape
+    q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, MOE_CACHE)
+    p = torch.tensor(MOE_POS, device=dev)
+    n_rows = MOE_POS + 1
+    n_bytes = n_rows * 576 * 2 + nbytes(q_lat) + 16 * 64 * 2 + 576 * 2 + 16 * 512 * 2 * 2
+    n_ops = 2.0 * 16 * n_rows * (576 + 512)
+    row = timed("mla_attention B=1 H=16 pos 1800",
+                lambda: mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, cache, p, scale),
+                lambda: mla_ops.mla_attention_reference(q_lat, q_pe, c_kv, k_pe, cos, sin, cache,
+                                                        MOE_POS, scale),
+                n_bytes, n_ops, flush)
+    qf = torch.cat([q_lat, q_pe], -1).transpose(1, 2)                 # (1, 16, 1, 576)
+    keys = cache[:, None, :n_rows]
+    row["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qf, keys.expand(1, 16, n_rows, 576), keys[..., :512].expand(1, 16, n_rows, 512),
+        scale=scale), flush)
+    for at in (0, 200):                                 # the fixed cost, and a short cache
+        pa = torch.tensor(at, device=dev)
+        ms = time_ms(lambda: mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, cache, pa,
+                                                   scale), flush)
+        print(f"mla_attention B=1 H=16 pos {at}: kernel {ms:.4f} ms [{card}]")
+    copies = [(q_lat, q_pe, c_kv, k_pe, cos, sin, cache.clone(), p) for _ in range(
+        min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / nbytes(cache)) + 1)))]
+    row["back_to_back_ms"] = back_to_back_ms(
+        lambda *a: mla_ops.mla_attention(*a, scale), copies, flush)
+    print(f"mla_attention B=1 H=16 pos {MOE_POS}: back-to-back {row['back_to_back_ms']:.4f} ms "
+          f"per launch over {len(copies)} caches; library (scaled_dot_product_attention on "
+          f"the absorbed rows) {row['library_ms']:.4f} ms [{card}]")
+    return {"mla_attention": kernel_row(row, errs)}
+
+
+def moe_model(tq, lo, dev, card: str) -> dict:
+    """Phase 17, the model: Moonlight-16B-A3B's widths at MOE_LAYERS
+    layers, Q4 (int4 body, the experts' down in groups of 64, int8
+    head), served by TorchLlama: a MOE_PROMPT-token prefill and a decode
+    step against the plain twin (the logits' median per-token relative
+    error within MODEL_TOL, the routings that differ counted), the
+    graphed generation against the eager one (tokens equal), each
+    kernel's launches a step, and the graphed step's time."""
+    import dataclasses
+
+    from turbo_whisper_workspace_tpu_torch.llm import generate, llm_helper
+    from turbo_whisper_workspace_tpu_torch.models import deepseek_v3 as ds
+    from turbo_whisper_workspace_tpu_torch.ops import mla_ops, moe_ops
+
+    dims = dataclasses.replace(ds.DEEPSEEK_V3_CONFIGS[MOE], n_layer=MOE_LAYERS, max_ctx=4096)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = ds.init_params(dims, gen, dtype=torch.bfloat16, bias_std=MOE_BIAS_STD, device=dev)
+    params = tq.quantize_tree(params, keys=ds.QUANT_KEYS, bits=4)
+    llm = llm_helper.TorchLlama(params, dims, device=dev)
+    assert llm.params["blocks"][1]["experts"]["down"]["scale4"].shape[-2] == 1408 // 64
+    prompt = torch.randint(0, dims.n_vocab, (1, MOE_PROMPT), generator=gen, device=dev)
+    step = torch.randint(0, dims.n_vocab, (1, 1), generator=gen, device=dev)
+    routes = []
+    route = ds.route
+
+    def recording(*a, **kw):
+        ids, w = route(*a, **kw)
+        routes.append(ids[:, :dims.top_k].sort(-1).values)
+        return ids, w
+
+    mods = (tq, lo, mla_ops, moe_ops)
+    with torch.no_grad():
+        ds.route = recording
+        try:
+            cache = ds.init_kv_cache(dims, 1, MOE_PROMPT + 8, device=dev)
+            logits, _ = ds.forward(llm.params, dims, prompt, cache, 0)
+            prefilled = {k: v.clone() for k, v in cache.items()}
+            reset_counts(*mods)
+            step_logits, _ = ds.forward(llm.params, dims, step, cache,
+                                        torch.tensor(MOE_PROMPT, device=dev))
+            step_launches = launches(*mods)
+            with plain_kernels(*mods):
+                plain, _ = ds.forward(llm.params, dims, prompt,
+                                      ds.init_kv_cache(dims, 1, MOE_PROMPT + 8, device=dev), 0)
+                step_plain, _ = ds.forward(llm.params, dims, step, prefilled, MOE_PROMPT)
+        finally:
+            ds.route = route
+    half = len(routes) // 2
+    flips = [(a != b).any(-1).float().mean().item() for a, b in zip(routes[:half], routes[half:])]
+    per_token = ((logits - plain).float().norm(dim=-1) / plain.float().norm(dim=-1))[0]
+    e_step = rel_err(step_logits, step_plain)
+    print(f"{MOE} at {MOE_LAYERS} layers (Q4) vs its plain twin: prefill of {MOE_PROMPT} "
+          f"tokens, per-token logits rel err median {per_token.median().item():.3e}, max "
+          f"{per_token.max().item():.3e}; decode step {e_step:.3e} (tolerance {MODEL_TOL}); "
+          f"routings that differ a layer (prefill, step): {flips}; step launches "
+          f"{step_launches}")
+    assert per_token.median().item() <= MODEL_TOL and e_step <= MODEL_TOL
+    n_moe = MOE_LAYERS - dims.first_dense
+    assert step_launches["int4_moe_s8"] == 2 * n_moe and step_launches["moe_route"] == n_moe
+    assert step_launches["mla_attention"] == MOE_LAYERS
+    # q|kv_a and out a layer, gate|up and down in the dense layer
+    assert step_launches["int4_matmul_s8"] == 2 * MOE_LAYERS + 2 * dims.first_dense
+    # graphed against eager, greedy
+    short = prompt[:, :256]
+    runs = {}
+    for graphed in (True, False):
+        reset_counts(*mods)
+        timings = {}
+        res = generate.generate_tokens(llm.params, dims, short, max_len=64, graphed=graphed,
+                                       timings=timings)
+        torch.cuda.synchronize()
+        runs[graphed] = (res, timings, launches(*mods))
+    assert torch.equal(runs[True][0].tokens, runs[False][0].tokens)
+    t = runs[True][1]
+    print(f"graphed generation (256-token prompt, 64 new) equal to the eager one; graphed "
+          f"step {1e3 * t['loop_s'] / t['decode_forwards']:.3f} ms at {MOE_LAYERS} layers, "
+          f"capture {1e3 * t['capture_s']:.1f} ms; launches {runs[True][2]} [{card}]")
+    return {"moe model": runs[True][2]}
+
+
+def moe_phase(tq, lo, dev, card: str) -> tuple[dict, dict]:
+    """Phase 17: the DeepSeek-V3 path's kernels at Moonlight-16B-A3B's
+    widths, then the model (moe_kernels, mla_kernels, moe_model)."""
+    gen = torch.Generator(dev).manual_seed(17)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    stats = moe_kernels(tq, dev, gen, flush, card)
+    stats.update(route_kernel(dev, gen, flush, card))
+    stats.update(mla_kernels(dev, gen, flush, card))
+    del flush
+    torch.cuda.empty_cache()
+    return stats, moe_model(tq, lo, dev, card)
+
+
+def moe_only() -> int:
+    """`--moe`: the kernels' build and phase 17 alone."""
+    from turbo_whisper_workspace_tpu_torch.ops import build
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+    from turbo_whisper_workspace_tpu_torch.ops import quant as tq
+
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernels built in {build.build_all():.1f} s")
+    for name in ("int4_matmul_s8", "int4_moe_s8", "int4_group_matmul", "mla_attention",
+                 "moe_route"):
+        used = [ln.split(":", 1)[1].strip() for ln in build.build_log.get(name, "").splitlines()
+                if "Used" in ln]
+        print(f"  {name}: {'; '.join(used)}")
+    moe_phase(tq, lo, torch.device("cuda"), card)
+    print(json.dumps({"ok": True, "phase": 17}))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -3663,6 +4036,8 @@ def main(argv: list[str] | None = None) -> int:
         return whisper_profile_only()
     if "--before" in args:
         return before_only(args[args.index("--before") + 1])
+    if "--moe" in args:
+        return moe_only()
     from turbo_whisper_workspace_tpu_torch.audio import io as audio_io
     from turbo_whisper_workspace_tpu_torch.config import PipelineConfig, TranscriptionConfig
     from turbo_whisper_workspace_tpu_torch.decode import beam as beam_mod
@@ -3872,6 +4247,14 @@ def main(argv: list[str] | None = None) -> int:
     del llm
     torch.cuda.empty_cache()
     stats.update(whisper_kernels_phase(att, tq, tr, windows, dev, card))
+
+    # 17. the DeepSeek-V3 path: its kernels, then Moonlight's widths at 3 layers
+    del tr, flow_pipe
+    torch.cuda.empty_cache()
+    from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
+
+    moe_stats, path_counts["moe"] = moe_phase(tq, lo, dev, card)
+    stats.update(moe_stats)
 
     lines = []
     for name, s in stats.items():

@@ -571,29 +571,38 @@ def test_kernel_sources_export_their_entry_points():
     """Every kernel the wrappers launch has a source with its C entry
     point and error string, and opens with the note naming the TPU
     kernel it replaces (or, for the Llama layer's and the Whisper decoder
-    step's kernels, the JAX code that XLA fuses)."""
+    step's kernels, the JAX code that XLA fuses; for the DeepSeek-V3
+    path's, which the JAX package does not have, that it has no TPU
+    counterpart and the port's model it serves)."""
+    deepseek = {"int4_moe_s8", "int4_group_matmul", "mla_attention", "moe_route"}
     for name in build.SIGNATURES:
         src = pathlib.Path(build.source_path(name)).read_text()
         assert f'extern "C" int tww_{name}(' in src
         assert f'extern "C" const char* tww_{name}_error(int code)' in src
         head = src.split("#include")[0]
-        assert any(where in head for where in (
-            "turbo_whisper_workspace_tpu/ops/attention.py",
-            "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py",
-            "turbo_whisper_workspace_tpu/models/llama.py",
-            "turbo_whisper_workspace_tpu/models/whisper.py",
-            "turbo_whisper_workspace_tpu/decode/rules.py"))
+        if name in deepseek:
+            assert "No TPU counterpart" in head and "models/deepseek_v3.py" in head
+        else:
+            assert any(where in head for where in (
+                "turbo_whisper_workspace_tpu/ops/attention.py",
+                "turbo_whisper_workspace_tpu/ops/quant.py", "scripts/profile_llm_ops.py",
+                "turbo_whisper_workspace_tpu/models/llama.py",
+                "turbo_whisper_workspace_tpu/models/whisper.py",
+                "turbo_whisper_workspace_tpu/decode/rules.py"))
         assert "bound" in head and "Design" in head
     # the wrappers (ops/attention.py, ops/quant.py, ops/llama_ops.py,
-    # ops/whisper_ops.py, the profiler's two) pass as many arguments as
-    # the C signatures declare, and every kernel has one
+    # ops/whisper_ops.py, ops/mla_ops.py, ops/moe_ops.py, the profiler's
+    # two) pass as many arguments as the C signatures declare, and every
+    # kernel has one
     from turbo_whisper_workspace_tpu_torch.ops import llama_ops as tllama
+    from turbo_whisper_workspace_tpu_torch.ops import mla_ops as tmla
+    from turbo_whisper_workspace_tpu_torch.ops import moe_ops as tmoe
     from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
     from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as twhisper
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as tprof
 
     calls = {}
-    for module in (tatt, tquant, tllama, twhisper, tprof):
+    for module in (tatt, tquant, tllama, twhisper, tmla, tmoe, tprof):
         tree = ast.parse(pathlib.Path(module.__file__).read_text())
         calls.update({c.args[0].value: len(c.args) - 1 for c in ast.walk(tree)
                       if isinstance(c, ast.Call) and getattr(c.func, "attr", "") == "launch"})

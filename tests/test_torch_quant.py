@@ -338,7 +338,8 @@ def test_wrappers_run_plain_versions_on_cpu():
     torch.testing.assert_close(tq.int8_matmul(*args), tq.int8_matmul_reference(*args),
                                rtol=0, atol=0)
     # the counts record kernel launches only
-    assert tq.launch_counts == {"int8_matmul": 0, "int4_matmul": 0, "int4_matmul_s8": 0}
+    assert tq.launch_counts == {"int8_matmul": 0, "int4_matmul": 0, "int4_matmul_s8": 0,
+                                "int4_moe_s8": 0, "int4_group_matmul": 0}
 
 
 def test_wrappers_name_their_launches():

@@ -1,11 +1,13 @@
-"""Autoregressive generation for the Llama LM.
+"""Autoregressive generation for the decoder-only LMs.
 
 Port of turbo_whisper_workspace_tpu/llm/generate.py. The JAX package
 runs the loop as one `lax.while_loop` inside one jit; here it is one
 step function over fixed shapes (`utils/step_loop.py`): the prefill and
 the first sample run eagerly, then each step is a forward of the last
-token at a device-resident position (`models/llama.py:forward` with a
-tensor `pos`), the sample, and the token written by index, all updating
+token at a device-resident position (the family's `forward` with a
+tensor `pos`: `models/llama.py`, or `models/deepseek_v3.py`, which the
+JAX package does not have; `family` picks it by the dims' type), the
+sample, and the token written by index, all updating
 static buffers in place. On a CUDA device that step is captured once
 per call into a CUDA graph and replayed, and the host reads the stop
 flag every STOP_EVERY steps; on the CPU it runs eagerly with the stop
@@ -28,11 +30,20 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import deepseek_v3 as ds
 from ..models import llama as lm
 from ..utils import profiling
 from ..utils.step_loop import run_steps
 
 STOP_EVERY = 4      # graphed steps between the host's reads of the stop flag
+
+
+def family(dims):
+    """The model module the dims describe: `models/deepseek_v3.py` for
+    `DeepseekV3Dims`, else `models/llama.py`. Both give `forward`,
+    `init_kv_cache`, `fuse_siblings`, `params_from_hf_state_dict` and
+    `QUANT_KEYS`."""
+    return ds if isinstance(dims, ds.DeepseekV3Dims) else lm
 
 
 class GenResult(NamedTuple):
@@ -51,7 +62,7 @@ def sample(logits: torch.Tensor, temperature: float,
 @torch.no_grad()
 def generate_tokens(
     params: dict,
-    dims: lm.LlamaDims,
+    dims: lm.LlamaDims | ds.DeepseekV3Dims,
     prompt: torch.Tensor,              # (B, P) int64
     *,
     max_len: int = 256,
@@ -79,12 +90,13 @@ def generate_tokens(
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device).manual_seed(0)
     eos = torch.tensor(eos_tokens or (0,), dtype=prompt.dtype, device=device)
+    model = family(dims)
     pad_tok = int(eos_tokens[0]) if eos_tokens else 0
 
     with profiling.span("llm.prefill", timed=timings is not None) as span:
-        cache = lm.init_kv_cache(dims, b, max_len=total, dtype=params["token_emb"].dtype,
-                                 device=device)
-        prefill_logits, cache = lm.forward(params, dims, prompt, cache, pos=0)
+        cache = model.init_kv_cache(dims, b, max_len=total, dtype=params["token_emb"].dtype,
+                                    device=device)
+        prefill_logits, cache = model.forward(params, dims, prompt, cache, pos=0)
         last_logits = prefill_logits[:, -1].float()
         del prefill_logits
         state = {
@@ -115,8 +127,8 @@ def generate_tokens(
 
     def step() -> None:
         """Forward the last sampled token at its position, sample the next."""
-        logits, _ = lm.forward(params, dims, state["last_tok"][:, None], cache,
-                               pos=state["step"] + (p - 1))
+        logits, _ = model.forward(params, dims, state["last_tok"][:, None], cache,
+                                  pos=state["step"] + (p - 1))
         sample_into_state(logits[:, 0].float())
 
     sample_into_state(last_logits)

@@ -16,7 +16,10 @@ stub (llm_helper.py:361-371), an idle auto-unload timer
 (llm_helper.py:528-561).
 
 The engine is the Llama decoder (models/llama.py + llm/generate.py)
-loaded from a local checkpoint; with no checkpoint on disk every task
+loaded from a local checkpoint, or, where the checkpoint's config.json
+names model_type "deepseek_v3" (Moonlight-16B-A3B), the DeepSeek-V3
+decoder (models/deepseek_v3.py), which the JAX package does not have;
+with no checkpoint on disk every task
 degrades to its deterministic rule-based fallback — the reference's own
 LLM→rules→dummy ladder (vocalis/core/audio_pipeline.py:506-521).
 """
@@ -59,29 +62,31 @@ class DummyLLM:
 
 
 class TorchLlama:
-    """Llama decoder on a torch device, with a byte-fallback tokenizer when
-    no vocabulary files accompany the checkpoint; token 0 is EOS.
+    """A decoder-only LM (Llama, or DeepSeek-V3 when `dims` are
+    `DeepseekV3Dims`) on a torch device, with a byte-fallback tokenizer
+    when no vocabulary files accompany the checkpoint; token 0 is EOS.
     Counterpart of the JAX package's TPULlama. `last_generation` holds
     the prompt and generated token counts and the prefill and decode
     wall seconds of the last call. The span `llm.generate` covers the
     generation and the tokens' copy back; the tokenizer's work is its
     caller's. It takes `params` as its own and joins their int4 sibling
-    projections in place (`models/llama.py:fuse_siblings`): q, k and v,
-    and gate and up, then run as one matmul each. The caller's dict is
-    that same dict, and no longer holds the separate tensors."""
+    projections in place (the family's `fuse_siblings`: q, k and v, and
+    gate and up, or q and kv_a, and the gate and up of the dense layer
+    and of the experts), then run as one matmul each. The caller's dict
+    is that same dict, and no longer holds the separate tensors."""
 
     is_dummy = False
 
     def __init__(self, params, dims, tokenizer=None,
                  device: torch.device | str = "cuda"):
         from ..decode.tokenizer import ByteFallbackTokenizer
-        from ..models.llama import fuse_siblings
         from ..pipeline.transcriber import resolve_device
+        from .generate import family
 
         self.dims = dims
         self.tokenizer = tokenizer or ByteFallbackTokenizer()
         self.device = resolve_device(device)
-        self.params = fuse_siblings(params)
+        self.params = family(dims).fuse_siblings(params)
         self.last_generation: dict = {}
 
     def generate(self, prompt: str, max_tokens: int = 256,
@@ -153,11 +158,13 @@ def get_llm(config: LLMConfig | None = None, device: torch.device | str = "cuda"
                 params, dims = _load_llama_checkpoint(path, device)
                 if config.quantize_bits in (4, 8):
                     from ..ops.quant import quantize_tree
+                    from .generate import family
 
                     # Q4 operating point (reference serves Q4_K_M,
                     # vocalis/llm/llm_helper.py:67-73): quarter the
                     # weight bytes of the bandwidth-bound decode
-                    params = quantize_tree(params, bits=config.quantize_bits)
+                    params = quantize_tree(params, keys=family(dims).QUANT_KEYS,
+                                           bits=config.quantize_bits)
                 _llm_instance = TorchLlama(params, dims, device=device)
                 logger.info("loaded LLM from %s", path)
                 break
@@ -171,19 +178,26 @@ def get_llm(config: LLMConfig | None = None, device: torch.device | str = "cuda"
 
 
 def _load_llama_checkpoint(path: str, device: torch.device | str = "cpu"):
+    """(params, dims) of the transformers checkpoint at `path`, by its
+    config.json's model_type: "deepseek_v3" loads models/deepseek_v3.py,
+    any other the Llama architecture."""
+    from ..models import deepseek_v3
     from ..models import llama as lm
 
     cfg_path = os.path.join(path, "config.json")
     with open(cfg_path) as f:
         c = json.load(f)
-    dims = lm.LlamaDims(
-        n_vocab=c["vocab_size"], d_model=c["hidden_size"],
-        n_layer=c["num_hidden_layers"], n_head=c["num_attention_heads"],
-        n_kv_head=c.get("num_key_value_heads", c["num_attention_heads"]),
-        d_ff=c["intermediate_size"],
-        rope_theta=c.get("rope_theta", 500000.0),
-        norm_eps=c.get("rms_norm_eps", 1e-5),
-    )
+    if c.get("model_type") == "deepseek_v3":
+        module, dims = deepseek_v3, deepseek_v3.dims_from_hf_config(c)
+    else:
+        module, dims = lm, lm.LlamaDims(
+            n_vocab=c["vocab_size"], d_model=c["hidden_size"],
+            n_layer=c["num_hidden_layers"], n_head=c["num_attention_heads"],
+            n_kv_head=c.get("num_key_value_heads", c["num_attention_heads"]),
+            d_ff=c["intermediate_size"],
+            rope_theta=c.get("rope_theta", 500000.0),
+            norm_eps=c.get("rms_norm_eps", 1e-5),
+        )
     pt = os.path.join(path, "pytorch_model.bin")
     st = os.path.join(path, "model.safetensors")
     if os.path.exists(st):
@@ -192,8 +206,8 @@ def _load_llama_checkpoint(path: str, device: torch.device | str = "cpu"):
         sd = load_file(st)
     else:
         sd = torch.load(pt, map_location="cpu", weights_only=True)
-    params = lm.params_from_hf_state_dict(sd, dims, dtype=torch.bfloat16,
-                                          device=device)
+    params = module.params_from_hf_state_dict(sd, dims, dtype=torch.bfloat16,
+                                              device=device)
     return params, dims
 
 

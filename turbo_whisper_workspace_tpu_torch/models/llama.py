@@ -43,6 +43,8 @@ import torch
 from ..ops import llama_ops, quant
 
 PROJECTIONS = ("q", "k", "v", "out", "gate", "up", "down")
+# projections quant.quantize_tree quantizes (its default keys, less Whisper's)
+QUANT_KEYS = PROJECTIONS + ("lm_head",)
 # a fused projection's name → the sibling projections it joins, in column order
 SIBLINGS = {"qkv": ("q", "k", "v"), "gate_up": ("gate", "up")}
 

@@ -52,6 +52,11 @@ SIGNATURES = {
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "int4_moe_s8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "int4_group_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mla_attention": [_P, _P, _L, _L, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _F,
+                      _P],
+    "moe_route": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "s8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "s8g4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "llama_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _F, _P],

@@ -14,7 +14,14 @@ Three kernels, each with a wrapper and a plain PyTorch version beside it:
   split-K GEMV at decode rows, wgmma on dequantized tiles above);
 * `int4_matmul`    x @ dequant4(W), csrc/int4_matmul.cu;
 * `int4_matmul_s8` W4A8: int8 activations × int4 weights, exact s32 sums
-  per group, csrc/int4_matmul_s8.cu.
+  per group, csrc/int4_matmul_s8.cu;
+
+and, with no TPU counterpart, the DeepSeek-V3 experts' two: `int4_moe_s8`,
+int4_matmul_s8's product with each output row's weight picked from
+stacked experts by a device tensor of expert ids (csrc/int4_moe_s8.cu,
+the decode step), and `int4_group_matmul`, int4_matmul's product of
+each expert over its group of rows in one launch
+(csrc/int4_group_matmul.cu, the prefill).
 
 For CUDA tensors a wrapper checks them, allocates the output, launches
 its kernel on the current stream and counts the launch in
@@ -34,7 +41,8 @@ from .attention import _check_cuda, _div, _stream, count_launch
 GROUP4 = 128
 
 # kernel name → launches since the last reset_launch_counts()
-launch_counts = {name: 0 for name in ("int8_matmul", "int4_matmul", "int4_matmul_s8")}
+launch_counts = {name: 0 for name in ("int8_matmul", "int4_matmul", "int4_matmul_s8",
+                                      "int4_moe_s8", "int4_group_matmul")}
 
 
 def reset_launch_counts() -> None:
@@ -213,6 +221,34 @@ def int4_matmul_s8_reference(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Ten
     return _s8_from_halves(xq, xs, *_unpack_int4(w_q4), scale4)
 
 
+def int4_group_matmul_reference(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
+                                counts: list[int], split: bool = False):
+    """int4_matmul_reference of each expert e over its counts[e] rows of
+    x (R, K), the rows grouped by expert in order, against w_q4 (E, K/2,
+    N), scale4 (E, K/G, N); (R, N) in x's dtype, or with split its two
+    column halves."""
+    outs, start = [], 0
+    for e, n in enumerate(counts):
+        if n:
+            outs.append(int4_matmul_reference(x[start:start + n], w_q4[e], scale4[e]))
+            start += n
+    out = torch.cat(outs)
+    return tuple(out.chunk(2, dim=-1)) if split else out
+
+
+def int4_moe_s8_reference(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
+                          scale4: torch.Tensor, ids: torch.Tensor, x_div: int = 1,
+                          split: bool = False):
+    """Row r: int4_matmul_s8_reference of xq row r // x_div against expert
+    ids[r] (clamped into the stack) of w_q4 (E, K/2, N), scale4 (E, K/G,
+    N); (R, N) bf16, or with split its two column halves, each (R, N/2)."""
+    rows = ids.clamp(0, w_q4.shape[0] - 1).tolist()
+    out = torch.cat([int4_matmul_s8_reference(xq[r // x_div:r // x_div + 1],
+                                              xs[r // x_div:r // x_div + 1], w_q4[e], scale4[e])
+                     for r, e in enumerate(rows)])
+    return tuple(out.chunk(2, dim=-1)) if split else out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 
@@ -354,17 +390,19 @@ S8_WHOLE_SMEM = 200 * 1024  # shared memory a block may take to hold every group
 S8_SPLIT_BLOCKS = 200       # blocks a split of K aims for (2 resident an SM fill 132)
 
 
-def s8_pairs_per_block(m: int, k: int, n: int, n_groups: int, wide: bool) -> int:
+def s8_pairs_per_block(m: int, k: int, n: int, n_groups: int, wide: bool,
+                       rows_per_block: int = 8) -> int:
     """int4_matmul_s8's plan: the group pairs each block takes. All of
     them (n_groups / 2: no split, the fold stays in shared memory) when
     the column tiles alone fill the card and the block's xq bytes and
     terms fit; else K is split over blocks of 8, 4, 2 or 1 pairs, the
     most that still give S8_SPLIT_BLOCKS blocks (a warp keeps a whole
-    pair where it can; else the block's warps share each pair)."""
+    pair where it can; else the block's warps share each pair). A block
+    takes rows_per_block rows of M: 8, or 1 for int4_moe_s8."""
     half = n_groups // 2
     bn = S8_BLOCK_N[0] if wide else S8_BLOCK_N[1]
-    blocks = -(-n // bn) * -(-m // 8)
-    mt = min(m, 8)
+    blocks = -(-n // bn) * -(-m // rows_per_block)
+    mt = min(m, rows_per_block)
     # xq bytes, xs, ws rows and the terms of every group (csrc Layout)
     whole = mt * (k + 4 * n_groups * (bn + 1)) + 4 * n_groups * bn
     if blocks >= S8_FILL_BLOCKS and whole <= S8_WHOLE_SMEM:
@@ -441,6 +479,97 @@ def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
                  m, k, n, n_groups, pb, _stream(xq.device))
     count_launch(launch_counts, "int4_matmul_s8")
     return out
+
+
+def int4_moe_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
+                ids: torch.Tensor, x_div: int = 1, split: bool = False):
+    """The experts' W4A8 product: output row r is xq row r // x_div (with
+    its xs row) against expert ids[r] of w_q4 (E, K/2, N) packed and
+    scale4 (E, K/G, N) f32, as int4_matmul_s8 computes it; ids (R,) int64
+    on the device, never read by the host (an id outside [0, E) reads the
+    nearest expert). → (R, N) bf16; with split, gate and up apart: the
+    two column halves as dense (R, N/2) tensors.
+
+    CUDA: csrc/int4_moe_s8.cu, one launch, one output row a block, the
+    plan s8_pairs_per_block(rows_per_block=1), int4_matmul_s8's scratch
+    and tickets where it splits K. CPU: the plain version (which reads
+    the ids)."""
+    if xq.device.type == "cpu":
+        return int4_moe_s8_reference(xq, xs, w_q4, scale4, ids, x_div, split)
+    _check_cuda("int4_moe_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4, "ids": ids},
+                {"xq": torch.int8, "xs": torch.float32, "w_q4": torch.int8,
+                 "scale4": torch.float32, "ids": torch.int64},
+                align={"xq": 4, "xs": 4, "w_q4": 4, "scale4": 16, "ids": 8})
+    rows = ids.shape[0]
+    if (ids.dim() != 1 or w_q4.dim() != 3 or scale4.dim() != 3 or x_div < 1
+            or xq.shape[0] * x_div != rows or w_q4.shape[0] != scale4.shape[0]):
+        raise ValueError(f"int4_moe_s8: ids {tuple(ids.shape)}, xq {tuple(xq.shape)}, x_div "
+                         f"{x_div}, w_q4 {tuple(w_q4.shape)}, scale4 {tuple(scale4.shape)}")
+    _, k, n, n_groups = _check_int4_s8(xq, xs, w_q4[0], scale4[0])
+    if split and n % 8:
+        raise ValueError(f"int4_moe_s8: N={n} has no halves of a multiple of 4")
+    wide = n % 16 == 0 and w_q4.data_ptr() % 16 == 0
+    pb = s8_pairs_per_block(rows, k, n, n_groups, wide, rows_per_block=1)
+    scratch = tickets = None
+    if pb < n_groups // 2:
+        scratch = torch.empty((rows, n_groups, n), dtype=torch.float32, device=xq.device)
+        tickets = _s8_tickets(xq.device, -(-n // S8_BLOCK_N[1]) * rows)
+    out = torch.empty((2, rows, n // 2) if split else (rows, n), dtype=torch.bfloat16,
+                      device=xq.device)
+    build.launch("int4_moe_s8", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
+                 scale4.data_ptr(), ids.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
+                 rows, x_div, k, n, n_groups, pb, n // 2 if split else 0, w_q4.shape[0],
+                 _stream(xq.device))
+    count_launch(launch_counts, "int4_moe_s8")
+    return (out[0], out[1]) if split else out
+
+
+GROUP_ROWS = 64             # csrc/int4_group_matmul.cu's rows a tile
+
+
+def group_tiles(counts: list[int]) -> list[tuple[int, int, int]]:
+    """int4_group_matmul's tile table: (expert, first row, rows) for each
+    block row, the experts' rows cut in tiles of at most GROUP_ROWS."""
+    tiles, start = [], 0
+    for e, n in enumerate(counts):
+        tiles += [(e, start + r, min(GROUP_ROWS, n - r)) for r in range(0, n, GROUP_ROWS)]
+        start += n
+    return tiles
+
+
+def int4_group_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
+                      counts: list[int], split: bool = False):
+    """int4_matmul of every expert over its rows in one launch: x (R, K)
+    holds the rows grouped by expert, counts[e] of them for expert e (a
+    host list: the caller has read it), against the stacked w_q4 (E, K/2,
+    N) packed and scale4 (E, K/G, N) f32 → (R, N) bf16; with split, gate
+    and up apart: the two column halves as dense (R, N/2) tensors.
+
+    CUDA: csrc/int4_group_matmul.cu, a block a tile of `group_tiles`
+    and 128 columns; bf16 x, K a multiple of 64 with groups of a multiple
+    of 32 rows, N of 16, the weights 16-byte aligned. CPU: the plain
+    version."""
+    if x.device.type == "cpu":
+        return int4_group_matmul_reference(x, w_q4, scale4, counts, split)
+    _check_cuda("int4_group_matmul", {"x": x, "w_q4": w_q4, "scale4": scale4},
+                {"x": torch.bfloat16, "w_q4": torch.int8, "scale4": torch.float32}, align=16)
+    r, k = x.shape
+    n, n_groups = w_q4.shape[-1], scale4.shape[-2]
+    if (w_q4.dim() != 3 or w_q4.shape[1:] != (k // 2, n) or scale4.shape != (w_q4.shape[0],
+                                                                            n_groups, n)
+            or len(counts) != w_q4.shape[0] or sum(counts) != r or k % 64 or k % n_groups
+            or (k // n_groups) % 32 or n % 16 or (split and n % 4)):
+        raise ValueError(f"int4_group_matmul: x {tuple(x.shape)}, w_q4 {tuple(w_q4.shape)}, "
+                         f"scale4 {tuple(scale4.shape)}, {len(counts)} counts of {sum(counts)}")
+    tiles = torch.tensor(group_tiles(counts), dtype=torch.int32).to(x.device, non_blocking=True)
+    out = torch.empty((2, r, n // 2) if split else (r, n), dtype=torch.bfloat16, device=x.device)
+    build.launch("int4_group_matmul", x.data_ptr(), w_q4.data_ptr(), scale4.data_ptr(),
+                 tiles.data_ptr(), out.data_ptr(), tiles.shape[0], r, k, n, n_groups,
+                 n // 2 if split else 0, _stream(x.device))
+    count_launch(launch_counts, "int4_group_matmul")
+    return (out[0], out[1]) if split else out
 
 
 # ---------------------------------------------------------------------------

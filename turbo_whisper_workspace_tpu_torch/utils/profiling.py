@@ -30,6 +30,12 @@ ended the trace to read.
 
 Where a loop keeps a `timings` dict, the span over the same interval is
 its clock (`Span.seconds`): one measurement, also with tracing off.
+
+A counter is a device buffer the program adds to while the profiler
+records (`counter()` gives it, zeroed at first use, or None when the
+profiler is off): device ops only, never a host read, so a count costs
+one small launch; `counters()` returns them for whoever ended the trace,
+and `clear_spans()` drops them with the spans.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ _annotation = getattr(torch._C._profiler, "_RecordFunctionFast", None) or \
     torch.profiler.record_function
 
 _records: list["SpanRecord"] = []
+_counters: dict[str, torch.Tensor] = {}
 _ids = itertools.count(1)
 _current: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "turbo_whisper_span", default=None)
@@ -138,6 +145,23 @@ def spans() -> list[SpanRecord]:
 
 def clear_spans() -> None:
     _records.clear()
+    _counters.clear()
+
+
+def counter(name: str, shape: tuple, device) -> torch.Tensor | None:
+    """The counter `name` (an int64 device buffer of `shape`, zeros at
+    first use) while the profiler records; None when it does not."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    buf = _counters.get(name)
+    if buf is None:
+        buf = _counters[name] = torch.zeros(shape, dtype=torch.int64, device=device)
+    return buf
+
+
+def counters() -> dict[str, torch.Tensor]:
+    """The counters recorded, by name."""
+    return dict(_counters)
 
 
 @contextlib.contextmanager
