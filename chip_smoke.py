@@ -443,7 +443,9 @@ LLM_LONG_PROMPT = 1748      # tokens of the longest stage prompt (the summary's)
 # 14336→4096. int8_matmul also runs the head at the longest prompt's rows
 # and at the decode step's M = 1 (its GEMV regime, the m <= 8 route on the
 # card). int4_matmul also runs gate|up at the longest prompt's rows, and
-# the ragged shape again at G = 16 (a fourth entry: the group size)
+# the ragged shape again at G = 16 (a fourth entry: the group size).
+# int4_matmul_s8 also runs Moonlight-16B-A3B's projections that split K
+# over a cluster: q|kv_a 2048→3648, o 2048→2048, layer 0's down 11264→2048
 QUANT_SHAPES = {
     "int8_matmul": ((LLM_PROMPT, 4096, 128256), (LLM_LONG_PROMPT, 4096, 128256),
                     (1, 4096, 128256), (LLM_PROMPT, 4096, 4096), (3, 256, 1000)),
@@ -451,7 +453,8 @@ QUANT_SHAPES = {
                     (LLM_PROMPT, 4096, 6144), (LLM_PROMPT, 4096, 4096),
                     (LLM_PROMPT, 14336, 4096), (3, 256, 1000), (3, 256, 1000, 16)),
     "int4_matmul_s8": ((1, 4096, 28672), (1, 4096, 6144), (1, 4096, 4096), (1, 14336, 4096),
-                       (8, 4096, 28672), (8, 14336, 4096), (3, 256, 1000)),
+                       (8, 4096, 28672), (8, 14336, 4096), (3, 256, 1000), (1, 2048, 3648),
+                       (1, 2048, 2048), (1, 11264, 2048)),
 }
 PROFILER = "llama-3.2-3b"
 # phase 9's (M, K, N) for both profiler kernels: llama-3.2-3b's m = 1
@@ -1394,7 +1397,13 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
         errs[(m, k, n)] = compare(f"int4_matmul_s8 M={m} K={k} N={n}", out, ref, dropped,
                                   relative_max=True)
         same = torch.equal(out, ref)
-        print(f"  bit-equal to its plain version: {same}")
+        n_groups = sc.shape[0]
+        pb = tq.s8_pairs_per_block(m, k, n, n_groups, n % 16 == 0)
+        plan = ("every group in a block" if pb == n_groups // 2 else
+                f"K split over {-(-n_groups // 2 // pb)} ranks of {pb} pairs, "
+                f"{-(-n // tq.S8_BLOCK_N[0])} clusters a row chunk, the card holds "
+                f"{tq.s8_resident_clusters(m, k, n, n_groups, pb)} at once")
+        print(f"  bit-equal to its plain version: {same}; {plan}")
         assert same
         # the packed weight and its scales, xq, xs and the bf16 output
         label = f"int4_matmul_s8 M={m} K={k} N={n}"
@@ -1514,11 +1523,14 @@ def check_llm_model(tq, lo, lm, params, dims, dev) -> None:
     n_proj = 4 * layers
     # a layer: attention, RoPE, SwiGLU once; the norm twice (and the final
     # norm), plus the out projection's quantizer at a decode step
+    # (the experts' two kernels launch in no Llama layer)
     assert launched == {"int8_matmul": 1, "int4_matmul": n_proj, "int4_matmul_s8": 0,
+                        "int4_moe_s8": 0, "int4_group_matmul": 0,
                         "llama_attention": layers, "llama_norm_quant": 2 * layers + 1,
                         "llama_rope_cache": layers, "llama_swiglu_quant": layers}
     # the decode step's head: int8_matmul's GEMV regime on the card
     assert launched_step == {"int8_matmul": 1, "int4_matmul": 0, "int4_matmul_s8": n_proj,
+                             "int4_moe_s8": 0, "int4_group_matmul": 0,
                              "llama_attention": layers, "llama_norm_quant": 3 * layers + 1,
                              "llama_rope_cache": layers, "llama_swiglu_quant": layers}
     assert e_prefill <= MODEL_TOL and e_step <= MODEL_TOL
@@ -1714,7 +1726,9 @@ def llm_phase(att, dev, card: str):
     counts = {**dict(tq.launch_counts), **dict(lo.launch_counts),
               **{n: c for n, c in att.launch_counts.items() if c}}
     print(f"launches on the LLM path: {counts}")
-    assert all(counts[name] > 0 for name in (*tq.launch_counts, *lo.launch_counts)), counts
+    # every kernel of the Llama path (the experts' two run in phase 17)
+    assert all(counts[name] > 0 for name in (*tq.launch_counts, *lo.launch_counts)
+               if name not in ("int4_moe_s8", "int4_group_matmul")), counts
     profile_decode(lm, params, dims, dev, card)
     return qstats, counts, llm
 

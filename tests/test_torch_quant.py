@@ -220,22 +220,83 @@ def test_int4_s8_reference_matches_jax(m, n, group):
 @pytest.mark.parametrize("m,k,n,wide,pairs", [
     (1, 4096, 14336, True, 16),    # 112 column tiles fill the card: no split
     (8, 4096, 14336, True, 16),    # and the 8 rows' terms still fit
-    (1, 14336, 4096, True, 8),     # 32 tiles: K split, a pair a warp, 224 blocks
-    (1, 4096, 4096, True, 2),      # 32 tiles: 2 pairs a block, 4 warps a pair
-    (1, 4096, 1024, True, 1),      # 8 tiles: 16 blocks a tile
-    (1, 4096, 6144, True, 2),      # q|k|v fused: 48 tiles, 2 pairs a block, 384 blocks
+    (1, 14336, 4096, True, 8),     # 32 tiles: K split over 7 ranks, a pair a warp, 224 blocks
+    (1, 4096, 4096, True, 4),      # 32 tiles × 4 ranks: 8 would be 256 blocks, past a wave
+    (1, 4096, 1024, True, 2),      # 8 tiles: 8 ranks (the cluster limit), 64 blocks
+    (1, 4096, 6144, True, 4),      # q|k|v fused: 48 tiles × 4 ranks, 192 blocks
     (1, 4096, 28672, True, 16),    # gate|up fused: 224 tiles, no split
-    (1, 3072, 5120, True, 2),      # llama-3.2-3b's q|k|v: 40 tiles, 240 blocks
+    (1, 3072, 5120, True, 4),      # llama-3.2-3b's q|k|v: 40 tiles × 3 ranks (6: 240 blocks)
     (1, 3072, 16384, True, 12),    # its gate|up: 128 tiles, no split
-    (3, 256, 1000, False, 1)])     # one pair: nothing to split
+    (3, 256, 1000, False, 1),      # one pair: nothing to split
+    (1, 2048, 3648, True, 2),      # Moonlight's q|kv_a: 29 tiles × 4 ranks, 116 blocks
+    (1, 2048, 2048, True, 2),      # its o: 16 tiles × 4 ranks
+    (1, 11264, 2048, True, 8)])    # its layer-0 dense down: 44 pairs, 6 ranks of 8
 def test_s8_plan_splits_k_only_to_fill_the_card(m, k, n, wide, pairs):
     n_groups = k // 128
     assert tq.s8_pairs_per_block(m, k, n, n_groups, wide) == pairs
-    # whatever the shape, a block takes a power of two of pairs that its
-    # 8 warps share evenly, or all of the pairs
-    for m2, n2 in ((1, 64), (8, 4096), (40, 96), (1, 128256)):
-        pb = tq.s8_pairs_per_block(m2, k, n2, n_groups, n2 % 16 == 0)
-        assert pb == n_groups // 2 or pb in (1, 2, 4, 8)
+    # whatever the shape, a block takes all of the pairs, or a split of at
+    # most S8_MAX_CLUSTER ranks of 2, 4 or a multiple of 8 pairs (its 8
+    # warps share them evenly) whose shared memory fits; at one row of M
+    # the grid fits one wave
+    for m2, n2 in ((m, n), (1, 64), (8, 4096), (40, 96), (1, 128256)):
+        wide2 = n2 % 16 == 0
+        pb = tq.s8_pairs_per_block(m2, k, n2, n_groups, wide2)
+        half = n_groups // 2
+        if pb == half:
+            continue
+        splits = -(-half // pb)
+        bn = tq.S8_BLOCK_N[0] if wide2 else tq.S8_BLOCK_N[1]
+        assert pb in (2, 4) or pb % 8 == 0
+        assert 2 <= splits <= tq.S8_MAX_CLUSTER
+        assert tq.s8_layout_bytes(min(m2, 8), pb, k // n_groups, bn, n_groups,
+                                  splits) <= tq.S8_MAX_SMEM
+        if m2 == 1:
+            assert -(-n2 // bn) * splits <= tq.S8_WAVE_BLOCKS
+
+
+def _cluster_fold(xq, xs, w_q4, scale4, pb, bn=128):
+    """int4_matmul_s8's split fold, mirrored in torch: the ranks of a
+    split take runs of pb group pairs (the low nibbles' group p and the
+    high nibbles' p + n_groups/2); each rank's terms f32(d) · (xs · ws)
+    go to the rank that folds their columns (runs of s8_fold_cols of each
+    bn-column tile), which adds its n_groups terms in group order."""
+    m, k = xq.shape
+    n, n_groups = w_q4.shape[1], scale4.shape[0]
+    half, group = n_groups // 2, k // n_groups
+    splits = -(-half // pb)
+    cols = tq.s8_fold_cols(bn, splits)
+    lo, hi = tq._unpack_int4(w_q4)
+    nibbles = torch.cat([lo, hi]).long().reshape(n_groups, group, n)
+    xg = xq.long().reshape(m, n_groups, group)
+    # received[q][g]: the (m, n) terms of group g that rank q holds
+    received = [{} for _ in range(splits)]
+    for rank in range(splits):
+        pairs = range(rank * pb, min(half, (rank + 1) * pb))
+        for g in [*pairs, *(half + p for p in pairs)]:
+            term = (xg[:, g] @ nibbles[g]).float() * (xs[:, g:g + 1] * scale4[g:g + 1])
+            for c in range(0, n, 4):
+                q = (c % bn) // cols
+                received[q].setdefault(g, torch.zeros(m, n))[:, c:c + 4] = term[:, c:c + 4]
+    out = torch.zeros(m, n)
+    for c in range(n):
+        q = (c % bn) // cols
+        acc = torch.zeros(m)
+        for g in range(n_groups):
+            acc = acc + received[q][g][:, c]
+        out[:, c] = acc
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("pb", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,n", [(1, 264), (3, 136)])
+def test_cluster_fold_mirror_equals_plain_version(m, n, pb):
+    """16 groups of 16 (8 pairs) over 2-3 column tiles, the last ragged:
+    1, 2 or 4 pairs a rank (8, 4, 2 ranks) and all 8 (no split)."""
+    x, q = _inputs(m, 256, n, 4, group=16)
+    xq, xs = tq.quant_act_grouped(torch.from_numpy(x), 16)
+    w_q4, scale4 = torch.from_numpy(q["w_q4"]), torch.from_numpy(q["scale4"])
+    assert torch.equal(_cluster_fold(xq, xs, w_q4, scale4, pb),
+                       tq.int4_matmul_s8_reference(xq, xs, w_q4, scale4))
 
 
 def _int4_path_shapes():
@@ -340,6 +401,30 @@ def test_wrappers_run_plain_versions_on_cpu():
     # the counts record kernel launches only
     assert tq.launch_counts == {"int8_matmul": 0, "int4_matmul": 0, "int4_matmul_s8": 0,
                                 "int4_moe_s8": 0, "int4_group_matmul": 0}
+    assert not any(tq.cluster_launch_counts.values())
+
+
+def test_cluster_launches_count_apart_from_launches():
+    """A split launch's count has a name of its own, so a graph capture's
+    record (keyed by name) keeps it apart from the kernel's launches, and
+    each replay adds both."""
+    from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
+
+    tq.reset_launch_counts()
+    tq.s8_cluster_launch("int4_matmul_s8")
+    assert tq.cluster_launch_counts == {"int4_matmul_s8.cluster": 1, "int4_moe_s8.cluster": 0}
+    tatt.capture.record = record = {}
+    try:
+        tatt.count_launch(tq.launch_counts, "int4_matmul_s8")
+        tq.s8_cluster_launch("int4_matmul_s8")
+    finally:
+        tatt.capture.record = None
+    for name, (counts, n) in record.items():      # one replay, as StepGraph.replay adds
+        counts[name] += n
+    assert tq.launch_counts["int4_matmul_s8"] == 1
+    assert tq.cluster_launch_counts["int4_matmul_s8.cluster"] == 2
+    tq.reset_launch_counts()
+    assert not any(tq.cluster_launch_counts.values())
 
 
 def test_wrappers_name_their_launches():
@@ -387,7 +472,7 @@ def test_cuda_quant_kernels_match_plain_versions(cuda_device, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,pairs", [((4096, 1024, 1024), 2), ((14336, 14336), 16)])
+@pytest.mark.parametrize("widths,pairs", [((4096, 1024, 1024), 4), ((14336, 14336), 16)])
 def test_cuda_fused_int4_s8_launch_equals_separate_launches(cuda_device, widths, pairs):
     """One launch over sibling weights side by side (the 8B layer's q|k|v,
     whose plan splits K, and gate|up, whose plan does not) equals their
@@ -407,6 +492,83 @@ def test_cuda_fused_int4_s8_launch_equals_separate_launches(cuda_device, widths,
     assert tq.launch_counts["int4_matmul_s8"] == before + 1
     separate = [tq.int4_matmul_s8(xq, xs, p["w_q4"], p["scale4"]) for p in parts]
     assert torch.equal(got, torch.cat(separate, 1))
+
+
+# the decode step's four shapes (q|k|v, out, gate|up, down), Moonlight's
+# three split ones (q|kv_a, o, layer 0's dense down), the route's M = 8 and
+# a ragged shape with 4-byte loads
+S8_CARD_SHAPES = [(1, 4096, 6144), (1, 4096, 4096), (1, 4096, 28672), (1, 14336, 4096),
+                  (1, 2048, 3648), (1, 2048, 2048), (1, 11264, 2048), (8, 4096, 14336),
+                  (8, 14336, 4096), (3, 256, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", S8_CARD_SHAPES)
+def test_cuda_int4_s8_cluster_fold_is_bit_equal(cuda_device, m, k, n):
+    """Every plan, split over a cluster or not, equals the plain version
+    bit for bit; a launch that splits K is counted as a cluster launch,
+    and its grid fits the clusters the card holds at once where the plan
+    aims for one wave."""
+    group = min(128, k // 2)
+    gen = torch.Generator(cuda_device).manual_seed(k + n)
+    q = tq.quantize_int4(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5,
+                         group=group)
+    xq, xs = tq.quant_act_grouped(torch.randn(m, k, generator=gen, device=cuda_device),
+                                  k // group)
+    n_groups = k // group
+    pb = tq.s8_pairs_per_block(m, k, n, n_groups, n % 16 == 0)
+    before = tq.cluster_launch_counts["int4_matmul_s8.cluster"]
+    got = tq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"])
+    splits = tq.cluster_launch_counts["int4_matmul_s8.cluster"] - before
+    assert splits == (pb < n_groups // 2)
+    assert torch.equal(got, tq.int4_matmul_s8_reference(xq, xs, q["w_q4"], q["scale4"]))
+    if splits and m == 1:
+        tiles = -(-n // tq.S8_BLOCK_N[0])
+        assert tiles <= tq.s8_resident_clusters(m, k, n, n_groups, pb)
+
+
+@pytest.mark.cuda
+def test_cuda_int4_s8_cluster_fold_replays_in_a_graph(cuda_device):
+    """q|k|v's split launch captured once, replayed on new inputs copied
+    into the captured ones: each replay equals the plain version."""
+    k, n, groups = 4096, 6144, 32
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    q = tq.quantize_int4(torch.randn(k, n, generator=gen, device=cuda_device) * k ** -0.5)
+    assert tq.s8_pairs_per_block(1, k, n, groups, True) < groups // 2
+    xq, xs = tq.quant_act_grouped(torch.randn(1, k, generator=gen, device=cuda_device), groups)
+    tq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"])       # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.int4_matmul_s8(xq, xs, q["w_q4"], q["scale4"])
+    for _ in range(3):
+        new_q, new_s = tq.quant_act_grouped(
+            torch.randn(1, k, generator=gen, device=cuda_device), groups)
+        xq.copy_(new_q)
+        xs.copy_(new_s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tq.int4_matmul_s8_reference(new_q, new_s, q["w_q4"],
+                                                            q["scale4"]))
+
+
+@pytest.mark.cuda
+def test_cuda_int4_moe_s8_splits_over_a_cluster(cuda_device):
+    """The expert product at a shape whose plan splits K (2 rows, 1408 →
+    2048 in groups of 64: 16 tiles a row, 6 ranks of 2 pairs): bit-equal
+    to its plain version, counted as a cluster launch."""
+    k, n, group = 1408, 2048, 64
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    w = tq.quantize_int4(torch.randn(5, k, n, generator=gen, device=cuda_device) * k ** -0.5,
+                         group=group)
+    xq, xs = tq.quant_act_grouped(torch.randn(2, k, generator=gen, device=cuda_device),
+                                  k // group)
+    ids = torch.tensor([3, 0], device=cuda_device)
+    assert tq.s8_pairs_per_block(2, k, n, k // group, True, rows_per_block=1) == 2
+    before = tq.cluster_launch_counts["int4_moe_s8.cluster"]
+    got = tq.int4_moe_s8(xq, xs, w["w_q4"], w["scale4"], ids)
+    assert tq.cluster_launch_counts["int4_moe_s8.cluster"] == before + 1
+    assert torch.equal(got, tq.int4_moe_s8_reference(xq, xs, w["w_q4"], w["scale4"], ids))
 
 
 @pytest.mark.cuda

@@ -39,16 +39,22 @@
 // as the TPU kernel rounds it (no fused multiply-add).
 //   Where the block holds every group of its column tile (the wrapper's
 // plan does so when the tiles alone fill the card, e.g. N = 14336), the
-// terms stay in shared memory and the block folds them in group order:
-// no scratch. Otherwise K is split over blocks: each writes its groups'
-// terms to an (M, n_groups, N) f32 scratch, fences, and takes a ticket
-// per (column tile, chunk of 8 rows of M); the block that arrives last
-// folds every group in order (reading the scratch through shared memory
-// in chunks) and resets the ticket. Rows of M go in chunks of 8 across
-// the grid, 1 or 2 at a time through a warp's sweep. Where N is not a
-// multiple of 16 (or w not 16-byte aligned), lanes read 4 bytes instead.
-// Not yet used: a cp.async/TMA ring, persistent blocks. The sweep lives in
-// int4_s8.cuh, which the expert product (int4_moe_s8.cu) shares.
+// terms stay in shared memory and the block folds them in group order.
+// Otherwise K is split over the ranks of a thread-block cluster (at most
+// 8, the portable size): the blocks of one (column tile, chunk of 8 rows
+// of M) take contiguous runs of group pairs, and the plan keeps the grid
+// within the clusters the card holds at once, so it runs in one wave.
+// Each rank sends every term of its groups into the shared memory of the
+// rank that folds that column (rank r folds the tile's r-th run of
+// 128 / splits columns), through distributed shared memory; after one
+// cluster barrier each output adds its n_groups terms in group order from
+// its own shared memory, with the same rounding as the unsplit fold. No
+// scratch in device memory, no atomics across blocks: only the output is
+// written. Rows of M go in chunks of 8 across the grid, 1 or 2 at a time
+// through a warp's sweep. Where N is not a multiple of 16 (or w not
+// 16-byte aligned), lanes read 4 bytes instead. Not yet used: a
+// cp.async/TMA ring, persistent blocks. The sweep lives in int4_s8.cuh,
+// which the expert product (int4_moe_s8.cu) shares.
 
 #include "int4_s8.cuh"
 
@@ -58,33 +64,57 @@ template <int MC, int CG>
 __global__ void __launch_bounds__(THREADS, MC == 1 ? 2 : 1)   // M = 1: 2 blocks an SM
 int4_matmul_s8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                       const int8_t* __restrict__ w, const float* __restrict__ ws,
-                      float* __restrict__ scratch, int* __restrict__ tickets,
                       __nv_bfloat16* __restrict__ out, int m, int k, int n, int n_groups,
-                      int pb, int fold_groups) {
-    s8_sweep<MC, CG, false>(xq, xs, w, ws, scratch, tickets, out, m, k, n, n_groups, pb,
-                            fold_groups, ExpertRows{nullptr, 1, 0, 0});
+                      int pb) {
+    s8_sweep<MC, CG, false>(xq, xs, w, ws, out, m, k, n, n_groups, pb,
+                            ExpertRows{nullptr, 1, 0, 0});
 }
 
+// Raises the instance's dynamic shared-memory limit, once, where a
+// launch needs more than 48 KB
 template <int MC, int CG>
-int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws, float* scratch,
-           int* tickets, __nv_bfloat16* out, int m, int k, int n, int n_groups, int pb,
-           cudaStream_t stream) {
-    int fold_groups, smem;
-    dim3 grid;
-    const int err = s8_shape<CG>(m, k, n, n_groups, pb, M_CHUNK,
-                                 scratch != nullptr && tickets != nullptr, fold_groups, smem,
-                                 grid);
-    if (err) return err;
-    static bool raised = false;                       // the attribute, once per instance
+int prepare(int smem) {
+    static bool raised = false;
     if (smem > 48 * 1024 && !raised) {
         const cudaError_t e = cudaFuncSetAttribute(
             int4_matmul_s8_kernel<MC, CG>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
         if (e != cudaSuccess) return (int)e;
         raised = true;
     }
-    int4_matmul_s8_kernel<MC, CG><<<grid, THREADS, smem, stream>>>(
-        xq, xs, w, ws, scratch, tickets, out, m, k, n, n_groups, pb, fold_groups);
-    return (int)cudaGetLastError();
+    return 0;
+}
+
+template <int MC, int CG>
+int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws,
+           __nv_bfloat16* out, int m, int k, int n, int n_groups, int pb, cudaStream_t stream) {
+    int smem;
+    dim3 grid;
+    int err = s8_shape<CG>(m, k, n, n_groups, pb, M_CHUNK, smem, grid);
+    if (!err) err = prepare<MC, CG>(smem);
+    if (err) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = s8_config(grid, smem, stream, attr);
+    err = (int)cudaLaunchKernelEx(&cfg, int4_matmul_s8_kernel<MC, CG>, xq, xs, w, ws, out, m, k,
+                                  n, n_groups, pb);
+    return err ? err : (int)cudaGetLastError();
+}
+
+// The clusters of this launch the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -1 without a split of K
+template <int MC, int CG>
+int clusters(int m, int k, int n, int n_groups, int pb) {
+    int smem;
+    dim3 grid;
+    if (s8_shape<CG>(m, k, n, n_groups, pb, M_CHUNK, smem, grid) || prepare<MC, CG>(smem))
+        return -2;
+    if (grid.y == 1) return -1;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = s8_config(grid, smem, nullptr, attr);
+    int count = 0;
+    if (cudaOccupancyMaxActiveClusters(&count, int4_matmul_s8_kernel<MC, CG>, &cfg) !=
+        cudaSuccess)
+        return -2;
+    return count;
 }
 
 }  // namespace
@@ -93,20 +123,16 @@ int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws, 
 // packed int8, ws (n_groups, n) f32, out (m, n) bf16; all dense, n a
 // multiple of 4, n_groups even and dividing k, k / n_groups a multiple of
 // 4. pairs_per_block: group pairs a block takes (n_groups / 2 for no
-// split); with a split, scratch is an (m, n_groups, n) f32 buffer and
-// tickets ceil(n / 32)·ceil(m / 8) zeroed int32 (the kernel leaves them
-// zeroed; one launch at a time may use them), else both may be null.
-// Returns cudaGetLastError() after the launch.
+// split; otherwise the split, ceil(n_groups / 2 / pairs_per_block) ranks,
+// is one cluster of at most 8). Returns cudaGetLastError() after the
+// launch.
 extern "C" int tww_int4_matmul_s8(const void* xq, const void* xs, const void* w,
-                                  const void* ws, void* scratch, void* tickets, void* out, int m,
-                                  int k, int n, int n_groups, int pairs_per_block,
-                                  void* stream) {
+                                  const void* ws, void* out, int m, int k, int n, int n_groups,
+                                  int pairs_per_block, void* stream) {
     const auto* xq_ = static_cast<const int8_t*>(xq);
     const auto* xs_ = static_cast<const float*>(xs);
     const auto* w_ = static_cast<const int8_t*>(w);
     const auto* ws_ = static_cast<const float*>(ws);
-    auto* scratch_ = static_cast<float*>(scratch);
-    auto* tickets_ = static_cast<int*>(tickets);
     auto* out_ = static_cast<__nv_bfloat16*>(out);
     const auto s = (cudaStream_t)stream;
     const int pb = pairs_per_block;
@@ -114,14 +140,24 @@ extern "C" int tww_int4_matmul_s8(const void* xq, const void* xs, const void* w,
     // 16-byte loads where every row segment is 16-byte aligned
     const bool wide = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     if (m == 1)
-        return wide ? launch<1, 4>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, m, k, n, n_groups,
-                                   pb, s)
-                    : launch<1, 1>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, m, k, n, n_groups,
-                                   pb, s);
-    return wide ? launch<2, 4>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, m, k, n, n_groups, pb,
-                               s)
-                : launch<2, 1>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, m, k, n, n_groups, pb,
-                               s);
+        return wide ? launch<1, 4>(xq_, xs_, w_, ws_, out_, m, k, n, n_groups, pb, s)
+                    : launch<1, 1>(xq_, xs_, w_, ws_, out_, m, k, n, n_groups, pb, s);
+    return wide ? launch<2, 4>(xq_, xs_, w_, ws_, out_, m, k, n, n_groups, pb, s)
+                : launch<2, 1>(xq_, xs_, w_, ws_, out_, m, k, n, n_groups, pb, s);
+}
+
+// The clusters of the launch tww_int4_matmul_s8 makes for these arguments
+// (w 16-byte aligned) that the card holds at once; -1 where it does not
+// split K, -2 where it would refuse the plan.
+extern "C" int tww_int4_matmul_s8_clusters(int m, int k, int n, int n_groups,
+                                           int pairs_per_block) {
+    if (pairs_per_block < 1 || pairs_per_block > n_groups / 2) return -2;
+    const bool wide = n % 16 == 0;
+    if (m == 1)
+        return wide ? clusters<1, 4>(m, k, n, n_groups, pairs_per_block)
+                    : clusters<1, 1>(m, k, n, n_groups, pairs_per_block);
+    return wide ? clusters<2, 4>(m, k, n, n_groups, pairs_per_block)
+                : clusters<2, 1>(m, k, n, n_groups, pairs_per_block);
 }
 
 extern "C" const char* tww_int4_matmul_s8_error(int code) {

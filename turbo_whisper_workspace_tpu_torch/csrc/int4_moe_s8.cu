@@ -21,9 +21,10 @@
 // with one output row a block (blockIdx.z), since no two rows of a
 // decode token share an expert; the plan (ops/quant.py:s8_pairs_per_block
 // with rows_per_block 1) keeps every group in a block when the column
-// tiles of all rows fill the card, and otherwise splits K with the same
-// scratch and tickets. The arithmetic and its rounding are the dense
-// kernel's, row by row.
+// tiles of all rows fill the card, and otherwise splits K over a cluster
+// with the same fold across its ranks (a cluster's blocks share one
+// output row, so they read one expert). The arithmetic and its rounding
+// are the dense kernel's, row by row.
 
 #include "int4_s8.cuh"
 
@@ -33,22 +34,18 @@ template <int CG>
 __global__ void __launch_bounds__(THREADS, 2)
 int4_moe_s8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                    const int8_t* __restrict__ w, const float* __restrict__ ws,
-                   float* __restrict__ scratch, int* __restrict__ tickets,
                    __nv_bfloat16* __restrict__ out, int rows, int k, int n, int n_groups, int pb,
-                   int fold_groups, const ExpertRows expert_rows) {
-    s8_sweep<1, CG, true>(xq, xs, w, ws, scratch, tickets, out, rows, k, n, n_groups, pb,
-                          fold_groups, expert_rows);
+                   const ExpertRows expert_rows) {
+    s8_sweep<1, CG, true>(xq, xs, w, ws, out, rows, k, n, n_groups, pb, expert_rows);
 }
 
 template <int CG>
-int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws, float* scratch,
-           int* tickets, __nv_bfloat16* out, int rows, int k, int n, int n_groups, int pb,
+int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws,
+           __nv_bfloat16* out, int rows, int k, int n, int n_groups, int pb,
            const ExpertRows expert_rows, cudaStream_t stream) {
-    int fold_groups, smem;
+    int smem;
     dim3 grid;
-    const int err = s8_shape<CG>(rows, k, n, n_groups, pb, 1,
-                                 scratch != nullptr && tickets != nullptr, fold_groups, smem,
-                                 grid);
+    const int err = s8_shape<CG>(rows, k, n, n_groups, pb, 1, smem, grid);
     if (err) return err;
     static bool raised = false;                       // the attribute, once per instance
     if (smem > 48 * 1024 && !raised) {
@@ -57,10 +54,11 @@ int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws, 
         if (e != cudaSuccess) return (int)e;
         raised = true;
     }
-    int4_moe_s8_kernel<CG><<<grid, THREADS, smem, stream>>>(
-        xq, xs, w, ws, scratch, tickets, out, rows, k, n, n_groups, pb, fold_groups,
-        expert_rows);
-    return (int)cudaGetLastError();
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = s8_config(grid, smem, stream, attr);
+    const int code = (int)cudaLaunchKernelEx(&cfg, int4_moe_s8_kernel<CG>, xq, xs, w, ws, out,
+                                             rows, k, n, n_groups, pb, expert_rows);
+    return code ? code : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -69,18 +67,16 @@ int launch(const int8_t* xq, const float* xs, const int8_t* w, const float* ws, 
 // f32, ids (rows,) int64 expert ids, w (n_experts, k/2, n) packed int8,
 // ws (n_experts, n_groups, n) f32; out (rows, n) bf16, or with split_n > 0
 // two planes (2, rows, split_n) (n = 2·split_n). Constraints and the
-// split-K scratch (rows, n_groups, n) and tickets (ceil(n / 32)·rows) as
-// for tww_int4_matmul_s8. Returns cudaGetLastError() after the launch.
+// split of K as for tww_int4_matmul_s8. Returns cudaGetLastError() after
+// the launch.
 extern "C" int tww_int4_moe_s8(const void* xq, const void* xs, const void* w, const void* ws,
-                               const void* ids, void* scratch, void* tickets, void* out,
-                               int rows, int x_div, int k, int n, int n_groups,
-                               int pairs_per_block, int split_n, int n_experts, void* stream) {
+                               const void* ids, void* out, int rows, int x_div, int k, int n,
+                               int n_groups, int pairs_per_block, int split_n, int n_experts,
+                               void* stream) {
     const auto* xq_ = static_cast<const int8_t*>(xq);
     const auto* xs_ = static_cast<const float*>(xs);
     const auto* w_ = static_cast<const int8_t*>(w);
     const auto* ws_ = static_cast<const float*>(ws);
-    auto* scratch_ = static_cast<float*>(scratch);
-    auto* tickets_ = static_cast<int*>(tickets);
     auto* out_ = static_cast<__nv_bfloat16*>(out);
     const auto s = (cudaStream_t)stream;
     const int pb = pairs_per_block;
@@ -90,10 +86,8 @@ extern "C" int tww_int4_moe_s8(const void* xq, const void* xs, const void* w, co
     const ExpertRows expert_rows{static_cast<const long long*>(ids), x_div, split_n, n_experts};
     // 16-byte loads where every row segment of every expert is 16-byte aligned
     const bool wide = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    return wide ? launch<4>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, rows, k, n, n_groups,
-                            pb, expert_rows, s)
-                : launch<1>(xq_, xs_, w_, ws_, scratch_, tickets_, out_, rows, k, n, n_groups,
-                            pb, expert_rows, s);
+    return wide ? launch<4>(xq_, xs_, w_, ws_, out_, rows, k, n, n_groups, pb, expert_rows, s)
+                : launch<1>(xq_, xs_, w_, ws_, out_, rows, k, n, n_groups, pb, expert_rows, s);
 }
 
 extern "C" const char* tww_int4_moe_s8_error(int code) {

@@ -1,17 +1,21 @@
 // The W4A8 sweep of int4_matmul_s8.cu (its design is described there),
 // shared with int4_moe_s8.cu: the block's staging, its streamed sweep of
 // packed rows, the terms rounded as the TPU kernel rounds them, and the
-// fold in group order (in shared memory, or through the split-K scratch
-// and a ticket). Each source wraps s8_sweep in a __global__ of its own
-// name; the expert product reads its row's expert id from device memory.
+// fold in group order (in shared memory, or across the ranks of a
+// thread-block cluster where K is split), and the launch. Each source
+// wraps s8_sweep in a __global__ of its own name; the expert product
+// reads its row's expert id from device memory.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "int8_blocks.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -22,24 +26,31 @@ constexpr int M_CHUNK = 8;            // rows of M per block
 constexpr int COL_LANES = 8;          // lanes of a warp along N
 constexpr int ROW_LANES = 4;          // lanes of a warp along the packed rows
 constexpr int UNROLL = 2;             // row quads of a lane in one batch of its sweep
-constexpr int FOLD_BYTES = 40960;     // the last block's fold chunk (split K)
+constexpr int MAX_CLUSTER = 8;        // ranks of a split of K: the portable cluster size
 constexpr int MAX_SMEM = 232448 - 1024;   // 227 KB a block, less the static part
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
+// The columns of a bn-column tile each rank of a split into `splits`
+// folds: rank r takes [r·cols, (r+1)·cols), whole groups of 4 (the last
+// rank fewer, or none)
+__host__ __device__ constexpr int fold_cols(int bn, int splits) {
+    return 4 * ((bn / 4 + splits - 1) / splits);
+}
+
 // Shared-memory layout of a block with mt rows of M, pb group pairs and
-// bn columns: xq bytes [mt][2][pb·G], xs [mt][2·pb], ws [2·pb][bn], the
-// dots (then terms, then the fold's chunks) [max(2·pb, fold_groups)][mt]
-// [bn], and with a split fold the running sums [mt][bn].
+// bn columns, of a split into `splits` ranks: xq bytes [mt][2][pb·G], xs
+// [mt][2·pb], ws [2·pb][bn], the dots (then terms) [2·pb][mt][bn], and
+// with a split the terms of the columns this rank folds, as every rank
+// of the cluster sends them, [n_groups][mt][fold_cols].
 struct Layout {
-    int xs, ws, terms, acc, bytes;
-    __host__ __device__ Layout(int mt, int pb, int group, int bn, int fold_groups) {
+    int xs, ws, terms, fold, bytes;
+    __host__ __device__ Layout(int mt, int pb, int group, int bn, int n_groups, int splits) {
         xs = align16(mt * 2 * pb * group);
         ws = align16(xs + mt * 2 * pb * 4);
         terms = ws + 2 * pb * bn * 4;
-        const int slots = 2 * pb > fold_groups ? 2 * pb : fold_groups;
-        acc = terms + slots * mt * bn * 4;
-        bytes = acc + (fold_groups ? mt * bn * 4 : 0);
+        fold = terms + 2 * pb * mt * bn * 4;
+        bytes = fold + (splits > 1 ? n_groups * mt * fold_cols(bn, splits) * 4 : 0);
     }
 };
 
@@ -111,18 +122,23 @@ __device__ __forceinline__ long long out_index(int row, int col, int m, int n,
 // output row a block, r = blockIdx.z, whose activations are xq row
 // r / rows.x_div and whose weights are expert rows.ids[r] (clamped into
 // [0, n_experts): a graph replay never reads past the stack) of the
-// stacked w (E, K/2, N) and ws (E, n_groups, N).
+// stacked w (E, K/2, N) and ws (E, n_groups, N). Where gridDim.y > 1
+// (a split of K), the gridDim.y blocks of one (column tile, row chunk)
+// are one thread-block cluster along y: rank blockIdx.y takes group
+// pairs [blockIdx.y · pb, + pb).
 template <int MC, int CG, bool MOE>
 __device__ __forceinline__ void s8_sweep(const int8_t* __restrict__ xq,
                                          const float* __restrict__ xs,
                                          const int8_t* __restrict__ w,
                                          const float* __restrict__ ws,
-                                         float* __restrict__ scratch, int* __restrict__ tickets,
                                          __nv_bfloat16* __restrict__ out, int m, int k, int n,
-                                         int n_groups, int pb, int fold_groups,
-                                         const ExpertRows rows) {
+                                         int n_groups, int pb, const ExpertRows rows) {
     constexpr int BN = COL_LANES * 4 * CG;
     extern __shared__ __align__(16) uint8_t smem[];
+    const int splits = gridDim.y;
+    // a split: this block has started, which every rank waits for before
+    // it writes into another's shared memory
+    if (splits > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
     const int tid = threadIdx.x;
     const int lane = tid % 32;
@@ -142,7 +158,7 @@ __device__ __forceinline__ void s8_sweep(const int8_t* __restrict__ xq,
         w += e * (k / 2) * (long long)n;
         ws += e * n_groups * (long long)n;
     }
-    const Layout lay(mt, pb, group, BN, fold_groups);
+    const Layout lay(mt, pb, group, BN, n_groups, splits);
     int8_t* xq_s = reinterpret_cast<int8_t*>(smem);
     float* xs_s = reinterpret_cast<float*>(smem + lay.xs);
     float* ws_s = reinterpret_cast<float*>(smem + lay.ws);
@@ -315,7 +331,7 @@ __device__ __forceinline__ void s8_sweep(const int8_t* __restrict__ xq,
     }
     __syncthreads();
 
-    if (gridDim.y == 1) {
+    if (splits == 1) {
         // every group is here (pb = half): fold in group order, low then high
         for (int e = tid; e < mt * BN; e += THREADS) {
             const int c = e % BN;
@@ -329,88 +345,76 @@ __device__ __forceinline__ void s8_sweep(const int8_t* __restrict__ xq,
         return;
     }
 
-    // split K: this block's terms to the scratch (4 columns a store), then
-    // a ticket per (column tile, row chunk)
+    // split K: each term goes to the shared memory of the rank that folds
+    // its column (4 columns a store, through distributed shared memory);
+    // after the cluster's barrier each rank folds its columns' terms in
+    // group order, every group from its own shared memory
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cols = fold_cols(BN, splits);
+    float* fold_s = reinterpret_cast<float*>(smem + lay.fold);      // [n_groups][mt][cols]
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
     for (int e = tid; e < 2 * np * mt * (BN / 4); e += THREADS) {
         const int c = 4 * (e % (BN / 4));
         const int mm = (e / (BN / 4)) % mt;
         const int glc = e / ((BN / 4) * mt);
         const int hh = glc / np;
         const int lp = glc % np;
-        const int cc = n0 + c;
-        if (cc >= n) continue;
+        if (n0 + c >= n) continue;
         const float4 t = *reinterpret_cast<const float4*>(
             terms_s + ((hh * pb + lp) * mt + mm) * BN + c);
-        *reinterpret_cast<float4*>(
-            scratch + ((long long)(m0 + mm) * n_groups + hh * half + pa + lp) * n + cc) = t;
+        float* at = fold_s + ((hh * half + pa + lp) * mt + mm) * cols + c % cols;
+        *cluster.map_shared_rank(reinterpret_cast<float4*>(at), c / cols) = t;
     }
-    __threadfence();
-    __syncthreads();
-    __shared__ int last;
-    const int ticket = blockIdx.z * gridDim.x + blockIdx.x;
-    if (tid == 0) last = atomicAdd(tickets + ticket, 1) == (int)gridDim.y - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-
-    // the last block: fold all groups in order, fold_groups at a time
-    // through shared memory
-    float* acc_s = reinterpret_cast<float*>(smem + lay.acc);
-    for (int e = tid; e < mt * BN; e += THREADS) acc_s[e] = 0.0f;
-    for (int g0 = 0; g0 < n_groups; g0 += fold_groups) {
-        const int gc = min(fold_groups, n_groups - g0);
-        __syncthreads();                               // the last chunk is folded
-        // every copy of the chunk in flight at once (cp.async.cg reads L2)
-        for (int e = tid; e < gc * mt * (BN / 4); e += THREADS) {
-            const int c = 4 * (e % (BN / 4));
-            const int mm = (e / (BN / 4)) % mt;
-            const int gi = e / ((BN / 4) * mt);
-            const bool ok = n0 + c < n;
-            cp_async<16>(terms_s + (gi * mt + mm) * BN + c,
-                         scratch + ((long long)(m0 + mm) * n_groups + g0 + gi) * n +
-                             (ok ? n0 + c : 0), ok);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        for (int e = tid; e < mt * BN; e += THREADS) {
-            float a = acc_s[e];
+    cluster.sync();                                   // every term is in place
+    const int c0 = blockIdx.y * cols;                 // this rank's first column
+    for (int e = tid; e < mt * cols; e += THREADS) {
+        const int cl = e % cols;
+        const int mm = e / cols;
+        if (c0 + cl >= BN || n0 + c0 + cl >= n) continue;
+        const float* at = fold_s + mm * cols + cl;
+        float a = 0.0f;
 #pragma unroll 8
-            for (int gi = 0; gi < gc; ++gi) a = __fadd_rn(a, terms_s[gi * mt * BN + e]);
-            acc_s[e] = a;
-        }
+        for (int g = 0; g < n_groups; ++g) a = __fadd_rn(a, at[g * mt * cols]);
+        out[out_index<MOE>(m0 + mm, n0 + c0 + cl, m, n, rows)] = __float2bfloat16(a);
     }
-    for (int e = tid; e < mt * BN; e += THREADS) {
-        const int c = e % BN;
-        if (n0 + c < n)
-            out[out_index<MOE>(m0 + e / BN, n0 + c, m, n, rows)] = __float2bfloat16(acc_s[e]);
-    }
-    if (tid == 0) tickets[ticket] = 0;
 }
 
-// The launch's shape: fold_groups (0 without a split of K), its shared
-// memory and its grid, for rows_per_block output rows a block (M_CHUNK
-// for the dense product, 1 for the expert one). Returns 0, or
-// cudaErrorInvalidValue where the plan is not one the kernel takes.
+// The launch's shape: its shared memory and its grid, for rows_per_block
+// output rows a block (M_CHUNK for the dense product, 1 for the expert
+// one). Returns 0, or cudaErrorInvalidValue where the plan is not one the
+// kernel takes (more than MAX_CLUSTER ranks, or too much shared memory).
 template <int CG>
-int s8_shape(int m, int k, int n, int n_groups, int pb, int rows_per_block, bool have_scratch,
-             int& fold_groups, int& smem_bytes, dim3& grid) {
+int s8_shape(int m, int k, int n, int n_groups, int pb, int rows_per_block, int& smem_bytes,
+             dim3& grid) {
     constexpr int BN = COL_LANES * 4 * CG;
     const int half = n_groups / 2;
     const int splits = (half + pb - 1) / pb;
     const int mt = m < rows_per_block ? m : rows_per_block;
-    fold_groups = 0;
-    if (splits > 1) {
-        if (!have_scratch) return (int)cudaErrorInvalidValue;
-        fold_groups = FOLD_BYTES / (mt * BN * 4);
-        if (fold_groups < 2 * pb) fold_groups = 2 * pb;
-        if (fold_groups > n_groups) fold_groups = n_groups;
-    }
-    const Layout lay(mt, pb, k / n_groups, BN, fold_groups);
+    if (splits > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    const Layout lay(mt, pb, k / n_groups, BN, n_groups, splits);
     if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
     smem_bytes = lay.bytes;
     grid = dim3((n + BN - 1) / BN, splits, (m + rows_per_block - 1) / rows_per_block);
     return 0;
+}
+
+// The launch of `grid` with `smem` bytes of dynamic shared memory on
+// `stream`: where grid.y > 1, in clusters of grid.y blocks along y (the
+// attribute kept in `attr`).
+inline cudaLaunchConfig_t s8_config(dim3 grid, int smem, cudaStream_t stream,
+                                    cudaLaunchAttribute& attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = grid.y;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = grid.y > 1 ? 1 : 0;
+    return cfg;
 }
 
 }  // namespace

@@ -51,8 +51,8 @@ SIGNATURES = {
     "self_attention_int8_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "int4_matmul_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "int4_moe_s8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "int4_matmul_s8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "int4_moe_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "int4_group_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mla_attention": [_P, _P, _L, _L, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _F,
                       _P],

@@ -33,6 +33,8 @@ numpy versions (f32 division, round half to even, clip).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -43,11 +45,16 @@ GROUP4 = 128
 # kernel name → launches since the last reset_launch_counts()
 launch_counts = {name: 0 for name in ("int8_matmul", "int4_matmul", "int4_matmul_s8",
                                       "int4_moe_s8", "int4_group_matmul")}
+# "<kernel>.cluster" → the kernel's launches that split K over a
+# thread-block cluster, counted as launch_counts counts launches (a name
+# of its own: a graph capture's record of launches is keyed by name)
+cluster_launch_counts = {"int4_matmul_s8.cluster": 0, "int4_moe_s8.cluster": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, cluster_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -381,13 +388,39 @@ def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, scale: torch.Tensor) -> tor
     return out
 
 
-# int4_matmul_s8's plan mirrors csrc/int4_matmul_s8.cu: its column tile
-# (16-byte loads, or 4-byte) and its warps a block
+# int4_matmul_s8's plan mirrors csrc/int4_s8.cuh: its column tile (16-byte
+# loads, or 4-byte), its warps a block, its shared memory and the ranks
+# of a split of K
 S8_BLOCK_N = (128, 32)
 S8_WARPS = 8
 S8_FILL_BLOCKS = 96         # column tiles that fill the card without a split of K
 S8_WHOLE_SMEM = 200 * 1024  # shared memory a block may take to hold every group
-S8_SPLIT_BLOCKS = 200       # blocks a split of K aims for (2 resident an SM fill 132)
+S8_MAX_SMEM = 232448 - 1024  # the most a block may take (csrc MAX_SMEM)
+S8_MAX_CLUSTER = 8          # ranks of a split: the portable cluster size
+# blocks the H100 holds at once in clusters of 2 to 8 at one row of M (two
+# an SM; cudaOccupancyMaxActiveClusters: 224 in clusters of 7, up to 264
+# in clusters of 2)
+S8_WAVE_BLOCKS = 224
+
+
+def s8_fold_cols(bn: int, splits: int) -> int:
+    """The columns of a bn-column tile each rank of a split folds
+    (csrc/int4_s8.cuh:fold_cols): rank r takes [r·cols, (r+1)·cols),
+    whole groups of 4 (the last rank fewer, or none)."""
+    return 4 * -(-(bn // 4) // splits)
+
+
+def s8_layout_bytes(mt: int, pb: int, group: int, bn: int, n_groups: int,
+                    splits: int) -> int:
+    """A block's shared memory (csrc/int4_s8.cuh:Layout): xq bytes, xs,
+    ws rows and the terms of its pb pairs, and with a split the terms of
+    the columns it folds, from every group."""
+    def align16(x):
+        return (x + 15) & ~15
+
+    cols = s8_fold_cols(bn, splits)
+    terms = align16(align16(mt * 2 * pb * group) + mt * 2 * pb * 4) + 2 * pb * bn * 4
+    return terms + 2 * pb * mt * bn * 4 + (n_groups * mt * cols * 4 if splits > 1 else 0)
 
 
 def s8_pairs_per_block(m: int, k: int, n: int, n_groups: int, wide: bool,
@@ -395,41 +428,54 @@ def s8_pairs_per_block(m: int, k: int, n: int, n_groups: int, wide: bool,
     """int4_matmul_s8's plan: the group pairs each block takes. All of
     them (n_groups / 2: no split, the fold stays in shared memory) when
     the column tiles alone fill the card and the block's xq bytes and
-    terms fit; else K is split over blocks of 8, 4, 2 or 1 pairs, the
-    most that still give S8_SPLIT_BLOCKS blocks (a warp keeps a whole
-    pair where it can; else the block's warps share each pair). A block
-    takes rows_per_block rows of M: 8, or 1 for int4_moe_s8."""
+    terms fit. Else K is split over a cluster of at most S8_MAX_CLUSTER
+    blocks: the fewest pairs a block (2, 4, 8, then multiples of 8, so
+    that its 8 warps share them evenly, at most 4 warps a pair) whose
+    grid the card holds in one wave (S8_WAVE_BLOCKS at one row of M; half
+    as many above, one block an SM) and whose shared memory fits; where
+    no such grid fits a wave, the most pairs that fit. A block takes
+    rows_per_block rows of M: 8, or 1 for int4_moe_s8."""
     half = n_groups // 2
     bn = S8_BLOCK_N[0] if wide else S8_BLOCK_N[1]
     blocks = -(-n // bn) * -(-m // rows_per_block)
     mt = min(m, rows_per_block)
-    # xq bytes, xs, ws rows and the terms of every group (csrc Layout)
-    whole = mt * (k + 4 * n_groups * (bn + 1)) + 4 * n_groups * bn
-    if blocks >= S8_FILL_BLOCKS and whole <= S8_WHOLE_SMEM:
+    group = k // n_groups
+    if blocks >= S8_FILL_BLOCKS and s8_layout_bytes(mt, half, group, bn, n_groups,
+                                                    1) <= S8_WHOLE_SMEM:
         return half
-    pb = S8_WARPS
-    while pb > 1 and blocks * -(-half // pb) < S8_SPLIT_BLOCKS:
-        pb //= 2
-    return min(pb, half)
+    wave = S8_WAVE_BLOCKS if mt == 1 else S8_WAVE_BLOCKS // 2
+    most, pb = half, 2
+    while pb < half:
+        splits = -(-half // pb)
+        if (splits <= S8_MAX_CLUSTER and
+                s8_layout_bytes(mt, pb, group, bn, n_groups, splits) <= S8_MAX_SMEM):
+            if blocks * splits <= wave:
+                return pb
+            most = pb
+        pb = 2 * pb if pb < S8_WARPS else pb + S8_WARPS
+    return most
 
 
-_tickets: dict = {}        # device → zeroed int32 tickets of int4_matmul_s8's split fold
+def s8_resident_clusters(m: int, k: int, n: int, n_groups: int, pb: int) -> int:
+    """The clusters of int4_matmul_s8's launch at pb pairs a block that
+    the card holds at once (cudaOccupancyMaxActiveClusters, asked of the
+    built kernel: the card's machine only); -1 where pb splits no K."""
+    entry = build.library("int4_matmul_s8").tww_int4_matmul_s8_clusters
+    entry.argtypes = [ctypes.c_int] * 5
+    entry.restype = ctypes.c_int
+    count = entry(m, k, n, n_groups, pb)
+    if count < -1:
+        raise ValueError(f"int4_matmul_s8 takes no launch of {pb} pairs a block at "
+                         f"M={m}, K={k}, N={n}, {n_groups} groups")
+    return count
 
 
-def _s8_tickets(device: torch.device, count: int) -> torch.Tensor:
-    """The device's ticket buffer, grown to `count`. It outlives every
-    call, so it must not come from a CUDA graph's private pool: a graph
-    captures a launch only after an eager warm-up at the same shapes
-    (`utils/step_loop.py`), and growing the buffer inside a capture
-    raises."""
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < count:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("int4_matmul_s8: its ticket buffer must be allocated "
-                               "before a CUDA graph capture (warm up eagerly first)")
-        buf = _tickets[device] = torch.zeros(max(count, 4096), dtype=torch.int32,
-                                             device=device)
-    return buf
+def s8_cluster_launch(name: str) -> None:
+    """Count one launch of kernel `name` (int4_matmul_s8 or int4_moe_s8)
+    that splits K over a thread-block cluster, as count_launch counts;
+    the wrappers call it beside such a launch, so a profiler that wraps
+    it sees each."""
+    count_launch(cluster_launch_counts, f"{name}.cluster")
 
 
 def _check_int4_s8(xq, xs, w_q4, scale4) -> tuple[int, int, int, int]:
@@ -457,9 +503,9 @@ def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
 
     CUDA: csrc/int4_matmul_s8.cu, one launch; G a multiple of 4, xq
     4-byte and scale4 16-byte aligned. Where `s8_pairs_per_block`
-    splits K, an (M, K/G, N) f32 scratch of the per-group terms and the
-    device's ticket buffer (which the kernel leaves zeroed; launches on
-    one stream only) go with it. CPU: the plain version."""
+    splits K, the split is one thread-block cluster a column tile, which
+    folds through distributed shared memory (`s8_cluster_launch` counts
+    it). CPU: the plain version."""
     if xq.device.type == "cpu":
         return int4_matmul_s8_reference(xq, xs, w_q4, scale4)
     _check_cuda("int4_matmul_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4},
@@ -468,16 +514,12 @@ def int4_matmul_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
     m, k, n, n_groups = _check_int4_s8(xq, xs, w_q4, scale4)
     wide = n % 16 == 0 and w_q4.data_ptr() % 16 == 0
     pb = s8_pairs_per_block(m, k, n, n_groups, wide)
-    scratch = tickets = None
-    if pb < n_groups // 2:
-        scratch = torch.empty((m, n_groups, n), dtype=torch.float32, device=xq.device)
-        tickets = _s8_tickets(xq.device, -(-n // S8_BLOCK_N[1]) * -(-m // 8))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     build.launch("int4_matmul_s8", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
-                 scale4.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-                 tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
-                 m, k, n, n_groups, pb, _stream(xq.device))
+                 scale4.data_ptr(), out.data_ptr(), m, k, n, n_groups, pb, _stream(xq.device))
     count_launch(launch_counts, "int4_matmul_s8")
+    if pb < n_groups // 2:
+        s8_cluster_launch("int4_matmul_s8")
     return out
 
 
@@ -491,9 +533,9 @@ def int4_moe_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor, scale4: 
     two column halves as dense (R, N/2) tensors.
 
     CUDA: csrc/int4_moe_s8.cu, one launch, one output row a block, the
-    plan s8_pairs_per_block(rows_per_block=1), int4_matmul_s8's scratch
-    and tickets where it splits K. CPU: the plain version (which reads
-    the ids)."""
+    plan s8_pairs_per_block(rows_per_block=1), int4_matmul_s8's cluster
+    fold where it splits K. CPU: the plain version (which reads the
+    ids)."""
     if xq.device.type == "cpu":
         return int4_moe_s8_reference(xq, xs, w_q4, scale4, ids, x_div, split)
     _check_cuda("int4_moe_s8", {"xq": xq, "xs": xs, "w_q4": w_q4, "scale4": scale4, "ids": ids},
@@ -510,19 +552,14 @@ def int4_moe_s8(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor, scale4: 
         raise ValueError(f"int4_moe_s8: N={n} has no halves of a multiple of 4")
     wide = n % 16 == 0 and w_q4.data_ptr() % 16 == 0
     pb = s8_pairs_per_block(rows, k, n, n_groups, wide, rows_per_block=1)
-    scratch = tickets = None
-    if pb < n_groups // 2:
-        scratch = torch.empty((rows, n_groups, n), dtype=torch.float32, device=xq.device)
-        tickets = _s8_tickets(xq.device, -(-n // S8_BLOCK_N[1]) * rows)
     out = torch.empty((2, rows, n // 2) if split else (rows, n), dtype=torch.bfloat16,
                       device=xq.device)
     build.launch("int4_moe_s8", xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(),
-                 scale4.data_ptr(), ids.data_ptr(),
-                 scratch.data_ptr() if scratch is not None else None,
-                 tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
-                 rows, x_div, k, n, n_groups, pb, n // 2 if split else 0, w_q4.shape[0],
-                 _stream(xq.device))
+                 scale4.data_ptr(), ids.data_ptr(), out.data_ptr(), rows, x_div, k, n,
+                 n_groups, pb, n // 2 if split else 0, w_q4.shape[0], _stream(xq.device))
     count_launch(launch_counts, "int4_moe_s8")
+    if pb < n_groups // 2:
+        s8_cluster_launch("int4_moe_s8")
     return (out[0], out[1]) if split else out
 
 

@@ -11,8 +11,8 @@ steps (a pinned copy after an event on a CUDA device).
 
 * graphed (the default on a CUDA device): the step runs once eagerly on
   a side stream as a warm-up, with the state put back afterwards
-  (kernel attributes, cuBLAS workspaces and `ops/quant.py`'s tickets
-  are set up outside the graph), then one call is captured into a
+  (kernel attributes and cuBLAS workspaces are set up outside the
+  graph), then one call is captured into a
   `torch.cuda.CUDAGraph` on that stream and replayed on the caller's
   stream, with no Python dispatch in between. A step that fails to
   capture or replay raises; nothing falls back to the eager loop.
