@@ -25,8 +25,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    K=8, T=448, with the 32-byte sectors of the K panel its owned pairs
    touch; self_attention_int8 also at Tq=2 and over a T=448 cache at
    valid_len 224 and 448; both take valid_len as a device int32, their
-   launch sized by T, each time beside the host-int design's from
-   PERF.md, and each is captured in a CUDA graph at valid_len 115, 227
+   launch sized by T, and each is captured in a CUDA graph at valid_len 115, 227
    written into the device scalar and the graph replayed, the output
    held to the plain version at 227): max abs error within 2e-2 and relative L2 error within 5e-3,
    and each mask the kernel must apply (keys past the sequence, past
@@ -41,7 +40,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    115 and 227 here, int4_matmul and int4_matmul_s8 in phase 8,
    s8_matmul and s8g4_matmul in phase 9) also a back-to-back time
    (20 launches in one CUDA graph over input copies larger than the L2
-   cache, per launch) beside the earlier design's single-launch time;
+   cache, per launch);
 4. the greedy main path at full large-v3-turbo width (random weights
    from seed 0, bf16, default TranscriptionConfig: greedy, int8
    cross-KV, language detection): first the model is held to its
@@ -318,8 +317,8 @@ first runs `--llm-profile`, then `--whisper-profile`, in TREE, an
 unpacked earlier commit (`git archive <rev> | tar -x -C build/parent`;
 this file is copied there), and in this checkout, in turns (TREE, this,
 this, TREE); then phase 16's checks and times of the Whisper decoder
-step's kernels in this checkout; then times, among the kernels whose
-earlier design BEFORE_MS holds shape by
+step's kernels in this checkout; then times, among the kernels that
+BEFORE_SHAPES lists shape by
 shape (int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
 kernels by valid_len (an earlier tree's host-int interface called as
 such), those whose source differs in TREE, built from TREE's sources,
@@ -361,40 +360,17 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 RUNS = 25
 BACK_TO_BACK = 20          # launches in a row for the back-to-back time
 L2_BYTES = 50e6            # H100 L2: the back-to-back inputs exceed it
-# the redesigned kernels' single-launch times in their earlier design
-# (PERF.md's kernel table, "Before"; NVIDIA H100 80GB HBM3, 700.00 W),
-# printed beside this run's: one time, or one a shape (M, K, N) where the
-# kernel is timed at several (a shape not listed: not measured)
-BEFORE_MS = {"flash_attention": 1.7712, "int4_matmul_s8": 0.0339,
-             "cross_attention_int8": 0.0560, "int4_matmul": 0.8286,
-             "cross_attention_s8": 0.0448, "self_attention_int8_lanes": 0.0548,
-             # (512, 4096, 128256) and (1, 3072, 8192) from the table; the
-             # rest the earlier sources timed by `chip_smoke.py --before`
-             "int8_matmul": {(512, 4096, 128256): 7.6014, (1748, 4096, 128256): 23.1491,
-                             (1, 4096, 128256): 0.9393, (1, 3072, 8192): 0.2119,
-                             (1, 3072, 3072): 0.2052, (1, 3072, 1024): 0.2008,
-                             (1, 8192, 3072): 0.5362, (1, 3072, 128256): 0.7040},
-             "s8_matmul": {(1, 3072, 8192): 0.0270, (1, 3072, 3072): 0.0164,
-                           (1, 3072, 1024): 0.0155, (1, 8192, 3072): 0.0360,
-                           (1, 3072, 128256): 0.1811},
-             # the earlier designs' times: valid_len → ms, and (M, K, N) → ms
-             "self_attention_int8": {MID_DECODE: 0.0272, PROMPT + DECODE: 0.0337},
-             "s8g4_matmul": {(1, 3072, 8192): 0.0189, (1, 3072, 3072): 0.0162,
-                             (1, 3072, 1024): 0.0154, (1, 8192, 3072): 0.0278,
-                             (1, 3072, 128256): 0.1457, (8, 3072, 8192): 0.0194,
-                             (3, 256, 1000): 0.0097}}
-# self_attention_int8 and self_attention_int8_lanes in their host-int
-# design (valid_len a kernel argument, the launch sized by it; PERF.md §6,
-# the rows' earlier times, NVIDIA H100 80GB HBM3, 700.00 W): valid_len →
-# (single launch, back-to-back) ms at T = PROMPT + DECODE, printed beside
-# this run's, whose launch is sized by T and reads valid_len on the card
-HOST_INT_MS = {"self_attention_int8": {MID_DECODE: (0.0152, 0.0101),
-                                       PROMPT + DECODE: (0.0219, 0.0157)},
-               "self_attention_int8_lanes": {MID_DECODE: (0.0255, 0.0194),
-                                             PROMPT + DECODE: (0.0401, 0.0338)}}
-# cross_attention_s8's mean relative distance from cross_attention_int8
-# in its earlier design (same check, same card), printed beside this run's
-S8_VS_INT8_BEFORE = "2.72-2.73e-2"
+# the matmul shapes at which phases 8 and 9 print the back-to-back time
+# beside the single launch's, and at which `--before` times an earlier
+# tree's kernel against this checkout's
+BEFORE_SHAPES = {
+    "int8_matmul": [(512, 4096, 128256), (1748, 4096, 128256), (1, 4096, 128256),
+                    (1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
+                    (1, 3072, 128256)],
+    "s8_matmul": [(1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
+                  (1, 3072, 128256)],
+    "s8g4_matmul": [(1, 3072, 8192), (1, 3072, 3072), (1, 3072, 1024), (1, 8192, 3072),
+                    (1, 3072, 128256), (8, 3072, 8192), (3, 256, 1000)]}
 REPLACES = {
     "flash_attention": "turbo_whisper_workspace_tpu/ops/attention.py:55",
     "cross_attention_int8": "turbo_whisper_workspace_tpu/ops/attention.py:202",
@@ -526,13 +502,10 @@ def input_copies(args: tuple, n_bytes: int) -> list:
     return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
 
 
-def print_redesigned(name: str, label: str, single: float, b2b: float, copies: list,
-                     card: str, shape: tuple | None = None) -> None:
-    before = BEFORE_MS[name] if shape is None else BEFORE_MS[name].get(shape)
-    was = "not measured" if before is None else f"{before:.4f} ms"
+def print_back_to_back(label: str, single: float, b2b: float, copies: list,
+                       card: str) -> None:
     total = sum(nbytes(*args) for args in copies)
-    print(f"{label}: single launch {single:.4f} ms (before the redesign: {was}), "
-          f"back-to-back {b2b:.4f} ms per launch ({BACK_TO_BACK} in a row over "
+    print(f"{label}: single launch {single:.4f} ms, back-to-back {b2b:.4f} ms per launch ({BACK_TO_BACK} in a row over "
           f"{len(copies)} copies, {total / 1e6:.0f} MB) [{card}]")
 
 
@@ -601,15 +574,6 @@ def device_int(n: int, dev) -> torch.Tensor:
     return torch.tensor([n], dtype=torch.int32, device=dev)
 
 
-def print_host_int(name: str, valid: int, single: float, b2b: float | None = None) -> None:
-    was = HOST_INT_MS[name].get(valid)
-    was = ("not measured" if was is None
-           else f"single {was[0]:.4f} ms, back-to-back {was[1]:.4f} ms")
-    now = f"single {single:.4f} ms" + ("" if b2b is None else f", back-to-back {b2b:.4f} ms")
-    print(f"  {name} valid_len={valid} from device memory, launch sized by T: {now}; "
-          f"the host-int design (PERF.md §6): {was}")
-
-
 def check_replay(name: str, fn, plain, args: tuple, t: int) -> tuple:
     """One launch of fn(*args, valid_len) captured in a CUDA graph with
     the device scalar at MID_DECODE, then t written into it and the graph
@@ -661,9 +625,8 @@ def check_kernels(att, dev, card: str) -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), flush),
     }
     copies = input_copies((q, k, v), nbytes(q, k, v))
-    print_redesigned("flash_attention", f"flash_attention B={b} H={h} T={t}",
-                     stats["flash_attention"]["ms"],
-                     back_to_back_ms(att.flash_attention, copies, flush), copies, card)
+    print_back_to_back(f"flash_attention B={b} H={h} T={t}", stats["flash_attention"]["ms"],
+                       back_to_back_ms(att.flash_attention, copies, flush), copies, card)
     del q, k, v, out, copies
 
     seq_len = 1500
@@ -690,8 +653,8 @@ def check_kernels(att, dev, card: str) -> dict:
                          4 * b * h * tq * seq_len * d, flush)
         if tq in (1, BEAM):
             copies = input_copies(args, nbytes(*args))
-            print_redesigned(
-                "cross_attention_int8", f"cross_attention_int8 B={b} H={h} Tq={tq} "
+            print_back_to_back(
+                f"cross_attention_int8 B={b} H={h} Tq={tq} "
                 f"(plan: ranks, slice, rows {att.cross_int8_plan(tq, kq.shape[-1])})",
                 rows[tq]["ms"], back_to_back_ms(
                     lambda *a: att.cross_attention_int8(*a, seq_len=seq_len), copies, flush),
@@ -731,7 +694,7 @@ def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int, card: str) -> d
             int8 = att.cross_attention_int8(*args, seq_len=valid).float()
             mean_rel = ((out.float() - int8).abs().mean() / int8.abs().mean()).item()
             print(f"  against cross_attention_int8 on the same inputs: mean relative "
-                  f"{mean_rel:.3e} (limit 0.03; {S8_VS_INT8_BEFORE} in the earlier design)")
+                  f"{mean_rel:.3e} (limit 0.03)")
             assert mean_rel < 0.03, mean_rel
         # the kernel reads K and V only at t < seq_len, each once; s8 x s8 products
         rows[tq] = timed(f"cross_attention_s8 B={b} H={h} Tq={tq}",
@@ -741,8 +704,8 @@ def check_cross_s8(att, dev, gen, flush, kv: dict, seq_len: int, card: str) -> d
                          4 * b * h * tq * seq_len * d, flush, peak_ops=PEAK_INT8_OPS)
         if tq in (1, BEAM):
             copies = input_copies(args, nbytes(*args))
-            print_redesigned(
-                "cross_attention_s8", f"cross_attention_s8 B={b} H={h} Tq={tq} "
+            print_back_to_back(
+                f"cross_attention_s8 B={b} H={h} Tq={tq} "
                 f"(plan: ranks, slice, rows {plan})", rows[tq]["ms"], back_to_back_ms(
                     lambda *a: att.cross_attention_s8(*a, seq_len=seq_len), copies, flush),
                 copies, card)
@@ -803,9 +766,7 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
                             4 * b * k * h * valid * d, flush)
         copies = input_copies(args, nbytes(*args))
         b2b = back_to_back_ms(lambda *a: att.self_attention_int8(*a, vl), copies, flush)
-        print_redesigned("self_attention_int8", label, rows[valid]["ms"], b2b, copies, card,
-                         valid)
-        print_host_int("self_attention_int8", valid, rows[valid]["ms"], b2b)
+        print_back_to_back(label, rows[valid]["ms"], b2b, copies, card)
         del copies
     errs["replay"] = check_replay("self_attention_int8", att.self_attention_int8,
                                   att.self_attention_int8_reference, args, t)
@@ -835,7 +796,6 @@ def check_self_kernels(att, dev, gen, flush, card: str) -> dict:
                     lambda: att.self_attention_int8_reference(*args, vl),
                     nbytes(q, out) + 2 * b * k * h * valid * (d + 2),
                     4 * b * k * h * valid * d, flush)
-        print_host_int("self_attention_int8", valid, row["ms"])
     stats["self_attention_int8"] = kernel_row(rows[MID_DECODE], errs)
     del kq, vq, ks, vs, args
 
@@ -915,15 +875,13 @@ def check_lanes(att, wo, dev, gen, flush, card: str, b: int, k: int, h: int, t: 
         print(f"  K panel: the owned pairs' bytes lie in {sectors} 32-byte sectors "
               f"({sectors * 32 / 1e6:.2f} MB, {sectors * 32 / PEAK_BYTES * 1e3:.4f} ms at "
               f"3.35 TB/s)")
-        b2b = None
         if valid in redesigned:
             copies = input_copies(args, nbytes(*args))
             b2b = back_to_back_ms(lambda *a: att.self_attention_int8_lanes(*a, vl), copies,
                                   flush)
-            print_redesigned(
-                "self_attention_int8_lanes", f"self_attention_int8_lanes B={b} K={k} H={h} "
-                f"T={t} valid_len={valid}", rows[valid]["ms"], b2b, copies, card)
-        print_host_int("self_attention_int8_lanes", valid, rows[valid]["ms"], b2b)
+            print_back_to_back(
+                f"self_attention_int8_lanes B={b} K={k} H={h} T={t} valid_len={valid}",
+                rows[valid]["ms"], b2b, copies, card)
     if t == PROMPT + DECODE:
         errs["replay"] = check_replay("self_attention_int8_lanes",
                                       att.self_attention_int8_lanes,
@@ -1322,11 +1280,10 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
         row = timed(label, lambda: tq.int8_matmul(x, wq, sc),
                     lambda: tq.int8_matmul_reference(x, wq, sc),
                     nbytes(x, wq, sc, out), 2 * m * k * n, flush)
-        if (m, k, n) in BEFORE_MS["int8_matmul"]:
+        if (m, k, n) in BEFORE_SHAPES["int8_matmul"]:
             copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
-            print_redesigned("int8_matmul", label, row["ms"],
-                             back_to_back_ms(tq.int8_matmul, copies, flush), copies, card,
-                             (m, k, n))
+            print_back_to_back(label, row["ms"], back_to_back_ms(tq.int8_matmul, copies, flush),
+                               copies, card)
             del copies
         lib, why = library_int8(x, wq, sc, flush)
         row["library_ms"], notes[(m, k, n)] = lib, why
@@ -1368,8 +1325,8 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
                                         nbytes(x, wq, sc, out), 2 * m * k * n, flush)
         if m >= LLM_PROMPT:
             copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
-            print_redesigned("int4_matmul", label, rows[(m, k, n, *group)]["ms"],
-                             back_to_back_ms(tq.int4_matmul, copies, flush), copies, card)
+            print_back_to_back(label, rows[(m, k, n, *group)]["ms"],
+                               back_to_back_ms(tq.int4_matmul, copies, flush), copies, card)
             del copies
         lo, hi = tq._dequant4_halves(wq, sc, k)
         w_deq = torch.cat([lo, hi])
@@ -1412,8 +1369,8 @@ def check_quant_kernels(tq, dev, card: str) -> dict:
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
         copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
-        print_redesigned("int4_matmul_s8", label, rows[(m, k, n)]["ms"],
-                         back_to_back_ms(tq.int4_matmul_s8, copies, flush), copies, card)
+        print_back_to_back(label, rows[(m, k, n)]["ms"],
+                           back_to_back_ms(tq.int4_matmul_s8, copies, flush), copies, card)
         del q, wq, sc, xq, xs, out, ref, copies
     print("int4_matmul_s8: library none (no PyTorch call takes int4 weights packed in "
           "halves with grouped int8 activations)")
@@ -1831,11 +1788,10 @@ def check_s8_kernels(tq, prof, dev, card: str) -> dict:
                                 lambda: prof.s8_matmul_reference(xq, xs, wq, sc),
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
-        if (m, k, n) in BEFORE_MS["s8_matmul"]:
+        if (m, k, n) in BEFORE_SHAPES["s8_matmul"]:
             copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
-            print_redesigned("s8_matmul", label, rows[(m, k, n)]["ms"],
-                             back_to_back_ms(prof.s8_matmul, copies, flush), copies, card,
-                             (m, k, n))
+            print_back_to_back(label, rows[(m, k, n)]["ms"],
+                               back_to_back_ms(prof.s8_matmul, copies, flush), copies, card)
             del copies
         if (m, k, n) == S8_SHAPES[0]:
             xq, xs = prof.quant_act(randn(LIBRARY_M, k))
@@ -1854,9 +1810,8 @@ def check_s8_kernels(tq, prof, dev, card: str) -> dict:
                            lambda: tq.int8_matmul_reference(x, wq, sc),
                            nbytes(x, wq, sc, got), 2 * m * k * n, flush)["ms"]
             copies = input_copies((x, wq, sc), nbytes(x, wq, sc))
-            print_redesigned("int8_matmul", label, single,
-                             back_to_back_ms(tq.int8_matmul, copies, flush), copies, card,
-                             (m, k, n))
+            print_back_to_back(label, single, back_to_back_ms(tq.int8_matmul, copies, flush),
+                               copies, card)
             del x, got, copies
         del q, wq, sc, xq, xs, out, ref, dropped
     stats["s8_matmul"] = kernel_row(rows[S8_SHAPES[0]], errs)
@@ -1888,9 +1843,8 @@ def check_s8_kernels(tq, prof, dev, card: str) -> dict:
                                 nbytes(xq, xs, wq, sc, out), 2 * m * k * n, flush,
                                 peak_ops=PEAK_INT8_OPS)
         copies = input_copies((xq, xs, wq, sc), nbytes(xq, xs, wq, sc))
-        print_redesigned("s8g4_matmul", label, rows[(m, k, n)]["ms"],
-                         back_to_back_ms(prof.s8g4_matmul, copies, flush), copies, card,
-                         (m, k, n))
+        print_back_to_back(label, rows[(m, k, n)]["ms"],
+                           back_to_back_ms(prof.s8g4_matmul, copies, flush), copies, card)
         del q, wq, sc, xq, xs, out, ref, dropped, copies
     for m, k, n in S8G4_8B_SHAPES:
         # context for the LLM path's decode body, whose route stays
@@ -2972,7 +2926,7 @@ def llama_kernels_phase(att, tq, llm, dev, card: str) -> dict:
 
     # llama_rope_cache: a decode row at both positions, the prefill
     rows, errs = {}, {}
-    cos, sin = lm._rope_table(dims, dev)
+    cos, sin = lm.rope_table(dh // 2, dims.rope_theta, dims.max_ctx, dev)
     for t_, pos in [(1, p) for p in LLM_DECODE_POS] + [(t, 0)]:
         q, k, v = randn(1, t_, h, dh), randn(1, t_, kvh, dh), randn(1, t_, kvh, dh)
         ck, cv = randn(1, LLM_CACHE, kvh * dh), randn(1, LLM_CACHE, kvh * dh)
@@ -3562,7 +3516,7 @@ def before_only(tree: str) -> int:
     """`chip_smoke.py --before TREE`, TREE an earlier commit of the repo,
     unpacked: first this file's `--llm-profile` run in TREE (a copy of
     this file put there) and in this checkout, in turns (before, this,
-    this, before; a process each); then every kernel that BEFORE_MS times
+    this, before; a process each); then every kernel of BEFORE_SHAPES
     shape by shape, and the two self-attention kernels by valid_len, whose
     source differs between the two trees, built from TREE's sources beside
     this checkout's and timed single launch at each of its shapes in turns
@@ -3591,7 +3545,7 @@ def before_only(tree: str) -> int:
     print(f"kernels built in {build.build_all():.1f} s")
     dev = torch.device("cuda")
     whisper_kernel_timings(dev, card)
-    shapes = {name: list(ms) for name, ms in BEFORE_MS.items() if isinstance(ms, dict)}
+    shapes = dict(BEFORE_SHAPES)
     shapes.update(BEFORE_VALID_LENS)
     shapes = {name: s for name, s in shapes.items() if sources_differ(tree, name)}
     print(f"kernels whose source differs from the earlier tree's: {sorted(shapes) or 'none'}")
@@ -3854,7 +3808,7 @@ def mla_kernels(dev, gen, flush, card: str) -> dict:
     from turbo_whisper_workspace_tpu_torch.ops import mla_ops
 
     dims = ds.DEEPSEEK_V3_CONFIGS[MOE]
-    cos, sin = ds._rope_table(dims, dev)
+    cos, sin = ds.rope_table(dims.qk_rope_dim // 2, dims.rope_theta, dims.max_ctx, dev)
     scale = dims.qk_head_dim ** -0.5
     errs = {}
     for b, h, pos in ((1, 16, MOE_POS), (1, 16, 0), (1, 16, MOE_CACHE - 1), (2, 32, 700),

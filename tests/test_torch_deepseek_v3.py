@@ -76,6 +76,11 @@ def close(got, want, tol=F32_TOL):
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
 
 
+def rope_table(dims, device):
+    """The (cos, sin) tables the forward rotates the rope dims by."""
+    return ds.rope_table(dims.qk_rope_dim // 2, dims.rope_theta, dims.max_ctx, device)
+
+
 def test_the_configs_hold_moonlights_published_widths():
     d = ds.DEEPSEEK_V3_CONFIGS["moonlight-16b-a3b"]
     assert (d.d_model, d.n_layer, d.n_head, d.kv_lora_rank, d.qk_head_dim, d.v_head_dim) == (
@@ -148,7 +153,7 @@ def test_absorbed_attention_equals_the_expanded_form():
     latent = torch.randn(1, s_len, lat + rope, generator=g)
     q_nope = torch.randn(1, 1, h, nope, generator=g)
     q_pe = torch.randn(1, 1, h, rope, generator=g)
-    cos, sin = ds._rope_table(dims, "cpu")
+    cos, sin = rope_table(dims, "cpu")
     k_pe = torch.randn(1, 1, rope, generator=g)
     c_kv = torch.randn(1, 1, lat, generator=g)
     pos = s_len - 1
@@ -196,7 +201,7 @@ def test_the_loader_turns_interleaved_rope_into_the_half_split_layout(model):
     at = {"q": torch.arange(3, 10), "k": torch.arange(0, 7)}          # a query 3 after its key
     want = (ref.rope_interleaved(q, at["q"], 1e4) * ref.rope_interleaved(k, at["k"], 1e4)).sum(-1)
     perm = ds._rope_permutation(16)
-    cos, sin = ds._rope_table(ds.dims_from_hf_config(CFG), "cpu")
+    cos, sin = rope_table(ds.dims_from_hf_config(CFG), "cpu")
 
     def rotated(x, positions, permute):
         rows = tuple(t[positions][None, :, None, :] for t in (cos, sin))
@@ -294,6 +299,30 @@ def test_the_int4_prefill_is_the_dequantized_model(q4):
     for block in (grouped, qp["blocks"][1]):                  # and one matmul an expert
         got = ds.moe(h, None, block, dims, 1)
         assert ((got - want).norm() / want.norm()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_fused_siblings_forward_equals_separate(dtype, batch):
+    """A test-tiny model of dense layers at Q4: the prefill and a decode
+    step at m = 1 and m = 4 give the same logits and latent cache, bit
+    for bit, with q|kv_a and gate|up fused (the experts' fusion changes
+    their kernels' route; the test above holds those)."""
+    dims = dataclasses.replace(ds.DEEPSEEK_V3_CONFIGS["test-tiny"], first_dense=3)
+    params = quant.quantize_tree(ds.init_params(dims, torch.Generator().manual_seed(0), dtype),
+                                 keys=ds.QUANT_KEYS, bits=4)
+    fused = ds.fuse_siblings(copy.deepcopy(params))
+    assert all({"q_kv_a", "gate_up"} <= set(b) and "q" not in b for b in fused["blocks"])
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, dims.n_vocab, (batch, 12), generator=gen)
+    step = torch.randint(0, dims.n_vocab, (batch, 1), generator=gen)
+    runs = []
+    for p in (fused, params):
+        cache = ds.init_kv_cache(dims, batch, 16, dtype=dtype)
+        prefill, _ = ds.forward(p, dims, tokens, cache, pos=0)
+        logits, _ = ds.forward(p, dims, step, cache, pos=12)
+        runs.append((prefill, logits, cache["latent"]))
+    assert all(torch.equal(got, ref) for got, ref in zip(*runs))
 
 
 def test_int4_group_matmul_tiles_and_plain_version():
@@ -430,7 +459,7 @@ def test_cuda_takes_fused_int4_experts_alone(cuda_device):
 def test_mla_attention_kernel_is_its_plain_version(cuda_device):
     g = torch.Generator(cuda_device).manual_seed(10)
     dims = ds.DEEPSEEK_V3_CONFIGS["moonlight-16b-a3b"]
-    cos, sin = ds._rope_table(dims, cuda_device)
+    cos, sin = rope_table(dims, cuda_device)
     bf = torch.bfloat16
     for pos in (0, 700, 2047):
         q_lat = torch.randn(1, 1, 16, 512, generator=g, device=cuda_device).to(bf)

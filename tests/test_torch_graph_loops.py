@@ -5,8 +5,9 @@ package: the steps a CUDA graph captures (`decode/greedy.py`,
 * The Llama step at a tensor `pos` (dense and int4, the JAX forward on
   its TPU route as in tests/test_torch_llama.py) equals JAX `lm.forward`
   at that `pos` within 1e-5 relative L2, logits and cache.
-* The RoPE rows `models/llama.py` indexes from its tables are bit-equal
-  to `_rope_tables` computed for those positions alone.
+* The RoPE rows the forwards index from `models/llama.rope_table`'s
+  cached tables are bit-equal to `_rope_tables` computed for those
+  positions alone.
 * The Whisper decoder step at a tensor `pos` over the whole f32 cache
   equals JAX `decoder_forward` within 1e-5 relative L2 (dense cross-KV;
   the int8 cross-KV step equals the port's int-`pos` step, whose gap to
@@ -55,6 +56,7 @@ from turbo_whisper_workspace_tpu_torch.models import convert
 from turbo_whisper_workspace_tpu_torch.models import llama as tlm
 from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
+from turbo_whisper_workspace_tpu_torch.ops import build as tbuild
 from turbo_whisper_workspace_tpu_torch.ops import quant as tquant
 from turbo_whisper_workspace_tpu_torch.utils import step_loop
 
@@ -100,7 +102,8 @@ def test_rope_rows_bit_equal_to_per_call_tables(name):
     half = dims.head_dim // 2
     for positions in ([0], [1, 2, 3], [17], [dims.max_ctx - 1], list(range(40, 140))):
         pos = torch.tensor(positions)
-        got = tlm._rope_rows(dims, pos)
+        got = tuple(tab.index_select(0, pos)[None, :, None, :] for tab in tlm.rope_table(
+            half, dims.rope_theta, dims.max_ctx, pos.device))
         ref = tlm._rope_tables(pos, half, dims.rope_theta)
         for g, r in zip(got, ref):
             assert g.shape == r.shape == (1, len(positions), 1, half)
@@ -363,21 +366,21 @@ def test_launches_during_a_capture_go_to_its_record():
     still count at once."""
     tatt.reset_launch_counts()
     tquant.reset_launch_counts()
-    tatt.capture.record = record = {}
+    tbuild.capture.record = record = {}
     try:
-        tatt.count_launch(tatt.launch_counts, "cross_attention_int8")
-        tatt.count_launch(tatt.launch_counts, "cross_attention_int8")
-        other = threading.Thread(target=tatt.count_launch,
+        tbuild.count_launch(tatt.launch_counts, "cross_attention_int8")
+        tbuild.count_launch(tatt.launch_counts, "cross_attention_int8")
+        other = threading.Thread(target=tbuild.count_launch,
                                  args=(tquant.launch_counts, "int8_matmul"))
         other.start()
         other.join(timeout=10)
         assert not other.is_alive()
     finally:
-        tatt.capture.record = None
+        tbuild.capture.record = None
     assert record == {"cross_attention_int8": (tatt.launch_counts, 2)}
     assert tatt.launch_counts["cross_attention_int8"] == 0
     assert tquant.launch_counts["int8_matmul"] == 1
-    tatt.count_launch(tatt.launch_counts, "cross_attention_int8")
+    tbuild.count_launch(tatt.launch_counts, "cross_attention_int8")
     assert tatt.launch_counts["cross_attention_int8"] == 1
     tquant.reset_launch_counts()
     tatt.reset_launch_counts()

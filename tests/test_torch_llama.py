@@ -120,7 +120,8 @@ def test_int8_gap_is_rounding_of_projection_inputs(jax_tpu_route, monkeypatch):
     for fed in (True, False):
         calls, gaps = iter(seen), []
 
-        def projection(x, wp):
+        def projection(x, wp, act=None):
+            assert act is None                     # int8 weights: no shared quantized input
             x_jax, out_jax = next(calls)
             out = matmul_any(torch.from_numpy(x_jax) if fed else x, wp)
             gaps.append((rel_l2(x.numpy(), x_jax), rel_l2(out.numpy(), out_jax)))
@@ -166,12 +167,15 @@ def test_incremental_matches_full():
 
 def test_rope_and_rms_norm_match_jax():
     """RoPE at positions up to 2047 (f32 angles from f64 frequencies
-    cast to f32) and RMSNorm, in f32."""
+    cast to f32), as the forward rotates: rows of the cached tables, and
+    RMSNorm, in f32."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((1, 2048, 2, 128)).astype(np.float32)
     positions = np.arange(2048)
     ref = np.asarray(jlm._rope(jnp.asarray(x), jnp.asarray(positions), 500000.0))
-    got = tlm._rope(torch.from_numpy(x), torch.from_numpy(positions), 500000.0)
+    rows = tuple(tab.index_select(0, torch.from_numpy(positions))[None, :, None, :]
+                 for tab in tlm.rope_table(64, 500000.0, 2048, "cpu"))
+    got = tlm.llama_ops.apply_rope(torch.from_numpy(x), *rows)
     assert rel_l2(got.numpy(), ref) <= FORWARD_TOL
     scale = rng.standard_normal(128).astype(np.float32)
     ref = np.asarray(jlm.rms_norm(jnp.asarray(x), {"scale": jnp.asarray(scale)}, 1e-5))

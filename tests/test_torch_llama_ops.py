@@ -102,7 +102,8 @@ def test_rope_cache_matches_jax(dtype, t, pos):
     v, jv = _pair(rng.standard_normal((B, t, KVH, DH)).astype(np.float32), dtype)
     cache, jcache = _pair(rng.standard_normal((2, B, S, KVH * DH)).astype(np.float32), dtype)
     ck, cv = cache.clone(), cache.clone()             # two layers; layer 0 written
-    cos, sin = tlm._rope_table(tlm.LLAMA_CONFIGS["test-tiny"], torch.device("cpu"))
+    dims = tlm.LLAMA_CONFIGS["test-tiny"]
+    cos, sin = tlm.rope_table(dims.head_dim // 2, dims.rope_theta, dims.max_ctx, "cpu")
     got = lo.llama_rope_cache(q, k, v, ck[0], cv[0], cos, sin, torch.tensor(pos))
 
     @jax.jit
@@ -276,6 +277,33 @@ def test_matmul_any_takes_a_shared_quantized_input(dtype):
         tq.matmul_any(torch.zeros(9, 128), wp, act=tq.quant_act_grouped(torch.zeros(9, 128), 4))
 
 
+@pytest.mark.parametrize("m", [tq.W4A8_MAX_M, tq.W4A8_MAX_M + 1])
+def test_the_group_count_and_matmul_any_agree_on_the_w4a8_limit(m, monkeypatch):
+    """Up to W4A8_MAX_M rows `w4a8_groups` gives the weight's groups, and
+    matmul_any runs int4_matmul_s8 on a shared (xq, xs) in them, equal to
+    its own quantization; a row more, it gives 0, matmul_any runs
+    int4_matmul and refuses a quantized input."""
+    routes = []
+    for name in ("int4_matmul", "int4_matmul_s8"):
+        monkeypatch.setattr(tq, name, lambda *a, _f=getattr(tq, name), _n=name:
+                            routes.append(_n) or _f(*a))
+    x = torch.randn(m, 128, generator=torch.Generator().manual_seed(6))
+    wp = tq.quantize_int4(torch.randn(128, 96, generator=torch.Generator().manual_seed(7)),
+                          group=32)
+    groups = tq.w4a8_groups({"p": wp}, ("p",), m)
+    act = tq.quant_act_grouped(x, 4)
+    if m <= tq.W4A8_MAX_M:
+        assert groups == 4
+        assert torch.equal(tq.matmul_any(x, wp, act=act), tq.matmul_any(x, wp))
+        assert routes == ["int4_matmul_s8"] * 2
+    else:
+        assert groups == 0
+        tq.matmul_any(x, wp)
+        assert routes == ["int4_matmul"]
+        with pytest.raises(ValueError):
+            tq.matmul_any(x, wp, act=act)
+
+
 def test_wrappers_run_plain_versions_on_cpu_and_name_their_launches():
     """CPU tensors never launch; each wrapper passes as many arguments as
     its C signature declares."""
@@ -411,7 +439,7 @@ def test_cuda_norm_quant_and_swiglu_match_plain_versions(cuda_device, m, d, n_gr
 def test_cuda_rope_cache_matches_plain_version(cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(2)
     dims = tlm.LLAMA_CONFIGS["llama-3.1-8b"]
-    cos, sin = tlm._rope_table(dims, cuda_device)
+    cos, sin = tlm.rope_table(dims.head_dim // 2, dims.rope_theta, dims.max_ctx, cuda_device)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(torch.bfloat16)

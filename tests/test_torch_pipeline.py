@@ -10,6 +10,7 @@ diarization and merged segments and the text equal. The enrichment
 keys come from DummyLLM in both packages and must be equal.
 """
 
+import contextlib
 import json
 import pathlib
 
@@ -48,6 +49,26 @@ class FakeTranscriber(_JFakeTranscriber):
         return super().transcribe(audios, languages, initial_prompt)
 
 
+@contextlib.contextmanager
+def torch_on_one_thread():
+    """Torch's CPU ops on one thread for the block. Under xdist each
+    worker's ops would start a pool of a thread a core; on these small
+    models an op then waits at its pool's barrier for threads that the
+    other workers hold (~40 ms an op, six workers on eight cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def one_thread():
+    with torch_on_one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
 def dummy_llms():
     jllm.set_llm(jllm.DummyLLM())
@@ -65,19 +86,20 @@ def golden_pair():
     mp.setattr(jtr, "FALLBACK_TEMPERATURES", (0.0,))
     mp.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
     try:
-        dims = jwm.WHISPER_CONFIGS["tiny"]
-        params = jwm.init_params(dims, jax.random.PRNGKey(0))
-        kw = dict(batch_size=2, max_decode_len=24, language="en")
-        jt = jtr.load_transcriber(params, dims, JTConfig(**kw))
-        model = convert.from_jax_params(jax.tree.map(np.asarray, params),
-                                        twm.WHISPER_CONFIGS["tiny"])
-        tt = ttr.load_transcriber(model, TConfig(**kw), device="cpu")
-        path = str(GOLDEN / "conversation.wav")
-        ref = jpipe.AudioProcessingPipeline(JPipelineConfig(), transcriber=jt).process_audio(
-            path, num_speakers=2, enrich=False)
-        got = tpipe.AudioProcessingPipeline(PipelineConfig(), transcriber=tt,
-                                            device="cpu").process_audio(
-            path, num_speakers=2, enrich=False)
+        with torch_on_one_thread():
+            dims = jwm.WHISPER_CONFIGS["tiny"]
+            params = jwm.init_params(dims, jax.random.PRNGKey(0))
+            kw = dict(batch_size=2, max_decode_len=24, language="en")
+            jt = jtr.load_transcriber(params, dims, JTConfig(**kw))
+            model = convert.from_jax_params(jax.tree.map(np.asarray, params),
+                                            twm.WHISPER_CONFIGS["tiny"])
+            tt = ttr.load_transcriber(model, TConfig(**kw), device="cpu")
+            path = str(GOLDEN / "conversation.wav")
+            ref = jpipe.AudioProcessingPipeline(JPipelineConfig(), transcriber=jt).process_audio(
+                path, num_speakers=2, enrich=False)
+            got = tpipe.AudioProcessingPipeline(PipelineConfig(), transcriber=tt,
+                                                device="cpu").process_audio(
+                path, num_speakers=2, enrich=False)
     finally:
         mp.undo()
     return ref, got, json.loads((GOLDEN / "expected.json").read_text())
@@ -247,12 +269,23 @@ def test_cli_models_check(tmp_path, capsys, monkeypatch):
     assert not any(v["present"] for v in out.values())
 
 
-def test_cli_transcribe_json(tmp_path, capsys, monkeypatch):
+def test_cli_transcribe_json(tmp_path, capsys, monkeypatch, one_thread):
     """`transcribe --model tiny --device cpu --json` runs the master flow
-    on a random-init tiny Whisper (no checkpoint under models/)."""
+    on a random-init tiny Whisper (no checkpoint under models/). The
+    config the CLI builds goes to `get_pipeline` with max_decode_len 24,
+    as the golden clip's pipelines decode: random weights never stop
+    early, and 224 steps a call only lengthen the run."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tpipe, "_PIPELINE_CACHE", {})
     monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))
+    get_pipeline, configs = tpipe.get_pipeline, []
+
+    def short_decodes(config, device):
+        config.transcription.max_decode_len = 24
+        configs.append(config)
+        return get_pipeline(config, device=device)
+
+    monkeypatch.setattr(tpipe, "get_pipeline", short_decodes)
     path, audio = _write_two_speaker_wav(tmp_path)
     tcli.main(["transcribe", "-i", path, "--model", "tiny", "--device", "cpu",
                "--language", "en", "--json"])
@@ -273,3 +306,5 @@ def test_cli_transcribe_json(tmp_path, capsys, monkeypatch):
     assert "speaker_names" not in res
     assert out.strip() == tdz.SpeakerDiarizer.format_as_conversation(
         res["merged_segments"]).strip()
+    assert [(c.transcription.model, c.transcription.language) for c in configs] == \
+        [("tiny", "en")] * 2

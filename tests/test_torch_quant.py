@@ -408,17 +408,17 @@ def test_cluster_launches_count_apart_from_launches():
     """A split launch's count has a name of its own, so a graph capture's
     record (keyed by name) keeps it apart from the kernel's launches, and
     each replay adds both."""
-    from turbo_whisper_workspace_tpu_torch.ops import attention as tatt
+    from turbo_whisper_workspace_tpu_torch.ops import build as tbuild
 
     tq.reset_launch_counts()
     tq.s8_cluster_launch("int4_matmul_s8")
     assert tq.cluster_launch_counts == {"int4_matmul_s8.cluster": 1, "int4_moe_s8.cluster": 0}
-    tatt.capture.record = record = {}
+    tbuild.capture.record = record = {}
     try:
-        tatt.count_launch(tq.launch_counts, "int4_matmul_s8")
+        tbuild.count_launch(tq.launch_counts, "int4_matmul_s8")
         tq.s8_cluster_launch("int4_matmul_s8")
     finally:
-        tatt.capture.record = None
+        tbuild.capture.record = None
     for name, (counts, n) in record.items():      # one replay, as StepGraph.replay adds
         counts[name] += n
     assert tq.launch_counts["int4_matmul_s8"] == 1

@@ -31,6 +31,7 @@ from turbo_whisper_workspace_tpu_torch.models import convert
 from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.pipeline import audio_pipeline as tpipe
 from turbo_whisper_workspace_tpu_torch.pipeline import transcriber as ttr
+from tests.test_torch_pipeline import one_thread  # noqa: F401  (a fixture)
 
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "examples" / "golden"
 
@@ -173,7 +174,7 @@ def test_default_pipeline_is_on_the_monitors_device(monkeypatch):
     assert seen == [{"device": "cpu"}]
 
 
-def test_process_audio_file_matches_jax_end_to_end(tmp_path, monkeypatch):
+def test_process_audio_file_matches_jax_end_to_end(tmp_path, monkeypatch, one_thread):
     """The golden clip through both monitors' full pipelines on the same
     tiny Whisper (JAX init from seed 0, converted), f32, greedy at T = 0,
     weight-free diarization; min_threat_level 0 keeps the incident (and

@@ -30,6 +30,7 @@ from turbo_whisper_workspace_tpu_torch.models import whisper as twm
 from turbo_whisper_workspace_tpu_torch.pipeline import audio_pipeline as tpipe
 from turbo_whisper_workspace_tpu_torch.pipeline import diarizer as tdiar
 from turbo_whisper_workspace_tpu_torch.pipeline import transcriber as ttr
+from tests.test_torch_pipeline import one_thread  # noqa: F401  (a fixture)
 
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "examples" / "golden"
 DIMS = jwm.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
@@ -56,7 +57,7 @@ def _long_clip(seconds=48.0, seed=0):
 
 @pytest.mark.parametrize("beam_size", [1, 5])
 @pytest.mark.parametrize("initial_prompt", [None, "hello there"])
-def test_transcriber_matches_jax(pair, monkeypatch, initial_prompt, beam_size):
+def test_transcriber_matches_jax(pair, monkeypatch, initial_prompt, beam_size, one_thread):
     params, model = pair
     monkeypatch.setattr(jtr, "FALLBACK_TEMPERATURES", (0.0,))
     monkeypatch.setattr(ttr, "FALLBACK_TEMPERATURES", (0.0,))

@@ -88,7 +88,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops import llama_ops, mla_ops, moe_ops, quant
 from ..utils import profiling
-from .llama import _rope_tables
+from .llama import head_logits, held, project_siblings, rope_table
 
 # projections quantize_tree quantizes; kv_b (absorbed per head) and the
 # router stay as they are
@@ -179,21 +179,6 @@ def init_kv_cache(dims: DeepseekV3Dims, batch: int, max_len: int,
                                   device=device)}
 
 
-_ROPE_TABLES: dict = {}     # (half, theta, max_ctx, device) → (cos, sin) (max_ctx, half)
-
-
-def _rope_table(dims: DeepseekV3Dims, device: torch.device):
-    """models/llama.py's tables for the rope dims, (max_ctx, rope/2) f32,
-    built once per (dims, device)."""
-    half = dims.qk_rope_dim // 2
-    key = (half, dims.rope_theta, dims.max_ctx, torch.device(device))
-    if key not in _ROPE_TABLES:
-        cos, sin = _rope_tables(torch.arange(dims.max_ctx, device=device), half,
-                                dims.rope_theta)
-        _ROPE_TABLES[key] = cos[0, :, 0], sin[0, :, 0]
-    return _ROPE_TABLES[key]
-
-
 def init_params(dims: DeepseekV3Dims, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32, bias_std: float = 0.0,
                 device: torch.device | str = "cpu") -> dict:
@@ -239,30 +224,15 @@ def init_params(dims: DeepseekV3Dims, generator: torch.Generator,
             "norm": ones(d), "lm_head": lin(d, dims.n_vocab)}
 
 
-def _fuse(holder: dict) -> None:
-    """Joins `holder`'s int4 siblings (SIBLINGS) in place along N, where
-    all are int4 {"w_q4", "scale4"} of one K and one group count (2-D
-    projections or 3-D expert stacks); others keep theirs."""
-    for fused, names in SIBLINGS.items():
-        parts = [holder.get(n) for n in names]
-        if not all(p is not None and set(p) == {"w_q4", "scale4"} for p in parts):
-            continue
-        if len({(p["w_q4"].shape[:-1], p["scale4"].shape[:-1]) for p in parts}) != 1:
-            continue
-        holder[fused] = {key: torch.cat([p[key] for p in parts], dim=-1)
-                         for key in ("w_q4", "scale4")}
-        for n in names:
-            del holder[n]
-
-
 def fuse_siblings(params: dict) -> dict:
     """models/llama.fuse_siblings for this family: each block's int4 q and
     kv_a into q_kv_a, the dense layers' gate and up and the experts' into
-    gate_up, in place, a block at a time. Returns params."""
+    gate_up, in place, a block at a time (`quant.join_int4`). Returns
+    params."""
     for block in params["blocks"]:
-        _fuse(block)
+        quant.join_int4(block, SIBLINGS)
         if "experts" in block:
-            _fuse(block["experts"])
+            quant.join_int4(block["experts"], SIBLINGS)
     return params
 
 
@@ -281,10 +251,6 @@ def _swiglu_rows(gate: torch.Tensor, up: torch.Tensor, groups: int):
     """SwiGLU's product and the down projection's input quantizer (column
     views of a fused gate|up copied dense, as models/llama.py does)."""
     return llama_ops.llama_swiglu_quant(gate.contiguous(), up.contiguous(), groups)
-
-
-def _down_groups(wp: dict) -> int:
-    return wp["scale4"].shape[-2] if "w_q4" in wp else 0
 
 
 def _expert(experts: dict, name: str, e: int) -> dict:
@@ -309,7 +275,7 @@ def _expert_swiglu(x: torch.Tensor, experts: dict, e: int) -> torch.Tensor:
         gate = quant.matmul_any(x, _expert(experts, "gate", e))
         up = quant.matmul_any(x, _expert(experts, "up", e))
     down = _expert(experts, "down", e)
-    prod, act = _swiglu_rows(gate, up, _down_groups(down) if x.shape[0] <= 8 else 0)
+    prod, act = _swiglu_rows(gate, up, quant.w4a8_groups(experts, ("down",), x.shape[0]))
     return quant.matmul_any(prod, down, act=act)
 
 
@@ -330,7 +296,7 @@ def moe(h: torch.Tensor, act, block: dict, dims: DeepseekV3Dims, layer: int) -> 
         gu = experts["gate_up"]
         gate, up = (p.to(h.dtype) for p in quant.int4_moe_s8(
             act[0], act[1], gu["w_q4"], gu["scale4"], ids.view(-1), x_div=a, split=True))
-        prod, act2 = llama_ops.llama_swiglu_quant(gate, up, _down_groups(down))
+        prod, act2 = llama_ops.llama_swiglu_quant(gate, up, down["scale4"].shape[-2])
         y = quant.int4_moe_s8(act2[0], act2[1], down["w_q4"], down["scale4"],
                               ids.view(-1)).to(h.dtype)
     else:
@@ -357,29 +323,6 @@ def moe(h: torch.Tensor, act, block: dict, dims: DeepseekV3Dims, layer: int) -> 
             y.index_copy_(0, order, ys.to(h.dtype))
     out = torch.bmm(weights.view(t, 1, a), y.view(t, a, -1).float())
     return out.view(t, -1).to(h.dtype)
-
-
-def _groups(holder: dict, names: tuple, m: int) -> int:
-    """The groups of the int4 projections `names` of `holder`, which share
-    one quantized input at m ≤ 8; 0 where they take x itself."""
-    kinds = {holder[n]["scale4"].shape[-2] if "w_q4" in holder[n] else 0 for n in names}
-    return kinds.pop() if m <= 8 and len(kinds) == 1 else 0
-
-
-def _held(holder: dict, fused: str) -> tuple:
-    return (fused,) if fused in holder else SIBLINGS[fused]
-
-
-def _project(x: torch.Tensor, wp: dict, act) -> torch.Tensor:
-    return quant.matmul_any(x, wp) if act is None else quant.matmul_any(x, wp, act=act)
-
-
-def _siblings(x: torch.Tensor, holder: dict, fused: str, widths: tuple, act) -> list:
-    """The sibling projections of x: one matmul over the fused weight,
-    split by columns, or one matmul each."""
-    if fused not in holder:
-        return [_project(x, holder[n], act) for n in SIBLINGS[fused]]
-    return list(_project(x, holder[fused], act).split(widths, -1))
 
 
 def _attend_expanded(q_nope, q_pe, latent, kv_b, dims, pos, t):
@@ -426,17 +369,19 @@ def forward(params: dict, dims: DeepseekV3Dims, tokens: torch.Tensor,
         pos = 0
     if not torch.is_tensor(pos) and pos + t > dims.max_ctx:
         raise ValueError(f"positions up to {pos + t} exceed max_ctx {dims.max_ctx}")
-    cos, sin = _rope_table(dims, device)
+    cos, sin = rope_table(rope // 2, dims.rope_theta, dims.max_ctx, device)
     eps, m = dims.norm_eps, b * t
     scale = dims.qk_head_dim ** -0.5
-    widths = {"q_kv_a": (h * dims.qk_head_dim, dims.cache_dim), "gate_up": (dims.d_ff,) * 2}
+    widths = {"q": h * dims.qk_head_dim, "kv_a": dims.cache_dim, "gate": dims.d_ff,
+              "up": dims.d_ff}
 
     delta = None                 # the last layer's output, added before the next norm
     for li, block in enumerate(params["blocks"]):
         latent = cache["latent"][li]                                    # (B, S, L + R)
-        x, hn, act = llama_ops.llama_norm_quant(x, block["attn_norm"]["scale"], eps, delta,
-                                                _groups(block, _held(block, "q_kv_a"), m))
-        q, kv = _siblings(hn, block, "q_kv_a", widths["q_kv_a"], act)
+        x, hn, act = llama_ops.llama_norm_quant(
+            x, block["attn_norm"]["scale"], eps, delta,
+            quant.w4a8_groups(block, held(block, "q_kv_a", SIBLINGS), m))
+        q, kv = project_siblings(hn, block, "q_kv_a", SIBLINGS, widths, act)
         q = q.view(b, t, h, dims.qk_head_dim)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
         c_kv = llama_ops.llama_norm_quant(kv[..., :lat].contiguous(),
@@ -456,29 +401,25 @@ def forward(params: dict, dims: DeepseekV3Dims, tokens: torch.Tensor,
             latent.index_copy_(1, positions, torch.cat([c_kv, k_rot.view(b, t, rope)], -1))
             o = _attend_expanded(q_nope, q_pe, latent, kv_b, dims, pos, t)
         o = o.reshape(b, t, h * dims.v_head_dim)
-        act = None
-        if _groups(block, ("out",), m):
-            act = llama_ops.llama_norm_quant(o.contiguous(), None, eps, None,
-                                             _groups(block, ("out",), m), norm=False)[2]
-        delta = _project(o, block["out"], act)
+        act, groups = None, quant.w4a8_groups(block, ("out",), m)
+        if groups:
+            act = llama_ops.llama_norm_quant(o.contiguous(), None, eps, None, groups,
+                                             norm=False)[2]
+        delta = quant.matmul_any(o, block["out"], act=act)
 
         experts = block.get("experts")
         ffn = experts if experts is not None else block
-        x, hn, act = llama_ops.llama_norm_quant(x, block["mlp_norm"]["scale"], eps, delta,
-                                                _groups(ffn, _held(ffn, "gate_up"), m))
+        x, hn, act = llama_ops.llama_norm_quant(
+            x, block["mlp_norm"]["scale"], eps, delta,
+            quant.w4a8_groups(ffn, held(ffn, "gate_up", SIBLINGS), m))
         if experts is not None:
             delta = moe(hn.view(m, -1), act, block, dims, li).view(b, t, -1)
         else:
-            gate, up = _siblings(hn, block, "gate_up", widths["gate_up"], act)
-            prod, act = _swiglu_rows(gate, up, _groups(block, ("down",), m))
-            delta = _project(prod, block["down"], act)
+            gate, up = project_siblings(hn, block, "gate_up", SIBLINGS, widths, act)
+            prod, act = _swiglu_rows(gate, up, quant.w4a8_groups(block, ("down",), m))
+            delta = quant.matmul_any(prod, block["down"], act=act)
 
-    _, x, _ = llama_ops.llama_norm_quant(x, params["norm"]["scale"], eps, delta)
-    if "w" not in params["lm_head"]:        # int8 (or int4) quantized head
-        logits = quant.matmul_any(x, params["lm_head"]).float()
-    else:
-        logits = x.float() @ params["lm_head"]["w"].to(dtype).float()
-    return logits, (cache if use_cache else None)
+    return head_logits(params, x, delta, eps), (cache if use_cache else None)
 
 
 def _rope_permutation(rope: int) -> torch.Tensor:

@@ -31,6 +31,10 @@ matmul over their weights concatenated along N where `fuse_siblings`
 has joined them (`TorchLlama` does so): one launch of a kernel in
 place of three or two, its output split into each projection's columns
 (views at m = 1; at m > 1 dense copies, which the layer's kernels take).
+`models/deepseek_v3.py` runs its layers on the same plumbing:
+`project_siblings`, `held`, `head_logits` and the RoPE tables of
+`rope_table`; `ops/quant.py` decides which projections share a quantized
+input (`w4a8_groups`) and joins the int4 siblings (`join_int4`).
 """
 
 from __future__ import annotations
@@ -133,32 +137,15 @@ def _rope_tables(positions: torch.Tensor, half: int, theta: float):
 _ROPE_TABLES: dict = {}     # (half, theta, max_ctx, device) → (cos, sin) (max_ctx, half)
 
 
-def _rope_table(dims: LlamaDims, device: torch.device):
+def rope_table(half: int, theta: float, max_ctx: int, device: torch.device | str):
     """_rope_tables' (cos, sin) over max_ctx positions, (max_ctx, half)
-    f32, built once per (dims, device): no host→device copy per call, so
-    a captured step holds none."""
-    half = dims.head_dim // 2
-    key = (half, dims.rope_theta, dims.max_ctx, torch.device(device))
+    f32, built once per (half, theta, max_ctx, device) for both families:
+    no host→device copy per call, so a captured step holds none."""
+    key = (half, theta, max_ctx, torch.device(device))
     if key not in _ROPE_TABLES:
-        cos, sin = _rope_tables(torch.arange(dims.max_ctx, device=device), half,
-                                dims.rope_theta)
+        cos, sin = _rope_tables(torch.arange(max_ctx, device=device), half, theta)
         _ROPE_TABLES[key] = cos[0, :, 0], sin[0, :, 0]
     return _ROPE_TABLES[key]
-
-
-def _rope_rows(dims: LlamaDims, positions: torch.Tensor):
-    """_rope_tables' (cos, sin) at `positions` (T,) on their device, as
-    rows of _rope_table's tables."""
-    return tuple(t.index_select(0, positions)[None, :, None, :]
-                 for t in _rope_table(dims, positions.device))
-
-
-_apply_rope = llama_ops.apply_rope
-
-
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (B, T, H, Dh), positions (T,) → rotated (Llama half-split layout)."""
-    return _apply_rope(x, *_rope_tables(positions, x.shape[-1] // 2, theta))
 
 
 def init_kv_cache(dims: LlamaDims, batch: int, max_len: int,
@@ -170,26 +157,42 @@ def init_kv_cache(dims: LlamaDims, batch: int, max_len: int,
 
 
 def fuse_siblings(params: dict) -> dict:
-    """Joins each block's sibling projections (SIBLINGS) in place, where
-    all of them are int4 {"w_q4", "scale4"} of one K and one group count:
-    the block gets {"w_q4" (K/2, ΣN), "scale4" (K/G, ΣN)}, their columns
-    side by side, under the fused name and loses the separate ones. Dense,
-    int8 and mixed blocks keep theirs. A block at a time, so memory peaks
-    at one layer's siblings above the weights. The dict is changed, not
-    copied: whoever holds it holds the fused blocks. Returns params."""
+    """Joins each block's int4 sibling projections (SIBLINGS) in place
+    (`quant.join_int4`): q, k and v into qkv, gate and up into gate_up.
+    Dense, int8 and mixed blocks keep theirs. A block at a time, so
+    memory peaks at one layer's siblings above the weights. The dict is
+    changed, not copied: whoever holds it holds the fused blocks. Returns
+    params."""
     for block in params["blocks"]:
-        for fused, names in SIBLINGS.items():
-            parts = [block.get(n) for n in names]
-            if not all(p is not None and set(p) == {"w_q4", "scale4"} and p["w_q4"].ndim == 2
-                       for p in parts):
-                continue
-            if len({(p["w_q4"].shape[0], p["scale4"].shape[0]) for p in parts}) != 1:
-                continue
-            block[fused] = {key: torch.cat([p[key] for p in parts], dim=1)
-                            for key in ("w_q4", "scale4")}
-            for n in names:
-                del block[n]
+        quant.join_int4(block, SIBLINGS)
     return params
+
+
+def held(holder: dict, fused: str, siblings: dict) -> tuple:
+    """The names under which `holder` holds the projections siblings[fused]:
+    the fused one where `fuse_siblings` joined them, else each."""
+    return (fused,) if fused in holder else siblings[fused]
+
+
+def project_siblings(x: torch.Tensor, holder: dict, fused: str, siblings: dict,
+                     widths: dict, act) -> list:
+    """x's projections by the siblings siblings[fused] of `holder`, each
+    widths[name] wide: one matmul over their fused weight, split by
+    columns (views), or one matmul each. act: x's shared (xq, xs), or
+    None (`quant.matmul_any`)."""
+    if fused not in holder:
+        return [quant.matmul_any(x, holder[n], act=act) for n in siblings[fused]]
+    out = quant.matmul_any(x, holder[fused], act=act)
+    return list(out.split([widths[n] for n in siblings[fused]], -1))
+
+
+def head_logits(params: dict, x: torch.Tensor, delta: torch.Tensor, eps: float):
+    """The final norm of the residual stream x + delta (the last layer's
+    output), then the head → f32 logits."""
+    _, x, _ = llama_ops.llama_norm_quant(x, params["norm"]["scale"], eps, delta)
+    if "w" not in params["lm_head"]:        # int8 (or int4) quantized head
+        return quant.matmul_any(x, params["lm_head"]).float()
+    return x.float() @ params["lm_head"]["w"].to(params["token_emb"].dtype).float()
 
 
 def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
@@ -212,62 +215,38 @@ def forward(params: dict, dims: LlamaDims, tokens: torch.Tensor,
         pos = 0
     if not torch.is_tensor(pos) and pos + t > dims.max_ctx:
         raise ValueError(f"positions up to {pos + t} exceed max_ctx {dims.max_ctx}")
-    cos, sin = _rope_table(dims, device)                # shared by every layer
-    eps = dims.norm_eps
-
-    def groups(block: dict, names: tuple) -> int:
-        """The groups of the int4 projections `names`, which share one
-        quantized input at m ≤ 8; 0 where they take x itself (m > 8, or
-        another weight format)."""
-        kinds = {block[n]["scale4"].shape[0] if "w_q4" in block[n] else 0 for n in names}
-        return kinds.pop() if b * t <= 8 and len(kinds) == 1 else 0
-
-    def project(x: torch.Tensor, wp: dict, act) -> torch.Tensor:
-        return quant.matmul_any(x, wp) if act is None else quant.matmul_any(x, wp, act=act)
-
+    cos, sin = rope_table(dh // 2, dims.rope_theta, dims.max_ctx, device)  # every layer's
+    eps, m = dims.norm_eps, b * t
     widths = {"q": h * dh, "k": kvh * dh, "v": kvh * dh, "gate": dims.d_ff, "up": dims.d_ff}
-
-    def held(block: dict, fused: str) -> tuple:
-        """The names the block holds the siblings `fused` joins under."""
-        return (fused,) if fused in block else SIBLINGS[fused]
-
-    def project_siblings(x: torch.Tensor, block: dict, fused: str, act) -> list:
-        """The sibling projections of x: one matmul over the fused weight,
-        split by columns (at m = 1 dense views, copied by nothing), or one
-        matmul each."""
-        if fused not in block:
-            return [project(x, block[n], act) for n in SIBLINGS[fused]]
-        parts = project(x, block[fused], act).split([widths[n] for n in SIBLINGS[fused]], -1)
-        return [p.contiguous() for p in parts]
 
     delta = None                 # the last layer's output, added before the next norm
     for li, block in enumerate(params["blocks"]):
         ck, cv = kv_cache["k"][li], kv_cache["v"][li]                # (B, S, kvh·dh) views
-        x, hnorm, act = llama_ops.llama_norm_quant(x, block["attn_norm"]["scale"], eps, delta,
-                                                   groups(block, held(block, "qkv")))
-        q, k, v = project_siblings(hnorm, block, "qkv", act)
+        x, hnorm, act = llama_ops.llama_norm_quant(
+            x, block["attn_norm"]["scale"], eps, delta,
+            quant.w4a8_groups(block, held(block, "qkv", SIBLINGS), m))
+        # the fused output's columns copied dense (no copy at m = 1), as
+        # the layer's kernels take them
+        q, k, v = (p.contiguous()
+                   for p in project_siblings(hnorm, block, "qkv", SIBLINGS, widths, act))
         q, k, v = q.reshape(b, t, h, dh), k.reshape(b, t, kvh, dh), v.reshape(b, t, kvh, dh)
         # k and v written in place, at the positions' rows
         q = llama_ops.llama_rope_cache(q, k, v, ck, cv, cos, sin, pos)
         attn = llama_ops.llama_attention(q, ck, cv, pos)               # (B, t, H·dh)
-        act = None
-        if groups(block, ("out",)):
-            act = llama_ops.llama_norm_quant(attn, None, eps, None, groups(block, ("out",)),
-                                             norm=False)[2]
-        delta = project(attn, block["out"], act)
+        act, groups = None, quant.w4a8_groups(block, ("out",), m)
+        if groups:
+            act = llama_ops.llama_norm_quant(attn, None, eps, None, groups, norm=False)[2]
+        delta = quant.matmul_any(attn, block["out"], act=act)
 
-        x, hnorm, act = llama_ops.llama_norm_quant(x, block["mlp_norm"]["scale"], eps, delta,
-                                                   groups(block, held(block, "gate_up")))
-        gate, up = project_siblings(hnorm, block, "gate_up", act)
-        prod, act = llama_ops.llama_swiglu_quant(gate, up, groups(block, ("down",)))
-        delta = project(prod, block["down"], act)
+        x, hnorm, act = llama_ops.llama_norm_quant(
+            x, block["mlp_norm"]["scale"], eps, delta,
+            quant.w4a8_groups(block, held(block, "gate_up", SIBLINGS), m))
+        gate, up = (p.contiguous()
+                    for p in project_siblings(hnorm, block, "gate_up", SIBLINGS, widths, act))
+        prod, act = llama_ops.llama_swiglu_quant(gate, up, quant.w4a8_groups(block, ("down",), m))
+        delta = quant.matmul_any(prod, block["down"], act=act)
 
-    _, x, _ = llama_ops.llama_norm_quant(x, params["norm"]["scale"], eps, delta)
-    if "w" not in params["lm_head"]:        # int8 (or int4) quantized head
-        logits = quant.matmul_any(x, params["lm_head"]).float()
-    else:
-        logits = x.float() @ params["lm_head"]["w"].to(dtype).float()
-    return logits, (kv_cache if use_cache else None)
+    return head_logits(params, x, delta, eps), (kv_cache if use_cache else None)
 
 
 def params_from_hf_state_dict(sd: dict, dims: LlamaDims,

@@ -17,11 +17,11 @@ Each kernel has:
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
 from . import build
+from .build import _check_cuda, _stream, count_launch
 
 NEG_INF = -1e30
 HEAD_DIM = 64     # the kernels' head dim (every Whisper size)
@@ -40,51 +40,12 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# the launches a CUDA graph being captured in this thread has recorded
-# (utils/step_loop.StepGraph sets .record to a dict, then replays it)
-capture = threading.local()
-
-
-def count_launch(counts: dict, name: str) -> None:
-    """Count one launch of kernel `name` in `counts` (a module's
-    `launch_counts`). While this thread captures a CUDA graph nothing is
-    launched: the launch goes to the graph's record instead, and each
-    replay of the graph adds it to `counts`."""
-    record = getattr(capture, "record", None)
-    if record is None:
-        counts[name] += 1
-    else:
-        record[name] = (counts, record.get(name, (counts, 0))[1] + 1)
-
-
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d, correctly rounded on every device. PyTorch's CUDA kernels
     turn a division by a Python scalar into a product with its
     reciprocal, which is off by an ulp now and then; a tensor divisor
     keeps the card's results bit-equal to the CPU's."""
     return x / torch.full_like(x, d)
-
-
-def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int | dict,
-                contiguous: bool = True) -> None:
-    """Device, dtype, contiguity and alignment checks before a launch
-    (`align`: the widest load, in bytes, the kernel makes; a dict gives
-    it per argument)."""
-    device = next(iter(tensors.values())).device
-    for arg, t in tensors.items():
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"{name}: {arg} must be on {device} (CUDA), got {t.device}")
-        if t.dtype != dtypes[arg]:
-            raise ValueError(f"{name}: {arg} must be {dtypes[arg]}, got {t.dtype}")
-        if contiguous and not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        arg_align = align[arg] if isinstance(align, dict) else align
-        if t.data_ptr() % arg_align:
-            raise ValueError(f"{name}: {arg} must be {arg_align}-byte aligned")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
 Each source has a plain C interface and becomes its own shared library,
 compiled by `nvcc` for `sm_90a` into `build/torch_cuda/` at the repo
@@ -9,7 +9,10 @@ processes the check and the build run under a `flock` on
 `build/torch_cuda/build.lock`, and each `nvcc` writes a per-process
 temporary name that `os.replace` moves into place once it succeeded
 (utils/native.py's `locked` and `temp_path`), so no process loads a
-half-written library. Nothing
+half-written library. The kernel wrappers of `ops/` check their
+tensors before a launch (`_check_cuda`), launch on the current stream
+(`_stream`, `launch`) and count each launch (`count_launch`, which a
+graph capture in progress records instead: `capture`). Nothing
 here runs at import time: the CPU tests import every module on machines
 with no `nvcc`.
 
@@ -27,6 +30,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 from ..utils.native import locked, temp_path
 
@@ -152,3 +157,42 @@ def launch(name: str, *args) -> None:
     if code != 0:
         msg = getattr(lib, f"tww_{name}_error")(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def _check_cuda(name: str, tensors: dict, dtypes: dict, align: int | dict,
+                contiguous: bool = True) -> None:
+    """Device, dtype, contiguity and alignment checks before a launch
+    (`align`: the widest load, in bytes, the kernel makes; a dict gives
+    it per argument)."""
+    device = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} must be on {device} (CUDA), got {t.device}")
+        if t.dtype != dtypes[arg]:
+            raise ValueError(f"{name}: {arg} must be {dtypes[arg]}, got {t.dtype}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        arg_align = align[arg] if isinstance(align, dict) else align
+        if t.data_ptr() % arg_align:
+            raise ValueError(f"{name}: {arg} must be {arg_align}-byte aligned")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# the launches a CUDA graph being captured in this thread has recorded
+# (utils/step_loop.StepGraph sets .record to a dict, then replays it)
+capture = threading.local()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Count one launch of kernel `name` in `counts` (a module's
+    `launch_counts`). While this thread captures a CUDA graph nothing is
+    launched: the launch goes to the graph's record instead, and each
+    replay of the graph adds it to `counts`."""
+    record = getattr(capture, "record", None)
+    if record is None:
+        counts[name] += 1
+    else:
+        record[name] = (counts, record.get(name, (counts, 0))[1] + 1)

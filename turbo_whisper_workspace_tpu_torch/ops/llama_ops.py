@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from . import build
-from .attention import _check_cuda, _stream, count_launch
+from .build import _check_cuda, _stream, count_launch
 from .quant import quant_act_grouped
 
 # kernel name → launches since the last reset_launch_counts()
@@ -138,7 +138,7 @@ def llama_rope_cache_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                sin: torch.Tensor, pos) -> torch.Tensor:
     """q (B, t, H, Dh) rotated → returned; k rotated and v written into
     cache rows pos..pos+t-1 of ck, cv (B, S, kvh·Dh), in place. cos, sin:
-    (max_ctx, Dh/2) f32 tables (models/llama.py:_rope_rows)."""
+    (max_ctx, Dh/2) f32 tables (models/llama.py:rope_table)."""
     b, t = q.shape[:2]
     positions = _positions(pos, t, q.device)
     rows = tuple(tab.index_select(0, positions)[None, :, None, :] for tab in (cos, sin))

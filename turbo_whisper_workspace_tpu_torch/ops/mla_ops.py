@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from . import build
-from .attention import _check_cuda, _stream, count_launch
+from .build import _check_cuda, _stream, count_launch
 from .llama_ops import _device_pos, apply_rope
 
 LATENT, ROPE = 512, 64      # the kernel's widths: kv_lora_rank and qk_rope_head_dim

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .attention import _check_cuda, _stream, count_launch
+from .build import _check_cuda, _stream, count_launch
 from .llama_ops import _device_pos
 
 MAX_EXPERTS, MAX_TOP_K = 256, 16      # csrc/moe_route.cu's limits

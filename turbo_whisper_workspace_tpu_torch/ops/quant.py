@@ -6,7 +6,10 @@ to a byte (`quantize_int4`: the LOW nibbles hold rows [0, K/2), the HIGH
 nibbles rows [K/2, K); one f32 scale per (group of GROUP4 rows, column)),
 `quantize_tree` (the Q4 point: int4 body, int8 `lm_head`), the grouped
 int8 activation quantizer of the W4A8 path, and `matmul_any`, which
-routes a projection by its weight format and its row count.
+routes a projection by its weight format and its row count. The LLM
+families' layers (models/llama.py, models/deepseek_v3.py) ask this module
+which of their int4 projections share one quantized input
+(`w4a8_groups`) and join their int4 siblings (`join_int4`).
 
 Three kernels, each with a wrapper and a plain PyTorch version beside it:
 
@@ -38,9 +41,13 @@ import ctypes
 import torch
 
 from . import build
-from .attention import _check_cuda, _div, _stream, count_launch
+from .attention import _div
+from .build import _check_cuda, _stream, count_launch
 
 GROUP4 = 128
+# rows up to which an int4 projection runs W4A8 (int4_matmul_s8 over the
+# rows quantized to int8 in groups), as the JAX package's TPU route does
+W4A8_MAX_M = 8
 
 # kernel name → launches since the last reset_launch_counts()
 launch_counts = {name: 0 for name in ("int8_matmul", "int4_matmul", "int4_matmul_s8",
@@ -127,6 +134,35 @@ def quant_act_grouped(x: torch.Tensor, n_groups: int):
     xs = _div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12), 127.0)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq.reshape(m, k), xs[..., 0]
+
+
+def w4a8_groups(holder: dict, names: tuple, m: int) -> int:
+    """The group count of `holder`'s projections `names` where all of them
+    are int4 of one group count and m ≤ W4A8_MAX_M: they then share one
+    quantized input (xq, xs), which `matmul_any` takes as `act`. 0 where
+    they take x itself (more rows, another weight format, or unequal
+    groups)."""
+    kinds = {holder[n]["scale4"].shape[-2] if "w_q4" in holder[n] else 0 for n in names}
+    return kinds.pop() if m <= W4A8_MAX_M and len(kinds) == 1 else 0
+
+
+def join_int4(holder: dict, siblings: dict) -> None:
+    """Joins `holder`'s sibling projections in place along N: for each
+    fused name → sibling names of `siblings`, where all the siblings are
+    int4 {"w_q4", "scale4"} of one K and one group count (2-D projections
+    or 3-D expert stacks), the holder gets {"w_q4", "scale4"}, their
+    columns side by side in the siblings' order, under the fused name and
+    loses the separate ones. Others keep theirs."""
+    for fused, names in siblings.items():
+        parts = [holder.get(n) for n in names]
+        if not all(p is not None and set(p) == {"w_q4", "scale4"} for p in parts):
+            continue
+        if len({(p["w_q4"].shape[:-1], p["scale4"].shape[:-1]) for p in parts}) != 1:
+            continue
+        holder[fused] = {key: torch.cat([p[key] for p in parts], dim=-1)
+                         for key in ("w_q4", "scale4")}
+        for n in names:
+            del holder[n]
 
 
 # ---------------------------------------------------------------------------
@@ -618,16 +654,16 @@ def matmul_any(x: torch.Tensor, wp: dict, act: tuple | None = None) -> torch.Ten
     {"w_q4", "scale4"} param dict, with the JAX package's TPU route by
     the row count m after the leading dims are flattened:
 
-    * int4: m ≤ 8 → quant_act_grouped + int4_matmul_s8 (or `act`, x's
-      (xq, xs) already quantized, as the Llama layer's kernels give it
-      for the projections that share x: XLA's CSE gives the JAX program
-      one quantization for q, k and v, and one for gate and up);
-      m > 8 → int4_matmul;
-    * int8: m ≤ 8 → the dequant matmul (plain torch, as XLA computes it
-      in the JAX package) on the CPU, and on the card int8_matmul, whose
-      GEMV regime computes the same function (W rounded to bf16 per
-      element, f32 sums, bf16 out) without the dequantized copy of W;
-      m > 8 → int8_matmul;
+    * int4: m ≤ W4A8_MAX_M → quant_act_grouped + int4_matmul_s8 (or
+      `act`, x's (xq, xs) already quantized, as the Llama layer's kernels
+      give it for the projections that share x, `w4a8_groups`: XLA's CSE
+      gives the JAX program one quantization for q, k and v, and one for
+      gate and up); above → int4_matmul;
+    * int8: m ≤ INT8_GEMV_MAX_M → the dequant matmul (plain torch, as XLA
+      computes it in the JAX package) on the CPU, and on the card
+      int8_matmul, whose GEMV regime computes the same function (W
+      rounded to bf16 per element, f32 sums, bf16 out) without the
+      dequantized copy of W; above → int8_matmul;
     * dense: x @ w.
 
     On the CPU each kernel's plain version takes its place. The wrappers
@@ -637,12 +673,12 @@ def matmul_any(x: torch.Tensor, wp: dict, act: tuple | None = None) -> torch.Ten
     k = x.shape[-1]
     xf = x.reshape(-1, k).contiguous()      # the kernels take dense rows
     m = xf.shape[0]
-    if act is not None and ("w_q4" not in wp or m > 8 or act[1].shape != (
+    if act is not None and ("w_q4" not in wp or m > W4A8_MAX_M or act[1].shape != (
             m, wp["scale4"].shape[0])):
-        raise ValueError("matmul_any: a quantized input is for an int4 weight at m <= 8, "
-                         "in its groups")
+        raise ValueError(f"matmul_any: a quantized input is for an int4 weight at m <= "
+                         f"{W4A8_MAX_M}, in its groups")
     if "w_q4" in wp:
-        if m <= 8:
+        if m <= W4A8_MAX_M:
             xq, xs = act if act is not None else quant_act_grouped(xf, wp["scale4"].shape[0])
             out = int4_matmul_s8(xq, xs, wp["w_q4"], wp["scale4"]).to(x.dtype)
         else:
@@ -650,7 +686,7 @@ def matmul_any(x: torch.Tensor, wp: dict, act: tuple | None = None) -> torch.Ten
         return out.reshape(*lead, -1)
     if "w_q" not in wp:
         return x @ wp["w"].to(x.dtype)
-    if m > 8:
+    if m > INT8_GEMV_MAX_M:
         out = int8_matmul(xf, wp["w_q"], wp["scale"])
     elif xf.device.type == "cuda":
         out = int8_matmul(xf.to(torch.bfloat16), wp["w_q"], wp["scale"]).to(x.dtype)

@@ -39,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .attention import _check_cuda, _div, _stream, count_launch
+from .attention import _div
+from .build import _check_cuda, _stream, count_launch
 from .llama_ops import _device_pos
 
 # kernel name → launches since the last reset_launch_counts()

@@ -54,7 +54,8 @@ import torch
 from ..models import llama as lm
 from ..ops import build
 from ..ops import quant
-from ..ops.attention import _check_cuda, _div, _stream, count_launch
+from ..ops.attention import _div
+from ..ops.build import _check_cuda, _stream, count_launch
 from ..ops.quant import quant_act_grouped
 from ..pipeline.transcriber import resolve_device
 

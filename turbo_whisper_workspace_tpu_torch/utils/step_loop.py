@@ -25,7 +25,7 @@ as the JAX loop's body does, so the steps a graphed run makes after its
 last row finished, before the host next reads the flag, change no
 result. Kernel wrappers count a launch when they launch; a capture
 launches nothing, so while a thread captures, its wrappers' counts go to
-the graph's record (`ops/attention.count_launch`), which every replay
+the graph's record (`ops/build.count_launch`), which every replay
 adds: `launch_counts` stays the number of kernels run on the card, with
 other threads' launches and replays kept apart from the capture.
 
@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import attention as att
+from ..ops import build
 from . import profiling
 
 
@@ -73,11 +73,11 @@ class StepGraph:
                 # thread_local: another thread's allocations (a concurrent
                 # request of the server) do not break this capture
                 self.graph.capture_begin(capture_error_mode="thread_local")
-                att.capture.record = self.launches = {}
+                build.capture.record = self.launches = {}
                 try:
                     step()
                 finally:
-                    att.capture.record = None
+                    build.capture.record = None
                     self.graph.capture_end()
             torch.cuda.current_stream(device).wait_stream(stream)
         self.capture_s = span.seconds
