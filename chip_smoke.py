@@ -267,11 +267,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against its plain version over 1, 8 and 1500 rows (ids equal but at
    near-ties, which are counted; weights within 1e-6); mla_attention
    against its plain version with the limits of phase 3 at device
-   positions 1800, 0 and 2047 of a 2048-row cache, a host position and
-   two head tiles, the cache row written bit-equal and nowhere else, the
-   position mask dropped above the limit, a graph replay at a new
-   position; both timed single and back to back beside their bounds (and
-   scaled_dot_product_attention on the absorbed rows); then the model at
+   positions 1800, 0, 2047 and the slices' edges of 2048-, 2056- and
+   4096-row caches (the last through rounds), a host position, two
+   head tiles, 8 batch rows (more clusters than the card holds at 16
+   ranks: 8) and a 100-row cache (2 ranks), the cache row written
+   bit-equal and nowhere else, the position mask dropped above the
+   limit, a graph replay at a new position, its ranks against the mirror
+   and the occupancy query's answer; both timed single and back to back
+   beside their bounds (and scaled_dot_product_attention on the absorbed
+   rows), mla_attention at MLA_TIMED's positions; then the model at
    3 layers (Q4) served by TorchLlama: a 1500-token prefill and a decode
    step against the plain twin, the graphed generation against the eager
    one, the kernels' launches a step.
@@ -319,9 +323,10 @@ this file is copied there), and in this checkout, in turns (TREE, this,
 this, TREE); then phase 16's checks and times of the Whisper decoder
 step's kernels in this checkout; then times, among the kernels that
 BEFORE_SHAPES lists shape by
-shape (int8_matmul, s8_matmul, s8g4_matmul) and the two self-attention
+shape (int8_matmul, s8_matmul, s8g4_matmul), the two self-attention
 kernels by valid_len (an earlier tree's host-int interface called as
-such), those whose source differs in TREE, built from TREE's sources,
+such) and mla_attention at MLA_TIMED's positions, those whose source
+differs in TREE, built from TREE's sources,
 against this checkout's, in turns at each shape (no result line): the
 source of those "before" times.
 """
@@ -3517,16 +3522,19 @@ def before_only(tree: str) -> int:
     unpacked: first this file's `--llm-profile` run in TREE (a copy of
     this file put there) and in this checkout, in turns (before, this,
     this, before; a process each); then every kernel of BEFORE_SHAPES
-    shape by shape, and the two self-attention kernels by valid_len, whose
-    source differs between the two trees, built from TREE's sources beside
-    this checkout's and timed single launch at each of its shapes in turns
-    (each checked against its plain version). Prints the medians; no
-    result line."""
+    shape by shape, the two self-attention kernels by valid_len and
+    mla_attention at MLA_TIMED's (S, position), whose source differs
+    between the two trees, built from TREE's sources beside this
+    checkout's and timed single launch (mla_attention back to back too)
+    at each of its shapes in turns (each checked against its plain
+    version). Prints the medians; no result line."""
     import ctypes
     import shutil
 
     from turbo_whisper_workspace_tpu_torch.ops import attention as att
+    from turbo_whisper_workspace_tpu_torch.models import deepseek_v3 as ds
     from turbo_whisper_workspace_tpu_torch.ops import build
+    from turbo_whisper_workspace_tpu_torch.ops import mla_ops
     from turbo_whisper_workspace_tpu_torch.ops import quant as tq
     from turbo_whisper_workspace_tpu_torch.ops import whisper_ops as wo
     from turbo_whisper_workspace_tpu_torch.scripts import profile_llm_ops as prof
@@ -3546,7 +3554,7 @@ def before_only(tree: str) -> int:
     dev = torch.device("cuda")
     whisper_kernel_timings(dev, card)
     shapes = dict(BEFORE_SHAPES)
-    shapes.update(BEFORE_VALID_LENS)
+    shapes.update(BEFORE_VALID_LENS, mla_attention=MLA_TIMED)
     shapes = {name: s for name, s in shapes.items() if sources_differ(tree, name)}
     print(f"kernels whose source differs from the earlier tree's: {sorted(shapes) or 'none'}")
     src = os.path.join(tree, "turbo_whisper_workspace_tpu_torch", "csrc")
@@ -3610,11 +3618,33 @@ def before_only(tree: str) -> int:
 
         return call, lambda got: rel_err(got, ref) <= KERNEL_REL_TOL
 
+    def mla_inputs_at(shape):
+        """mla_attention's call at B = 1, 16 heads, `shape` = (S, device
+        position), its check, and its back-to-back time over caches
+        larger than L2"""
+        s_len, pos = shape
+        dims = ds.DEEPSEEK_V3_CONFIGS[MOE]
+        tables = ds.rope_table(dims.qk_rope_dim // 2, dims.rope_theta, dims.max_ctx, dev)
+        scale = dims.qk_head_dim ** -0.5
+        q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, s_len)
+        args = (q_lat, q_pe, c_kv, k_pe, *tables)
+        ref = mla_ops.mla_attention_reference(*args, cache.clone(), pos, scale)
+        at = torch.tensor(pos, device=dev)
+        copies = [args + (cache.clone(), at) for _ in range(
+            min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / nbytes(cache)) + 1)))]
+        return (lambda: mla_ops.mla_attention(*args, cache, at, scale),
+                lambda got: rel_err(got, ref) <= KERNEL_REL_TOL,
+                lambda: back_to_back_ms(lambda *a: mla_ops.mla_attention(*a, scale), copies,
+                                        flush))
+
     def inputs(name, shape):
-        """(the kernel's call, a check of its output) at `shape`: (M, K,
-        N) of a matmul, valid_len of a self-attention kernel"""
+        """(the kernel's call, a check of its output[, its back-to-back
+        time]) at `shape`: (M, K, N) of a matmul, valid_len of a
+        self-attention kernel, (S, position) of mla_attention"""
         if name in BEFORE_VALID_LENS:
             return self_inputs(name, shape)
+        if name == "mla_attention":
+            return mla_inputs_at(shape)
 
         def randn(*size):
             return torch.randn(*size, generator=gen, device=dev)
@@ -3639,19 +3669,24 @@ def before_only(tree: str) -> int:
 
     for name, name_shapes in shapes.items():
         for shape in name_shapes:
-            call, check = inputs(name, shape)
+            call, check, *b2b = inputs(name, shape)
             times = {"before": [], "this": []}
+            b2b_times = {"before": [], "this": []}
             for tree_name in ("before", "this", "this", "before"):
                 build._LIBS[name] = libs[name][tree_name]
                 assert check(call()), (name, tree_name, shape)
                 times[tree_name].append(time_ms(call, flush))
+                b2b_times[tree_name] += [fn() for fn in b2b]
             build._LIBS[name] = libs[name]["this"]
             label = (f"valid_len={shape}" if name in BEFORE_VALID_LENS
+                     else "S={} pos {}".format(*shape) if name == "mla_attention"
                      else "M={} K={} N={}".format(*shape))
+            shown = "".join(f", back to back {statistics.median(b2b_times['before']):.4f} → "
+                            f"{statistics.median(b2b_times['this']):.4f} ms" for _ in b2b)
             print(f"{name} {label}: single launch, the earlier tree "
                   f"{statistics.median(times['before']):.4f} ms, this tree "
-                  f"{statistics.median(times['this']):.4f} ms [{card}]")
-            del call, check
+                  f"{statistics.median(times['this']):.4f} ms{shown} [{card}]")
+            del call, check, b2b
             torch.cuda.empty_cache()
     return 0
 
@@ -3797,38 +3832,54 @@ def mla_inputs(gen, dev, b: int, h: int, s_len: int) -> tuple:
 
 def mla_kernels(dev, gen, flush, card: str) -> dict:
     """Phase 17, the latent attention: mla_attention against its plain
-    version (limits of phase 3) at B = 1, 16 heads, a 2048-row cache at
-    device positions 1800, 0 and 2047, a host position, and B = 2 at 32
-    heads (two head tiles); the cache written where the plain version
+    version (limits of phase 3) at B = 1, 16 heads: a 2048-row cache at
+    device positions 1800, 0, 2047, 1023 and 1024 (slices of 64 rows
+    exactly, and one row past), a 2056-row cache at its last row (the
+    cell's longest), a 4096-row one at 2559, 2560 and 4095 (slices of
+    RESIDENT_ROWS exactly, one round more by a row, two rounds), a
+    100-row cache (2 ranks), a host position, B = 2 at 32 heads (two head
+    tiles) and B = 8 at 16 heads (more clusters than the card holds at 16
+    ranks: the portable 8); the cache written where the plain version
     writes it, bit-equal, and nowhere else; the kernel without the
     position mask (every row visible) above the limit; one launch
-    captured in a CUDA graph and replayed at another position; its
-    ranks held to the Python mirror; timed at position 1800."""
+    captured in a CUDA graph and replayed at another position; its ranks
+    held to the Python mirror, beside the occupancy query's answer; then
+    timed (mla_timings)."""
     from turbo_whisper_workspace_tpu_torch.models import deepseek_v3 as ds
     from turbo_whisper_workspace_tpu_torch.ops import mla_ops
 
     dims = ds.DEEPSEEK_V3_CONFIGS[MOE]
     cos, sin = ds.rope_table(dims.qk_rope_dim // 2, dims.rope_theta, dims.max_ctx, dev)
     scale = dims.qk_head_dim ** -0.5
+    wide = mla_ops.kernel_wide_clusters()
+    print(f"mla_attention: {wide} clusters of {mla_ops.WIDE_RANKS} blocks resident at once "
+          f"(the occupancy query) [{card}]")
     errs = {}
-    for b, h, pos in ((1, 16, MOE_POS), (1, 16, 0), (1, 16, MOE_CACHE - 1), (2, 32, 700),
-                      (1, 16, "host")):
-        q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, b, h, MOE_CACHE)
+    for b, h, s_len, pos in ((1, 16, MOE_CACHE, MOE_POS), (1, 16, MOE_CACHE, 0),
+                             (1, 16, MOE_CACHE, MOE_CACHE - 1), (1, 16, MOE_CACHE, 1023),
+                             (1, 16, MOE_CACHE, 1024), (1, 16, MOE_CACHE + 8, MOE_CACHE + 7),
+                             (1, 16, 2 * MOE_CACHE, 2559), (1, 16, 2 * MOE_CACHE, 2560),
+                             (1, 16, 2 * MOE_CACHE, 2 * MOE_CACHE - 1), (1, 16, 100, 70),
+                             (2, 32, MOE_CACHE, 700), (8, 16, MOE_CACHE, 1500),
+                             (1, 16, MOE_CACHE, "host")):
+        q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, b, h, s_len)
         at = 900 if pos == "host" else pos
         p = at if pos == "host" else torch.tensor(at, device=dev)
         clusters = b * -(-h // mla_ops.HEADS_A_BLOCK)
-        assert mla_ops.ranks(MOE_CACHE, clusters) == mla_ops.kernel_ranks(MOE_CACHE, clusters)
+        ranks = mla_ops.ranks(s_len, clusters, wide)
+        assert ranks == mla_ops.kernel_ranks(s_len, clusters), (s_len, clusters, ranks)
+        assert clusters <= wide or ranks == mla_ops.PORTABLE_RANKS, (clusters, ranks)
         c_got, c_ref = cache.clone(), cache.clone()
         got = mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, c_got, p, scale)
         ref = mla_ops.mla_attention_reference(q_lat, q_pe, c_kv, k_pe, cos, sin, c_ref, at,
                                               scale)
-        assert torch.equal(c_got, c_ref), (b, h, pos)
+        assert torch.equal(c_got, c_ref), (b, h, s_len, pos)
         dropped = {}
-        if 0 < at < MOE_CACHE - 1:
+        if 0 < at < s_len - 1:
             dropped["position mask"] = mla_ops.mla_attention_reference(
-                q_lat, q_pe, c_kv, k_pe, cos, sin, cache.clone(), MOE_CACHE - 1, scale)
-        errs[(b, h, pos)] = compare(f"mla_attention B={b} H={h} S={MOE_CACHE} pos {pos}", got,
-                                    ref, dropped)
+                q_lat, q_pe, c_kv, k_pe, cos, sin, cache.clone(), s_len - 1, scale)
+        errs[(b, h, s_len, pos)] = compare(
+            f"mla_attention B={b} H={h} S={s_len} pos {pos}, {ranks} ranks", got, ref, dropped)
     # a graph replay reads the position from device memory
     q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, MOE_CACHE)
     p = torch.tensor(10, device=dev)
@@ -3845,35 +3896,51 @@ def mla_kernels(dev, gen, flush, card: str) -> dict:
     assert torch.equal(c_graph, c_ref)
     errs["graph"] = compare(f"mla_attention captured at pos 10, replayed at {MOE_POS}", out,
                             ref, {})
-    # timed at the step's shape
-    q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, MOE_CACHE)
-    p = torch.tensor(MOE_POS, device=dev)
-    n_rows = MOE_POS + 1
-    n_bytes = n_rows * 576 * 2 + nbytes(q_lat) + 16 * 64 * 2 + 576 * 2 + 16 * 512 * 2 * 2
-    n_ops = 2.0 * 16 * n_rows * (576 + 512)
-    row = timed("mla_attention B=1 H=16 pos 1800",
-                lambda: mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, cache, p, scale),
-                lambda: mla_ops.mla_attention_reference(q_lat, q_pe, c_kv, k_pe, cos, sin, cache,
-                                                        MOE_POS, scale),
-                n_bytes, n_ops, flush)
-    qf = torch.cat([q_lat, q_pe], -1).transpose(1, 2)                 # (1, 16, 1, 576)
-    keys = cache[:, None, :n_rows]
-    row["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qf, keys.expand(1, 16, n_rows, 576), keys[..., :512].expand(1, 16, n_rows, 512),
-        scale=scale), flush)
-    for at in (0, 200):                                 # the fixed cost, and a short cache
-        pa = torch.tensor(at, device=dev)
-        ms = time_ms(lambda: mla_ops.mla_attention(q_lat, q_pe, c_kv, k_pe, cos, sin, cache, pa,
-                                                   scale), flush)
-        print(f"mla_attention B=1 H=16 pos {at}: kernel {ms:.4f} ms [{card}]")
-    copies = [(q_lat, q_pe, c_kv, k_pe, cos, sin, cache.clone(), p) for _ in range(
-        min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / nbytes(cache)) + 1)))]
-    row["back_to_back_ms"] = back_to_back_ms(
-        lambda *a: mla_ops.mla_attention(*a, scale), copies, flush)
-    print(f"mla_attention B=1 H=16 pos {MOE_POS}: back-to-back {row['back_to_back_ms']:.4f} ms "
-          f"per launch over {len(copies)} caches; library (scaled_dot_product_attention on "
-          f"the absorbed rows) {row['library_ms']:.4f} ms [{card}]")
+    row = mla_timings(dev, gen, flush, card, (cos, sin, scale))
     return {"mla_attention": kernel_row(row, errs)}
+
+
+# phase 17's latent-attention timings: (cache rows S, device position)
+MLA_TIMED = ((MOE_CACHE, 0), (MOE_CACHE, 200), (MOE_CACHE, 1200), (MOE_CACHE, MOE_POS),
+             (MOE_CACHE, MOE_CACHE - 1), (2 * MOE_CACHE, 2 * MOE_CACHE - 1))
+
+
+def mla_timings(dev, gen, flush, card: str, tables: tuple) -> dict:
+    """mla_attention at B = 1, 16 heads, at each MLA_TIMED shape: single
+    launch (L2 flushed) and back to back over caches larger than L2.
+    Returns the row at MOE_POS: beside the bound, the plain version and
+    scaled_dot_product_attention on the absorbed rows."""
+    from turbo_whisper_workspace_tpu_torch.ops import mla_ops
+
+    cos, sin, scale = tables
+    row = None
+    for s_len, pos in MLA_TIMED:
+        q_lat, q_pe, c_kv, k_pe, cache = mla_inputs(gen, dev, 1, 16, s_len)
+        p = torch.tensor(pos, device=dev)
+        args = (q_lat, q_pe, c_kv, k_pe, cos, sin, cache, p)
+        copies = [args[:6] + (cache.clone(), p) for _ in range(
+            min(BACK_TO_BACK, max(2, math.ceil(L2_BYTES / nbytes(cache)) + 1)))]
+        single = time_ms(lambda: mla_ops.mla_attention(*args, scale), flush)
+        b2b = back_to_back_ms(lambda *a: mla_ops.mla_attention(*a, scale), copies, flush)
+        print(f"mla_attention B=1 H=16 S={s_len} pos {pos}: single {single:.4f} ms, "
+              f"back-to-back {b2b:.4f} ms per launch over {len(copies)} caches [{card}]")
+        if (s_len, pos) == (MOE_CACHE, MOE_POS):
+            n_rows = pos + 1
+            n_bytes = (n_rows * 576 * 2 + nbytes(q_lat) + 16 * 64 * 2 + 576 * 2
+                       + 16 * 512 * 2 * 2)
+            row = timed(f"mla_attention B=1 H=16 pos {pos}",
+                        lambda: mla_ops.mla_attention(*args, scale),
+                        lambda: mla_ops.mla_attention_reference(*args[:7], pos, scale),
+                        n_bytes, 2.0 * 16 * n_rows * (576 + 512), flush)
+            qf = torch.cat([q_lat, q_pe], -1).transpose(1, 2)             # (1, 16, 1, 576)
+            keys = cache[:, None, :n_rows]
+            row["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qf, keys.expand(1, 16, n_rows, 576), keys[..., :512].expand(1, 16, n_rows, 512),
+                scale=scale), flush)
+            row["back_to_back_ms"] = b2b
+            print(f"mla_attention B=1 H=16 pos {pos}: library (scaled_dot_product_attention "
+                  f"on the absorbed rows) {row['library_ms']:.4f} ms [{card}]")
+    return row
 
 
 def moe_model(tq, lo, dev, card: str) -> dict:
@@ -4221,8 +4288,9 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     from turbo_whisper_workspace_tpu_torch.ops import llama_ops as lo
 
-    moe_stats, path_counts["moe"] = moe_phase(tq, lo, dev, card)
+    moe_stats, moe_counts = moe_phase(tq, lo, dev, card)
     stats.update(moe_stats)
+    path_counts.update(moe_counts)
 
     lines = []
     for name, s in stats.items():

@@ -172,6 +172,96 @@ def test_absorbed_attention_equals_the_expanded_form():
     close(absorbed, expanded, 1e-5)
 
 
+def test_mla_plan_holds_the_cells_slices_resident():
+    """mla_attention's plan (ops/mla_ops.ranks, the kernel's mirror) at
+    moonlight-enrich's caches, S = prompt + new tokens from 1208 + 200 to
+    1798 + 256: a cluster of 16 ranks where the card holds one, and every
+    position's largest slice resident (one pass); 8 ranks where it holds
+    none; at S = 4096 the last positions' slices take a second round."""
+    def slice_rows(pos, ranks):          # the largest of the pos + 1 visible rows' slices
+        return -(-(pos + 1) // ranks)
+
+    for s_len in range(1208 + 200, 1798 + 256 + 1):
+        assert mla_ops.ranks(s_len, 1, 1) == mla_ops.WIDE_RANKS
+        assert mla_ops.ranks(s_len, 1, 0) == mla_ops.PORTABLE_RANKS
+        for pos in (0, 1207, s_len - 1):
+            assert slice_rows(pos, mla_ops.WIDE_RANKS) <= mla_ops.RESIDENT_ROWS
+    assert mla_ops.ranks(4096, 1, 1) == 16
+    assert slice_rows(2559, 16) == mla_ops.RESIDENT_ROWS < slice_rows(2560, 16)
+    assert slice_rows(4095, 16) == 256
+    # more clusters than the card holds at 16 (or than one wave) take fewer ranks
+    assert mla_ops.ranks(2048, 8, 7) == 8 and mla_ops.ranks(2048, 9, 9) == 8
+    assert mla_ops.ranks(64, 1, 1) == 1 and mla_ops.ranks(100, 1, 1) == 2
+
+
+def mla_cluster_mirror(q_lat, q_pe, c_kv, k_pe, cos, sin, cache, pos: int, scale: float,
+                       ranks: int, resident: int = mla_ops.RESIDENT_ROWS):
+    """csrc/mla_attention.cu's arithmetic in its order, in torch: the new
+    row written and the queries rotated as the plain version does, the
+    pos + 1 visible rows in `ranks` even slices, each slice in rounds of
+    `resident` rows: f32 scores (log2 e folded into the scale), the
+    round's exact max against the running one, weights exp2(s − m)
+    rounded to bf16 and summed as rounded, f32 P·V rescaled between
+    rounds; then each rank's share exp2(m_r − M) / Σ_r exp2(m_r − M) l_r
+    of the f32 combine, one rounding."""
+    b, _, h, lat = q_lat.shape
+    rows = tuple(t[pos:pos + 1][None, :, None, :] for t in (cos, sin))
+    q_rot = ds.llama_ops.apply_rope(q_pe, *rows)
+    k_rot = ds.llama_ops.apply_rope(k_pe[:, :, None], *rows)[:, :, 0]
+    cache[:, pos] = torch.cat([c_kv, k_rot], -1)[:, 0].to(cache.dtype)
+    q = torch.cat([q_lat, q_rot], -1)[:, 0].float()                          # (B, H, 576)
+    n = pos + 1
+    width = -(-n // ranks)
+    parts, maxes, sums = [], [], []
+    for lo in range(0, ranks * width, width):
+        m = torch.full((b, h, 1), -1e30)
+        l = torch.zeros(b, h, 1)
+        o = torch.zeros(b, h, lat)
+        for r0 in range(lo, min(lo + width, n), resident):
+            rows_r = cache[:, r0:min(r0 + resident, lo + width, n)].float()
+            s = torch.einsum("bhd,bsd->bhs", q, rows_r) * (scale * 1.4426950408889634)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            w = torch.exp2(s - m_new).to(torch.bfloat16).float()
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + w.sum(-1, keepdim=True)
+            o = o * alpha + torch.einsum("bhs,bsd->bhd", w, rows_r[..., :lat])
+            m = m_new
+        parts.append(o)
+        maxes.append(m)
+        sums.append(l)
+    big = torch.stack(maxes).amax(0)
+    f = [torch.exp2(m - big) for m in maxes]
+    total = sum(fr * lr for fr, lr in zip(f, sums))
+    out = sum((fr / total) * pr for fr, pr in zip(f, parts))
+    return out[:, None].to(q_lat.dtype)
+
+
+@pytest.mark.parametrize("ranks", [1, 8, 16])
+def test_mla_cluster_arithmetic_holds_to_the_plain_version(ranks):
+    """The kernel's split, per-slice exact softmax with bf16 weights and
+    f32 combine (mla_cluster_mirror) at Moonlight's widths, at positions
+    on and off the slices' edges and through a second round, within the
+    card test's 5e-3 of the plain version; the cache row bit-equal. (The
+    kernel itself is held to the plain version at these positions and
+    ranks by the card's test_mla_attention_kernel_is_its_plain_version.)"""
+    dims = ds.DEEPSEEK_V3_CONFIGS["moonlight-16b-a3b"]
+    cos, sin = rope_table(dims, "cpu")
+    bf = torch.bfloat16
+    for s_len, pos in ((2048, 1023), (2048, 1024), (4096, 2560), (4096, 4095)):
+        g = torch.Generator().manual_seed(ranks * 7 + pos)
+        q_lat = torch.randn(1, 1, 16, 512, generator=g).to(bf)
+        q_pe = torch.randn(1, 1, 16, 64, generator=g).to(bf)
+        kv = torch.randn(1, 1, 576, generator=g).to(bf)
+        cache = torch.randn(1, s_len, 576, generator=g).to(bf)
+        args = (q_lat, q_pe, kv[..., :512], kv[..., 512:], cos, sin)
+        c_got, c_want = cache.clone(), cache.clone()
+        got = mla_cluster_mirror(*args, c_got, pos, dims.qk_head_dim ** -0.5, ranks)
+        want = mla_ops.mla_attention_reference(*args, c_want, pos, dims.qk_head_dim ** -0.5)
+        assert torch.equal(c_got, c_want), (s_len, pos)
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rel <= 5e-3, (s_len, pos, rel)
+
+
 def test_routing_matches_the_reference_and_the_bias_changes_the_choice(model):
     sd, dims, params, tokens, _ = model
     h = torch.randn(64, 64, generator=torch.Generator().manual_seed(5))
@@ -457,24 +547,57 @@ def test_cuda_takes_fused_int4_experts_alone(cuda_device):
 
 @pytest.mark.cuda
 def test_mla_attention_kernel_is_its_plain_version(cuda_device):
+    """At S = 2048, 2056 (the cell's longest) and 4096 (slices past the
+    resident rows: a second round), at position 0, a slices' edge and S −
+    1; at S = 64 (one rank) and 100 (two); at 8 batch rows (more clusters
+    than the card holds at 16 ranks: the portable 8); the ranks the
+    library launches with are its mirror's; one launch captured in a
+    graph at one position and replayed at another."""
     g = torch.Generator(cuda_device).manual_seed(10)
     dims = ds.DEEPSEEK_V3_CONFIGS["moonlight-16b-a3b"]
     cos, sin = rope_table(dims, cuda_device)
     bf = torch.bfloat16
-    for pos in (0, 700, 2047):
-        q_lat = torch.randn(1, 1, 16, 512, generator=g, device=cuda_device).to(bf)
-        q = torch.randn(1, 1, 16, 192, generator=g, device=cuda_device).to(bf)
-        kv = torch.randn(1, 1, 576, generator=g, device=cuda_device).to(bf)
-        cache = torch.randn(1, 2048, 576, generator=g, device=cuda_device).to(bf)
-        args = (q_lat, q[..., 128:], kv[..., :512].contiguous(), kv[..., 512:], cos, sin)
-        c_got, c_want = cache.clone(), cache.clone()
-        at = torch.tensor(pos, device=cuda_device)
-        got = mla_ops.mla_attention(*args, c_got, at, 192 ** -0.5)
-        want = mla_ops.mla_attention_reference(*args, c_want, pos, 192 ** -0.5)
-        assert torch.equal(c_got, c_want)
+    scale = 192 ** -0.5
+
+    def inputs(s_len, b=1):
+        q_lat = torch.randn(b, 1, 16, 512, generator=g, device=cuda_device).to(bf)
+        q = torch.randn(b, 1, 16, 192, generator=g, device=cuda_device).to(bf)
+        kv = torch.randn(b, 1, 576, generator=g, device=cuda_device).to(bf)
+        cache = torch.randn(b, s_len, 576, generator=g, device=cuda_device).to(bf)
+        return (q_lat, q[..., 128:], kv[..., :512].contiguous(), kv[..., 512:], cos, sin), cache
+
+    def check(got, want, c_got, c_want, what):
+        assert torch.equal(c_got, c_want), what
         # the kernel rounds the softmax weights to bf16 for P·V
         rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
-        assert rel <= 5e-3, (pos, rel)
+        assert rel <= 5e-3, (what, rel)
+
+    wide = mla_ops.kernel_wide_clusters()
+    assert mla_ops.ranks(64, 1, wide) == 1 and mla_ops.ranks(100, 1, wide) == 2
+    if wide < 8:
+        assert mla_ops.ranks(2048, 8, wide) == mla_ops.PORTABLE_RANKS
+    for b, s_len, positions in ((1, 2048, (0, 700, 1023, 2047)), (1, 2056, (0, 1279, 2055)),
+                                (1, 4096, (0, 2559, 2560, 4095)), (1, 64, (63,)),
+                                (1, 100, (70,)), (8, 2048, (1500,))):
+        assert mla_ops.kernel_ranks(s_len, b) == mla_ops.ranks(s_len, b, wide)
+        for pos in positions:
+            args, cache = inputs(s_len, b)
+            c_got, c_want = cache.clone(), cache.clone()
+            got = mla_ops.mla_attention(*args, c_got, torch.tensor(pos, device=cuda_device),
+                                        scale)
+            want = mla_ops.mla_attention_reference(*args, c_want, pos, scale)
+            check(got, want, c_got, c_want, (b, s_len, pos))
+    args, cache = inputs(2056)
+    at = torch.tensor(10, device=cuda_device)
+    c_got, c_want = cache.clone(), cache.clone()
+    mla_ops.mla_attention(*args, cache.clone(), at, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = mla_ops.mla_attention(*args, c_got, at, scale)
+    at.fill_(2000)
+    graph.replay()
+    want = mla_ops.mla_attention_reference(*args, c_want, 2000, scale)
+    check(got, want, c_got, c_want, "graph")
 
 
 @pytest.mark.cuda

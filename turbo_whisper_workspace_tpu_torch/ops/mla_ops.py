@@ -13,8 +13,9 @@ a wrapper and a plain PyTorch version beside it:
   rows' 512 latent columns returned; csrc/mla_attention.cu.
 
 For CUDA tensors the wrapper checks them, launches the kernel on the
-current stream and counts the launch in `launch_counts`; for CPU tensors
-it runs the plain version; anything else raises. `pos` is a host int or
+current stream and counts the launch in `launch_counts` (and, where its
+cluster takes 16 ranks, calls `mla_cluster_launch`); for CPU tensors it
+runs the plain version; anything else raises. `pos` is a host int or
 a 0-dim int64 tensor on the tensors' device, read by the kernel from
 device memory (a decode step a CUDA graph replays).
 """
@@ -22,6 +23,7 @@ device memory (a decode step a CUDA graph replays).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,34 +33,67 @@ from .llama_ops import _device_pos, apply_rope
 
 LATENT, ROPE = 512, 64      # the kernel's widths: kv_lora_rank and qk_rope_head_dim
 HEADS_A_BLOCK = 16          # query heads a block: the mma's rows
-KEYS_PER_RANK = 64          # csrc/mla_attention.cu:plan_ranks, mirrored
-MAX_RANKS = 8
+# csrc/mla_attention.cu's plan, mirrored
+KEYS_PER_RANK = 64          # the slice aimed at before the ranks are capped
+WIDE_RANKS = 16             # a cluster where the card holds every one of the launch
+PORTABLE_RANKS = 8          # else
 WAVE_BLOCKS = 132
+RESIDENT_ROWS = 160         # a rank's rows in shared memory at once; more stream in rounds
 
 # kernel name → launches since the last reset_launch_counts()
 launch_counts = {"mla_attention": 0}
+# the launches whose cluster took WIDE_RANKS blocks (mla_cluster_launch)
+cluster_launch_counts = {f"mla_attention.cluster{WIDE_RANKS}": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, cluster_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
-def ranks(s_len: int, clusters: int) -> int:
+def ranks(s_len: int, clusters: int, wide_clusters: int) -> int:
     """The blocks of a cluster (csrc/mla_attention.cu:plan_ranks): slices
-    of about KEYS_PER_RANK cache rows, at most MAX_RANKS and one wave of
-    blocks, rounded down to a power of two."""
-    r = min(-(-s_len // KEYS_PER_RANK), WAVE_BLOCKS // max(clusters, 1), MAX_RANKS)
+    of about KEYS_PER_RANK cache rows, one wave of blocks at most, and
+    WIDE_RANKS where the card holds all `clusters` at that size
+    (`wide_clusters`: the kernel's occupancy query, `kernel_wide_clusters`),
+    else PORTABLE_RANKS; rounded down to a power of two."""
+    cap = WIDE_RANKS if max(clusters, 1) <= wide_clusters else PORTABLE_RANKS
+    r = min(-(-s_len // KEYS_PER_RANK), WAVE_BLOCKS // max(clusters, 1), cap)
     return 1 << (max(r, 1).bit_length() - 1)
+
+
+def _entry(name: str, argtypes: list):
+    entry = getattr(build.library("mla_attention"), name)
+    entry.argtypes = argtypes
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def kernel_ranks(s_len: int, clusters: int) -> int:
     """The ranks the built library launches with (the card's machine):
     the check that `ranks` mirrors it."""
-    entry = build.library("mla_attention").tww_mla_attention_ranks
-    entry.argtypes = [ctypes.c_int, ctypes.c_int]
-    entry.restype = ctypes.c_int
-    return entry(s_len, clusters)
+    return _entry("tww_mla_attention_ranks", [ctypes.c_int, ctypes.c_int])(s_len, clusters)
+
+
+def kernel_wide_clusters() -> int:
+    """The kernel's 16-block clusters the card holds at once (the
+    library's occupancy query, asked once a process; 0: it keeps
+    PORTABLE_RANKS)."""
+    return _entry("tww_mla_attention_wide_clusters", [])()
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_ranks(s_len: int, clusters: int) -> int:
+    return kernel_ranks(s_len, clusters)
+
+
+def mla_cluster_launch(n_ranks: int) -> None:
+    """Count one mla_attention launch over a cluster of `n_ranks` blocks
+    (WIDE_RANKS, the non-portable size), as count_launch counts; the
+    wrapper calls it beside each such launch, so a profiler that wraps it
+    sees each."""
+    count_launch(cluster_launch_counts, f"mla_attention.cluster{n_ranks}")
 
 
 def mla_attention_reference(q_lat: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Tensor,
@@ -124,4 +159,6 @@ def mla_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Tensor,
                  cos.data_ptr(), sin.data_ptr(), cache.data_ptr(), out.data_ptr(), b, h, s_len,
                  cos.shape[0], pos_at, pos_i, scale, _stream(q_lat.device))
     count_launch(launch_counts, "mla_attention")
+    if _launch_ranks(s_len, b * -(-h // HEADS_A_BLOCK)) == WIDE_RANKS:
+        mla_cluster_launch(WIDE_RANKS)
     return out
